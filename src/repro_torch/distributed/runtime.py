@@ -1,0 +1,226 @@
+"""Compile-once executor runtime: structure work once, values only per call.
+
+Mirrors ``repro.distributed.runtime``.  The paper's amortization premise is
+that the partition — and therefore the plan — is computed once and reused
+across many multiplications with the same sparsity structure.
+``CompiledSpGEMM`` does all structure-time work exactly once per
+(plan, operand structures, ranks and device, dtype, block): the value
+scatter indices, route tables, pair lists, kernel run offsets and unpack
+indices are uploaded to the device at construction, so ``__call__`` does
+no host structure work.  PyTorch runs eagerly, so there is no trace or
+compile step; capturing the call as a CUDA graph is later work.
+
+``compile_spgemm`` memoizes executors in a bounded LRU keyed like the
+reference's, with its mesh replaced by ``(p, device)``.
+
+Value conventions (``__call__`` inputs): monoC takes (nnz, b, b) block-value
+stacks in the *block* structure's CSR order (``to_bsr(...).blocks`` order);
+the ``repro_torch.api`` front door hides this behind
+``ModelSpec.pack_values``.
+"""
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.registry import get_spec
+from repro_torch.sparse.structure import SparseStructure, structure_fingerprint
+
+__all__ = [
+    "CompiledSpGEMM",
+    "cache_info",
+    "compile_spgemm",
+    "plan_fingerprint",
+    "resolve_device",
+    "torch_dtype",
+]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another.  ``None`` means CUDA and raises when there is none — the CPU is
+    only ever chosen explicitly (``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU"
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype or anything numpy reads as one."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+
+
+# -- fingerprints ------------------------------------------------------------
+def plan_fingerprint(plan) -> str:
+    """Content hash of a plan's executor-visible state, computed once and
+    memoized on the plan object (id-stable: repeat lookups are O(1))."""
+    fp = getattr(plan, "_fingerprint", None)
+    if fp is None:
+        h = hashlib.sha1(f"{plan.model}/{plan.p}".encode())
+        for tag, group in (
+            ("own", plan.ownership),
+            ("loc", plan.local_ids),
+            ("cmp", plan.compute),
+        ):
+            for k in sorted(group):
+                h.update(f"{tag}:{k}".encode())
+                h.update(np.ascontiguousarray(group[k]))
+        for k in sorted(plan.routes):
+            r = plan.routes[k]
+            h.update(f"route:{k}:{r.word_size}".encode())
+            h.update(np.ascontiguousarray(r.send_idx))
+            h.update(np.ascontiguousarray(r.recv_key))
+        fp = h.hexdigest()
+        plan._fingerprint = fp
+    return fp
+
+
+# -- the compiled executor ---------------------------------------------------
+class CompiledSpGEMM:
+    """One SpGEMM executor with its structure work done: values only.
+
+    ``__call__`` takes the value stacks (tensors or numpy arrays, never
+    written to) and returns the executor's rank-major C shards on the
+    executor's device; ``unpack`` turns them into the dense product.
+    """
+
+    def __init__(
+        self,
+        plan,
+        a_structure: SparseStructure,
+        b_structure: SparseStructure,
+        *,
+        device=None,
+        dtype=torch.float32,
+        block: int = 1,
+        c_structure: SparseStructure | None = None,
+    ):
+        if a_structure.shape[1] != b_structure.shape[0]:
+            raise ValueError(
+                f"inner dimensions disagree: {a_structure.shape} @ {b_structure.shape}"
+            )
+        self.plan = plan
+        self.model = plan.model
+        self.device = resolve_device(device)
+        self.dtype = torch_dtype(dtype)
+        self.block = block
+        spec = get_spec(plan.model)
+        self.spec = spec
+        setup = spec.make_runner(
+            plan,
+            a_structure,
+            b_structure,
+            device=self.device,
+            dtype=self.dtype,
+            block=block,
+        )
+        self.pack, self.step = setup.pack, setup.step
+        self._I, self._J = setup.out_shape
+        self._a_shape, self._b_shape = setup.a_shape, setup.b_shape
+        self.c_structure = None
+        self._unpack = None
+        if c_structure is not None:
+            self.set_c_structure(c_structure)
+
+    def set_c_structure(self, c_structure: SparseStructure) -> None:
+        """Upload the unpack indices for C's (block) structure."""
+        self.c_structure = c_structure
+        self._unpack = self.spec.make_unpack(
+            self.plan, c_structure, (self._I, self._J), self.device
+        )
+
+    @property
+    def comm(self):
+        """The step's collective (counts the items it moves)."""
+        return self.step.comm
+
+    def _coerce(self, x, shape, name: str) -> torch.Tensor:
+        # a caller's numpy array may be shared, never written: packing
+        # scatters it into fresh tables
+        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(
+                f"{name} values have shape {tuple(x.shape)}, but this executor "
+                f"was built for {shape} — same-structure updates only"
+            )
+        return x
+
+    def __call__(self, a_values, b_values) -> torch.Tensor:
+        """Value-only update: returns rank-major C shards."""
+        a = self._coerce(a_values, self._a_shape, "A")
+        b = self._coerce(b_values, self._b_shape, "B")
+        return self.step(*self.pack(a, b))
+
+    def unpack(self, c_local: torch.Tensor) -> torch.Tensor:
+        """Scatter rank-major C shards back to a dense (I, J) tensor (padded
+        block-grid shape for monoC) on the executor's device."""
+        if self._unpack is None:
+            raise ValueError(f"unpacking a {self.model} result needs c_structure")
+        return self._unpack(c_local)
+
+
+# -- bounded LRU cache -------------------------------------------------------
+CACHE_SIZE = 16
+_CACHE: OrderedDict[tuple, CompiledSpGEMM] = OrderedDict()
+_STATS = {"hits": 0, "misses": 0}
+
+
+def _cache_key(plan, a_structure, b_structure, device, dtype, block):
+    return (
+        plan_fingerprint(plan),
+        structure_fingerprint(a_structure),
+        structure_fingerprint(b_structure),
+        (plan.p, str(device)),
+        str(dtype),
+        block,
+    )
+
+
+def compile_spgemm(
+    plan,
+    a_structure: SparseStructure,
+    b_structure: SparseStructure,
+    *,
+    device=None,
+    dtype=torch.float32,
+    block: int = 1,
+    c_structure: SparseStructure | None = None,
+) -> CompiledSpGEMM:
+    """Get (or build) the executor for a plan + structures + device + dtype.
+    Cache hits return the *same* ``CompiledSpGEMM`` object."""
+    device = resolve_device(device)
+    dtype = torch_dtype(dtype)
+    key = _cache_key(plan, a_structure, b_structure, device, dtype, block)
+    exe = _CACHE.get(key)
+    if exe is not None:
+        _CACHE.move_to_end(key)
+        _STATS["hits"] += 1
+        if exe.c_structure is None and c_structure is not None:
+            exe.set_c_structure(c_structure)
+        return exe
+    _STATS["misses"] += 1
+    exe = CompiledSpGEMM(
+        plan, a_structure, b_structure, device=device, dtype=dtype,
+        block=block, c_structure=c_structure,
+    )
+    _CACHE[key] = exe
+    while len(_CACHE) > CACHE_SIZE:
+        _CACHE.popitem(last=False)
+    return exe
+
+
+def cache_info() -> dict:
+    return {"size": len(_CACHE), "max_size": CACHE_SIZE, **_STATS}
