@@ -16,11 +16,24 @@ Phases, each printing its seconds:
      against one CSR @ CSR call, and a profiler breakdown of one call;
   5. the tiled path at block 16: ``plan_monoC_from_dense`` on a seeded
      4096 x 4096 block-sparse operand, squared, checked against a float64
-     dense product on the card.
-Then one JSON line of per-kernel numbers (one entry per __global__ of the
-kernel source: ``scalar_runs`` on the block-1 path, ``block_runs`` on the
-block-16 path), the card line, and the result line; the phases' full
-records go to ``chiprun_out/chip_smoke.json``.  Any failure exits non-zero without the result line; there is no CPU
+     dense product on the card;
+  6. K1 at every block shape: (bm, bk, bn) in {(8, 16, 8), (16, 8, 32),
+     (64, 64, 64), (128, 128, 128)}, fp32 and bf16, against its plain
+     version; then ``repro_torch.kernels.ops.spgemm`` on the block-16
+     operand retiled 64 x 64, squared, against a float64 dense product;
+  7. K2 (``ops.spmm``): the AMG n=42 27-point operator tiled 8 x 8 by
+     scipy, times a seeded (74,088, 256) dense block, fp32 and bf16,
+     against scipy in float64 and against the plain version;
+  8. K3 (``ops.grouped_gemm``): the up and down expert projections of
+     Qwen3-MoE-235B-A22B (E = 128, C = 640, d = 4096, f = 1536) in bf16,
+     against the plain version, beside ``torch.bmm``.
+Then one JSON line of per-kernel numbers (one entry per __global__:
+``scalar_runs`` on the block-1 path, ``block_runs`` on the block-16 path,
+``block_rows`` on the fp32 AMG SpMM, ``expert_tiles`` on the up
+projection, each with the launches of its path), the card line, and the
+result line; the phases' full records go to ``chip_smoke.json`` under
+``OUT``.
+Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
 from __future__ import annotations
@@ -72,8 +85,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_bound(a_tab, pa, pb, run_start, run_c):
-    """Least time (ms) for the kernel's work and what bounds it.  Bytes: the
+def bound(n_bytes: float, ops: float, dtype):
+    """Least time (ms) for ``n_bytes`` of traffic and ``ops`` operations in
+    ``dtype`` on the card, and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_bound(a_tab, b_tab, pa, pb, run_start, run_c):
+    """Least time (ms) for K1's work and what bounds it.  Bytes: the
     A and B slots the pair list reads (each once), the four index arrays it
     reads, and one written C block per run, over the HBM rate.  Operations:
     the multiply-adds of this pair list over the peak for the input type.
@@ -82,32 +103,33 @@ def kernel_bound(a_tab, pa, pb, run_start, run_c):
     import torch
 
     es = a_tab.element_size()
-    block = a_tab.shape[-1]
-    slots = torch.unique(pa).numel() + torch.unique(pb).numel()
+    _, bm, bk = a_tab.shape
+    bn = b_tab.shape[-1]
     n_bytes = (
-        (slots + run_c.numel()) * block * block * es
+        (torch.unique(pa).numel() * bm * bk + torch.unique(pb).numel() * bk * bn
+         + run_c.numel() * bm * bn) * es
         + sum(t.numel() * t.element_size() for t in (pa, pb, run_start, run_c))
     )
-    ops = 2.0 * pa.numel() * block**3
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_FLOPS[str(a_tab.dtype).removeprefix("torch.")]
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, bound_by, n_bytes, ops
+    ops = 2.0 * pa.numel() * bm * bk * bn
+    return (*bound(n_bytes, ops, a_tab.dtype), n_bytes, ops)
 
 
-def random_block_case(rng, grid: int, block: int, density: float, dtype, device):
-    """Seeded random block matrices A, B (grid x grid blocks) and their pair
-    lists, with a trailing run of padding pairs into a garbage C slot."""
+def random_block_case(rng, grid: int, shape, density: float, dtype, device):
+    """Seeded random block matrices A, B (grid x grid blocks of (bm, bk) and
+    (bk, bn) = ``shape``) and their pair lists, with a trailing run of
+    padding pairs into a garbage C slot."""
     import torch
     from repro_torch.kernels.bsr_spgemm import build_pair_lists, pair_runs
 
-    def blocks():
+    bm, bk, bn = shape
+
+    def blocks(rows, cols):
         coords = np.argwhere(rng.random((grid, grid)) < density)
-        vals = rng.standard_normal((len(coords) + 1, block, block)).astype(np.float32)
+        vals = rng.standard_normal((len(coords) + 1, rows, cols)).astype(np.float32)
         vals[-1] = 0.0  # the all-zero slot padding pairs read
         return coords, vals
 
-    (ac, av), (bc, bv) = blocks(), blocks()
+    (ac, av), (bc, bv) = blocks(bm, bk), blocks(bk, bn)
     pa, pb, pc, crows, _ = build_pair_lists(ac[:, 0], ac[:, 1], bc[:, 0], bc[:, 1])
     pad = 64
     pa = np.r_[pa, [len(av) - 1] * pad]
@@ -124,15 +146,28 @@ def random_block_case(rng, grid: int, block: int, density: float, dtype, device)
 
 
 def reset_launches() -> None:
+    """Every kernel wrapper's launch counts to 0."""
     from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_local
+    from repro_torch.kernels.moe_gemm import moe_gemm
 
-    for kernel in bsr_spgemm_local.launches:
-        bsr_spgemm_local.launches[kernel] = 0
+    for counts in (bsr_spgemm_local.launches, bsr_spmm_local.launches, moe_gemm.launches):
+        for kernel in counts:
+            counts[kernel] = 0
 
 
-def check_kernel(args, tol: float):
-    """Kernel against the plain version on the same inputs; returns
-    (max_abs_err, kernel ms, plain ms)."""
+def max_err_within(got, want, tol: float, what: str) -> float:
+    """max |got - want|; fails unless every element is within tol + tol |want|."""
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= tol + tol * want.float().abs()).all()):
+        fail(f"{what}: max abs err {err.max().item()}")
+    return float(err.max().item())
+
+
+def check_kernel(args, tol: float, garbage_slot: bool = True):
+    """K1 against the plain version on the same inputs; returns
+    (max_abs_err, kernel ms, plain ms).  With ``garbage_slot`` the last C
+    slot is a padding run's and must stay zero."""
     import torch
     from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
     from repro_torch.kernels.ref import bsr_spgemm_ref
@@ -141,14 +176,12 @@ def check_kernel(args, tol: float):
     got = bsr_spgemm_local(*args)
     want = bsr_spgemm_ref(a, b, pa, pb, pc, n_c)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs()
-    if not bool((err <= tol + tol * want.float().abs()).all()):
-        fail(f"kernel disagrees with its plain version: max abs err {err.max().item()}")
-    if got[-1].any():
+    err = max_err_within(got, want, tol, "K1 disagrees with its plain version")
+    if garbage_slot and got[-1].any():
         fail("the garbage C slot is not zero")
     ms = cuda_ms(lambda: bsr_spgemm_local(*args))
     plain_ms = cuda_ms(lambda: bsr_spgemm_ref(a, b, pa, pb, pc, n_c))
-    return float(err.max().item()), ms, plain_ms
+    return err, ms, plain_ms
 
 
 def scipy_csr(structure, values):
@@ -244,7 +277,7 @@ def kernel_record_at(exe, a, b, library_ms):
     args = exe.runtime.step.kernel_inputs(a_own, b_own)
     a_tab, b_tab, pa, pb, pc, rs, rc, n_c = args
     err, ms, plain_ms = check_kernel(args, TOL[str(a_tab.dtype).removeprefix("torch.")])
-    bound_ms, bound_by, n_bytes, ops = kernel_bound(a_tab, pa, pb, rs, rc)
+    bound_ms, bound_by, n_bytes, ops = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
     return {
         "max_abs_err": err,
         "ms": ms,
@@ -363,7 +396,7 @@ def block16_path(device, rng):
     args = exe.step.kernel_inputs(a_own, b_own)
     k_err, k_ms, k_plain = check_kernel(args, TOL["float32"])
     a_tab, b_tab, pa, pb, pc, rs, rc, n_c = args
-    bound_ms, bound_by, n_bytes, ops = kernel_bound(a_tab, pa, pb, rs, rc)
+    bound_ms, bound_by, n_bytes, ops = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
     # the same product as one scalar CSR @ CSR call, on the last call's values
     with warnings.catch_warnings():  # CSR is "beta" in PyTorch; not our concern
         warnings.simplefilter("ignore", UserWarning)
@@ -389,7 +422,253 @@ def block16_path(device, rng):
               "pairs": pa.numel(), "runs": rc.numel(), "block": block}
     print("block16 path", json.dumps(stats), flush=True)
     print("K1 at block 16", json.dumps(record), flush=True)
-    return stats, record
+    return stats, record, dense
+
+
+def k1_block_shapes(rng, device):
+    """K1 against its plain version at rectangular and large blocks, each
+    with a trailing garbage run; fp32 and bf16."""
+    import torch
+
+    cases = {(8, 16, 8): (512, 0.02), (16, 8, 32): (256, 0.05),
+             (64, 64, 64): (64, 0.1), (128, 128, 128): (32, 0.15)}
+    records = []
+    for shape, (grid, density) in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            args = random_block_case(rng, grid, shape, density, dtype, device)
+            name = str(dtype).removeprefix("torch.")
+            err, ms, plain_ms = check_kernel(args, TOL[name])
+            a_tab, b_tab, pa, pb, _, rs, rc, _ = args
+            bound_ms, bound_by, _, _ = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
+            rec = {"shape": list(shape), "dtype": name, "pairs": pa.numel(),
+                   "runs": rc.numel(), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            records.append(rec)
+            print(f"K1 check {shape} {name} pairs={pa.numel()} max_abs_err={err:.3g} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}", flush=True)
+    return records
+
+
+def retiled_spgemm(dense, device):
+    """``ops.spgemm`` on the block16-4096 operand retiled at 64 x 64,
+    squared, against a float64 dense product on the card; then K1 at those
+    inputs against its plain version and one CSR @ CSR call."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, build_pair_lists, pair_runs
+    from repro_torch.sparse.bsr import to_bsr
+
+    block = 64
+    ab = to_bsr(dense, block, block)
+    reset_launches()
+    t0 = time.perf_counter()
+    c_blocks, crows, ccols = ops.spgemm(ab, ab)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = bsr_spgemm_local.launches["block_runs"]
+    if launches != 1:
+        fail(f"retiled {block}: {launches} block_runs launches in one ops.spgemm call")
+    grid = dense.shape[0] // block
+    a64 = torch.from_numpy(dense).to(device, torch.float64)
+    want = a64 @ a64
+    c4 = torch.zeros((grid, grid, block, block), dtype=torch.float64, device=device)
+    c4[torch.as_tensor(crows, device=device), torch.as_tensor(ccols, device=device)] = (
+        c_blocks.double()
+    )
+    c = c4.permute(0, 2, 1, 3).reshape(want.shape)
+    if c_blocks.dtype != torch.float32 or not bool(torch.isfinite(c).all()):
+        fail(f"retiled {block}: result {c_blocks.dtype} not float32 or not finite")
+    err = max_err_within(c, want, 1e-4, f"retiled {block}: wrong product")
+    # K1 alone at the same inputs
+    pa, pb, pc, _, _ = build_pair_lists(ab.brows, ab.bcols, ab.brows, ab.bcols)
+    rs, rc = pair_runs(pc)
+    idx = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)  # noqa: E731
+    blocks = torch.from_numpy(ab.blocks).to(device)
+    pa_t, pb_t, rs_t, rc_t = idx(pa), idx(pb), idx(rs), idx(rc)
+    args = (blocks, blocks, pa_t, pb_t, idx(pc), rs_t, rc_t, len(crows))
+    k_err, ms, plain_ms = check_kernel(args, TOL["float32"], garbage_slot=False)
+    bound_ms, bound_by, n_bytes, n_ops = kernel_bound(blocks, blocks, pa_t, pb_t, rs_t, rc_t)
+    with warnings.catch_warnings():  # CSR is "beta" in PyTorch; not our concern
+        warnings.simplefilter("ignore", UserWarning)
+        a_csr = a64.float().to_sparse_csr()
+    record = {"instance": f"block16-4096-d0.05 retiled {block}x{block}, squared",
+              "n_blocks": ab.n_blocks, "c_blocks": len(crows), "pairs": len(pa),
+              "runs": len(rc), "ops_call_ms": call_ms, "launches": launches,
+              "max_abs_err_vs_float64": err, "max_abs_err": k_err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_bytes": n_bytes, "bound_flops": n_ops,
+              "library_ms": library_csr_ms(a_csr, a_csr)}
+    print(f"K1 retiled {block}", json.dumps(record), flush=True)
+    return record
+
+
+def spmm_amg(a_struct, device, rng):
+    """K2 at the repo's AMG size: the 27-point operator of AMG n=42 with
+    seeded values, tiled 8 x 8 by scipy's BSR conversion, times a seeded
+    dense (n, 256) block of vectors through ``ops.spmm`` in fp32 and bf16;
+    checked against scipy in float64 on the same (rounded) inputs, then the
+    kernel against its plain version and one PyTorch sparse @ dense call."""
+    import scipy.sparse as sp
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_local, row_offsets
+    from repro_torch.kernels.ref import bsr_spmm_ref
+    from repro_torch.sparse.bsr import BlockSparse
+
+    block, n_cols = 8, 256
+    t0 = time.perf_counter()
+    vals = rng.standard_normal(a_struct.nnz).astype(np.float32)
+    a_bsr = scipy_csr(a_struct, vals).astype(np.float32).tobsr(blocksize=(block, block))
+    a_bsr.sort_indices()
+    m_blocks = a_struct.shape[0] // block
+    brows = np.repeat(np.arange(m_blocks), np.diff(a_bsr.indptr))
+    bcols = a_bsr.indices.astype(np.int64)
+    dense = rng.standard_normal((a_struct.shape[1], n_cols)).astype(np.float32)
+    setup_s = time.perf_counter() - t0
+    nb = len(bcols)
+    fill = a_struct.nnz / (nb * block * block)
+    inputs, outs = {}, {}
+    reset_launches()
+    for dtype in (torch.float32, torch.bfloat16):
+        blocks = torch.from_numpy(a_bsr.data).to(device, dtype)
+        dense_dev = torch.from_numpy(dense).to(device, dtype)
+        inputs[dtype] = blocks, dense_dev
+        outs[dtype] = ops.spmm(BlockSparse(blocks, brows, bcols, a_struct.shape), dense_dev)
+    torch.cuda.synchronize()
+    launches = bsr_spmm_local.launches["block_rows"]
+    if launches != 2:
+        fail(f"K2: {launches} block_rows launches in two ops.spmm calls")
+    records = {"instance": f"AMG n={AMG_N} 27-point A, {block}x{block} BSR, N={n_cols}",
+               "shape": list(a_struct.shape), "nnz": a_struct.nnz, "n_blocks": nb,
+               "block_rows": m_blocks, "fill": fill, "setup_s": setup_s}
+    rows = torch.as_tensor(brows, device=device)
+    row_start = torch.as_tensor(row_offsets(brows, m_blocks), device=device)
+    cols32 = torch.as_tensor(bcols.astype(np.int32), device=device)
+    for dtype, out in outs.items():
+        name = str(dtype).removeprefix("torch.")
+        blocks, dense_dev = inputs[dtype]
+        if out.shape != (a_struct.shape[0], n_cols) or out.dtype != dtype:
+            fail(f"K2 {name}: result {tuple(out.shape)} {out.dtype}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"K2 {name}: result not finite")
+        # scipy in float64 on the inputs as the card saw them (bf16-rounded)
+        a_seen = sp.bsr_matrix(
+            (blocks.double().cpu().numpy(), a_bsr.indices, a_bsr.indptr), shape=a_struct.shape
+        )
+        want = torch.from_numpy(a_seen @ dense_dev.double().cpu().numpy()).to(device)
+        err64 = max_err_within(out.double(), want, TOL[name], f"K2 {name} against scipy")
+        # the kernel against its plain version, on the same device tensors
+        args = (blocks, row_start, cols32, dense_dev, m_blocks)
+        got = bsr_spmm_local(*args)
+        plain = bsr_spmm_ref(blocks, rows, cols32, dense_dev, m_blocks)
+        err = max_err_within(got, plain, TOL[name], f"K2 {name} against its plain version")
+        ms = cuda_ms(lambda: bsr_spmm_local(*args))
+        plain_ms = cuda_ms(lambda: bsr_spmm_ref(blocks, rows, cols32, dense_dev, m_blocks),
+                           reps=5, warmup=1)
+        es = blocks.element_size()
+        n_bytes = ((blocks.numel() + dense_dev.numel() + out.numel()) * es
+                   + (cols32.numel() + row_start.numel()) * 4)
+        n_ops = 2.0 * nb * block * block * n_cols
+        bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+        library_ms, library_call = spmm_library_ms(a_bsr, a_struct, vals, blocks, dense_dev,
+                                                   device)
+        records[name] = {
+            "launches": launches, "max_abs_err": err, "max_abs_err_vs_float64": err64,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": n_bytes, "bound_flops": n_ops, "library_ms": library_ms,
+            "library_call": library_call,
+        }
+        print(f"K2 AMG {name}", json.dumps(records[name]), flush=True)
+    return records
+
+
+def spmm_library_ms(a_bsr, a_struct, vals, blocks, dense, device):
+    """One PyTorch call for the same product (a yardstick only; the port
+    never calls it): BSR @ dense where this build has it on CUDA, else CSR @
+    dense on the operator's own nonzeros ``vals`` (canonical CSR order).
+    Returns (ms or None, which call)."""
+    import torch
+
+    def index(x):
+        return torch.as_tensor(x, dtype=torch.int64, device=device)
+
+    with warnings.catch_warnings():  # sparse BSR/CSR are "beta" in PyTorch
+        warnings.simplefilter("ignore", UserWarning)
+        try:
+            a = torch.sparse_bsr_tensor(index(a_bsr.indptr), index(a_bsr.indices), blocks,
+                                        size=a_bsr.shape)
+            return cuda_ms(lambda: a @ dense, reps=5, warmup=1), "torch.sparse_bsr_tensor @ dense"
+        except (RuntimeError, NotImplementedError) as exc:
+            print(f"library_ms: BSR @ dense unavailable ({exc}); trying CSR", flush=True)
+        try:
+            a = torch.sparse_csr_tensor(
+                index(a_struct.indptr), index(a_struct.indices),
+                torch.from_numpy(vals).to(device, blocks.dtype), size=a_struct.shape,
+            )
+            return cuda_ms(lambda: a @ dense, reps=5, warmup=1), "torch.sparse_csr_tensor @ dense"
+        except (RuntimeError, NotImplementedError) as exc:
+            print(f"library_ms: CSR @ dense unavailable ({exc})", flush=True)
+            return None, None
+
+
+def moe_qwen3(device):
+    """K3 at the full width of Qwen3-MoE-235B-A22B's experts (E = 128
+    experts, top-K = 8, d_model 4096, d_ff_expert 1536): T = 8192 routed
+    tokens at capacity factor 1.25 give C = ceil(T K / E * 1.25) = 640 rows
+    per expert.
+    The up projection (E, C, d) x (E, d, f) and the down projection of its
+    output (E, C, f) x (E, f, d) through ``ops.grouped_gemm`` in bf16, with
+    weights drawn N(0, 1/fan_in) so every output is O(1); each checked
+    against the plain version (tolerance 2e-2 + 2e-2 |want|: bf16 output
+    rounding), then timed beside ``torch.bmm`` on the same tensors."""
+    import math
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.ref import moe_gemm_ref
+
+    tokens, E, K, d, f = 8192, 128, 8, 4096, 1536
+    C = math.ceil(tokens * K / E * 1.25)
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=g, device=device) * std).to(torch.bfloat16)
+
+    x = normal((E, C, d), 1.0)
+    w_up = normal((E, d, f), 1 / math.sqrt(d))
+    w_down = normal((E, f, d), 1 / math.sqrt(f))
+    reset_launches()
+    h = ops.grouped_gemm(x, w_up)
+    y = ops.grouped_gemm(h, w_down)
+    torch.cuda.synchronize()
+    launches = moe_gemm.launches["expert_tiles"]
+    if launches != 2:
+        fail(f"K3: {launches} expert_tiles launches in two ops.grouped_gemm calls")
+    records = {"config": "Qwen3-MoE-235B-A22B experts", "E": E, "top_k": K, "tokens": tokens,
+               "C": C, "d_model": d, "d_ff_expert": f, "dtype": "bfloat16"}
+    for name, (xi, wi, out) in (("up", (x, w_up, h)), ("down", (h, w_down, y))):
+        if out.shape != (E, C, wi.shape[2]) or out.dtype != torch.bfloat16:
+            fail(f"K3 {name}: result {tuple(out.shape)} {out.dtype}")
+        if not bool(torch.isfinite(out).all()):
+            fail(f"K3 {name}: result not finite")
+        want = moe_gemm_ref(xi, wi)
+        err = max_err_within(out, want, TOL["bfloat16"], f"K3 {name} against its plain version")
+        ms = cuda_ms(lambda: moe_gemm(xi, wi), reps=2, warmup=1)
+        plain_ms = cuda_ms(lambda: moe_gemm_ref(xi, wi), reps=2, warmup=1)
+        library_ms = cuda_ms(lambda: torch.bmm(xi, wi), reps=5, warmup=1)
+        n_bytes = (xi.numel() + wi.numel() + out.numel()) * xi.element_size()
+        n_ops = 2.0 * E * C * xi.shape[2] * wi.shape[2]
+        bound_ms, bound_by = bound(n_bytes, n_ops, xi.dtype)
+        records[name] = {
+            "shape": [list(xi.shape), list(wi.shape)], "launches": launches,
+            "max_abs_err": err, "out_std": float(out.float().std().item()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_bytes": n_bytes, "bound_flops": n_ops, "library_ms": library_ms,
+            "library_call": "torch.bmm",
+        }
+        print(f"K3 {name}", json.dumps(records[name]), flush=True)
+    return records
 
 
 def main() -> None:
@@ -428,7 +707,7 @@ def main() -> None:
     cases = {1: (4096, 0.002), 8: (512, 0.02), 16: (256, 0.05), 32: (128, 0.05)}
     for block, (grid, density) in cases.items():
         for dtype in (torch.float32, torch.bfloat16):
-            args = random_block_case(rng, grid, block, density, dtype, device)
+            args = random_block_case(rng, grid, (block,) * 3, density, dtype, device)
             name = str(dtype).removeprefix("torch.")
             err, ms, plain_ms = check_kernel(args, TOL[name])
             print(f"K1 check b={block} {name} pairs={args[2].numel()} "
@@ -456,21 +735,42 @@ def main() -> None:
     phase("K1 at the main path's shapes", t0)
 
     t0 = time.perf_counter()
-    block16_stats, blocked = block16_path(device, rng)
+    block16_stats, blocked, block16_dense = block16_path(device, rng)
     phase("block 16 path", t0)
+
+    t0 = time.perf_counter()
+    shape_checks = k1_block_shapes(rng, device)
+    retiled = retiled_spgemm(block16_dense, device)
+    phase("K1 every block shape", t0)
+
+    t0 = time.perf_counter()
+    spmm = spmm_amg(ap.a, device, rng)
+    phase("K2 AMG SpMM", t0)
+
+    t0 = time.perf_counter()
+    moe = moe_qwen3(device)
+    phase("K3 Qwen3-MoE experts", t0)
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
-        "block16": block16_stats, "k1_block16": blocked,
+        "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
+        "k1_retiled64": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe,
     }, indent=1))
-    source = "src/repro_torch/kernels/csrc/bsr_spgemm.cu"
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
-        {"name": f"bsr_spgemm/{name}", "route": "cuda", "source": source,
-         "replaces": "src/repro/kernels/bsr_spgemm.py:63",
-         **{k: rec[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                "bound_ms", "bound_by", "library_ms")}}
-        for name, rec in (("scalar_runs", scalar), ("block_runs", blocked))
+        {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+         "replaces": replaces, **{k: rec[k] for k in keys}}
+        for name, source, replaces, rec in (
+            ("bsr_spgemm/scalar_runs", "bsr_spgemm.cu", "src/repro/kernels/bsr_spgemm.py:63",
+             scalar),
+            ("bsr_spgemm/block_runs", "bsr_spgemm.cu", "src/repro/kernels/bsr_spgemm.py:63",
+             blocked),
+            ("bsr_spmm/block_rows", "bsr_spmm.cu", "src/repro/kernels/bsr_spmm.py:69",
+             spmm["float32"]),
+            ("moe_gemm/expert_tiles", "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:61",
+             moe["up"]),
+        )
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line)

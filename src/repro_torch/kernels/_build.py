@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/`` at the repository root, named by a hash
 of its source and flags, so an edited source rebuilds and an unchanged one
 is compiled once.  Nothing here runs at import time: the CPU tests import
-every module on a machine without nvcc.
+every module on a machine without nvcc.  The checks every wrapper makes
+before it hands pointers to a kernel live here too.
 """
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
@@ -24,7 +28,31 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills in the log
 )
 
+# element types the kernels take, and their codes in every csrc/*.cu
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def as_index(x, device: torch.device) -> torch.Tensor:
+    """An int32 index tensor on ``device`` from a tensor, array or list."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
+
+
+def check_inputs(values, indices) -> None:
+    """Raise unless each ``(name, tensor)`` of ``values`` has a type in
+    ``DTYPE_CODE`` and is contiguous, and each of ``indices`` is a
+    contiguous 1-D int32 tensor."""
+    for name, t in values:
+        if t.dtype not in DTYPE_CODE:
+            raise TypeError(f"{name} dtype {t.dtype} not in {tuple(DTYPE_CODE)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in indices:
+        if t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
 
 
 def _nvcc() -> str:

@@ -21,10 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels._build import DTYPE_CODE, as_index, check_inputs, load
 from repro_torch.kernels.ref import bsr_spgemm_ref
-
-MAX_BLOCK = 32  # one CUDA block of b*b threads per run
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def build_pair_lists(
@@ -123,12 +121,6 @@ def pair_runs(pair_c: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return run_start, pc[starts].astype(np.int32)
 
 
-def _as_index(x, device: torch.device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=torch.int32)
-    return torch.as_tensor(np.asarray(x, dtype=np.int32), device=device)
-
-
 def bsr_spgemm(
     a_blocks: torch.Tensor,  # (na, bm, bk)
     b_blocks: torch.Tensor,  # (nb, bk, bn)
@@ -156,11 +148,11 @@ def bsr_spgemm(
     return bsr_spgemm_local(
         a_blocks,
         b_blocks,
-        _as_index(pair_a, dev),
-        _as_index(pair_b, dev),
-        _as_index(pair_c, dev),
-        _as_index(run_start, dev),
-        _as_index(run_c, dev),
+        as_index(pair_a, dev),
+        as_index(pair_b, dev),
+        as_index(pair_c, dev),
+        as_index(run_start, dev),
+        as_index(run_c, dev),
         n_c_blocks,
     )
 
@@ -168,35 +160,23 @@ def bsr_spgemm(
 @functools.cache
 def _kernel():
     """The kernel's C entry point, built and bound on first use."""
-    from repro_torch.kernels import _build
-
-    fn = _build.load("bsr_spgemm").repro_bsr_spgemm
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = load("bsr_spgemm").repro_bsr_spgemm
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check_kernel_inputs(a_blocks, b_blocks, index_tensors) -> int:
-    """Validate what the CUDA kernel takes; returns the block size."""
+def _block_shapes(a_blocks, b_blocks) -> tuple[int, int, int]:
+    """(bm, bk, bn) of (n, bm, bk) A blocks and (n, bk, bn) B blocks."""
     if a_blocks.ndim != 3 or b_blocks.ndim != 3:
-        raise ValueError("a_blocks and b_blocks must be (n, b, b) block stacks")
-    b = a_blocks.shape[1]
-    if a_blocks.shape[1:] != (b, b) or b_blocks.shape[1:] != (b, b):
+        raise ValueError("a_blocks and b_blocks must be (n, rows, cols) block stacks")
+    _, bm, bk = a_blocks.shape
+    if b_blocks.shape[1] != bk:
         raise ValueError(
-            f"the CUDA kernel takes square blocks of one size; got "
-            f"{tuple(a_blocks.shape[1:])} and {tuple(b_blocks.shape[1:])}"
+            f"A blocks {tuple(a_blocks.shape[1:])} and B blocks "
+            f"{tuple(b_blocks.shape[1:])} disagree on the inner size"
         )
-    if not 1 <= b <= MAX_BLOCK:
-        raise ValueError(f"block size {b} outside [1, {MAX_BLOCK}]")
-    for name, t in (("a_blocks", a_blocks), ("b_blocks", b_blocks)):
-        if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"{name} dtype {t.dtype} not in {tuple(_DTYPE_CODE)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in index_tensors:
-        if t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
-    return b
+    return bm, bk, b_blocks.shape[2]
 
 
 def bsr_spgemm_local(
@@ -209,14 +189,15 @@ def bsr_spgemm_local(
     run_c: torch.Tensor,
     n_c_blocks: int,
 ) -> torch.Tensor:
-    """``C[pair_c[i]] += A[pair_a[i]] @ B[pair_b[i]]`` -> (n_c_blocks, b, b).
+    """``C[pair_c[i]] += A[pair_a[i]] @ B[pair_b[i]]`` -> (n_c_blocks, bm, bn).
 
-    All tensors lie on one device.  ``(run_start, run_c)`` is
+    All tensors lie on one device.  A blocks are (bm, bk) and B blocks
+    (bk, bn), of any size.  ``(run_start, run_c)`` is
     ``pair_runs(pair_c)``, computed once by the caller, and every index is
     in range (``bsr_spgemm`` checks that; the executors build their lists
     in range).  On the CPU this is
     the plain version; on CUDA it launches the kernel (adding one to
-    ``bsr_spgemm_local.launches["scalar_runs"]`` at b = 1, else to
+    ``bsr_spgemm_local.launches["scalar_runs"]`` for 1 x 1 blocks, else to
     ``["block_runs"]``) or raises.  The result is in
     ``promote_types(a, b)``, accumulated in fp32; C blocks no pair touches
     are zero.
@@ -234,17 +215,20 @@ def bsr_spgemm_local(
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, a_blocks on {device}")
+    bm, bk, bn = _block_shapes(a_blocks, b_blocks)
     if device.type == "cpu":
         return bsr_spgemm_ref(a_blocks, b_blocks, pair_a, pair_b, pair_c, n_c_blocks)
     if device.type != "cuda":
         raise ValueError(f"no BSR SpGEMM kernel for device type {device.type!r}")
-    indices = [(k, tensors[k]) for k in ("pair_a", "pair_b", "run_start", "run_c")]
-    b = _check_kernel_inputs(a_blocks, b_blocks, indices)
+    check_inputs(
+        [("a_blocks", a_blocks), ("b_blocks", b_blocks)],
+        [(k, tensors[k]) for k in ("pair_a", "pair_b", "run_start", "run_c")],
+    )
     out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
     # the kernel reads one element type: mixed inputs meet at the result type
     a_blocks = a_blocks.to(out_dtype)
     b_blocks = b_blocks.to(out_dtype)
-    out = torch.zeros((n_c_blocks, b, b), dtype=out_dtype, device=device)
+    out = torch.zeros((n_c_blocks, bm, bn), dtype=out_dtype, device=device)
     n_runs = run_c.numel()
     if run_start.numel() != n_runs + 1:
         raise ValueError("run_start must hold n_runs + 1 offsets")
@@ -260,13 +244,16 @@ def bsr_spgemm_local(
             run_c.data_ptr(),
             out.data_ptr(),
             n_runs,
-            b,
-            _DTYPE_CODE[out_dtype],
+            bm,
+            bk,
+            bn,
+            DTYPE_CODE[out_dtype],
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"bsr_spgemm kernel launch failed: CUDA error {err}")
-    bsr_spgemm_local.launches["scalar_runs" if b == 1 else "block_runs"] += 1
+    scalar = bm == bk == bn == 1
+    bsr_spgemm_local.launches["scalar_runs" if scalar else "block_runs"] += 1
     return out
 
 

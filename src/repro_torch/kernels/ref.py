@@ -10,6 +10,32 @@ from __future__ import annotations
 import torch
 
 
+def _acc_dtype(out_dtype: torch.dtype) -> torch.dtype:
+    """fp32, or wider for float64 inputs: the type products are summed in."""
+    return torch.promote_types(out_dtype, torch.float32)
+
+
+def bsr_spmm_ref(
+    blocks: torch.Tensor,  # (nb, bm, bk)
+    brows: torch.Tensor,  # (nb,)
+    bcols: torch.Tensor,  # (nb,)
+    dense: torch.Tensor,  # (K, N)
+    m_blocks: int,
+) -> torch.Tensor:
+    """A_bsr @ dense -> (m_blocks * bm, N) in ``promote_types(blocks,
+    dense)``.  Block products and their sums per block-row are taken in
+    fp32 and cast once, as the kernel does."""
+    nb, bm, bk = blocks.shape
+    K, N = dense.shape
+    out_dtype = torch.promote_types(blocks.dtype, dense.dtype)
+    acc_dtype = _acc_dtype(out_dtype)
+    tiles = dense.to(acc_dtype).reshape(K // bk, bk, N)
+    contrib = torch.einsum("nij,njk->nik", blocks.to(acc_dtype), tiles[bcols])
+    out = torch.zeros((m_blocks, bm, N), dtype=acc_dtype, device=blocks.device)
+    out.index_add_(0, brows, contrib)
+    return out.reshape(m_blocks * bm, N).to(out_dtype)
+
+
 def bsr_spgemm_ref(
     a_blocks: torch.Tensor,  # (na, bm, bk)
     b_blocks: torch.Tensor,  # (nbb, bk, bn)
@@ -28,7 +54,7 @@ def bsr_spgemm_ref(
     kernel does.
     """
     out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
-    acc_dtype = torch.promote_types(out_dtype, torch.float32)
+    acc_dtype = _acc_dtype(out_dtype)
     prod = torch.einsum(
         "nij,njk->nik",
         a_blocks[pair_a].to(acc_dtype),
@@ -40,3 +66,18 @@ def bsr_spgemm_ref(
         device=a_blocks.device,
     )
     return out.index_add_(0, pair_c, prod).to(out_dtype)
+
+
+def moe_gemm_ref(
+    x: torch.Tensor,  # (E, C, d)
+    w: torch.Tensor,  # (E, d, f)
+) -> torch.Tensor:
+    """Grouped expert GEMM (the MoE dispatch SpGEMM's dense payload).
+
+    Summed in fp32 and returned in **``x.dtype``**, as the TPU kernel and
+    the port's kernel write it.  The JAX package's oracle (an einsum)
+    promotes instead, so for a bf16 ``x`` and an fp32 ``w`` it returns fp32
+    where both kernels return bf16; this version follows the kernels.
+    """
+    acc_dtype = _acc_dtype(torch.promote_types(x.dtype, w.dtype))
+    return torch.einsum("ecd,edf->ecf", x.to(acc_dtype), w.to(acc_dtype)).to(x.dtype)

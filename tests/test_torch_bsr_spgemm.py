@@ -5,8 +5,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jax_ops
 from repro.kernels.bsr_spgemm import bsr_spgemm as jax_bsr_spgemm
 from repro.kernels.ref import bsr_spgemm_ref as jax_ref
+from repro.sparse.bsr import BlockSparse as JaxBlockSparse
+from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spgemm import (
     bsr_spgemm,
     bsr_spgemm_local,
@@ -25,6 +28,10 @@ def _random_block_dense(rng, m, k, density, block):
         mask[0, 0] = True
     dense = rng.standard_normal((m, k)).astype(np.float32)
     return dense * np.kron(mask, np.ones((block, block), bool))
+
+
+def _jax_bsr(bsr: BlockSparse) -> JaxBlockSparse:
+    return JaxBlockSparse(bsr.blocks, bsr.brows, bsr.bcols, bsr.shape)
 
 
 def _case(block, shape, garbage_run=False, seed=1):
@@ -102,6 +109,58 @@ def test_pair_runs():
     assert len(run_c) == 0
     with pytest.raises(ValueError, match="sorted"):
         pair_runs(np.array([1, 0]))
+
+
+# the shapes and tolerance of tests/test_kernels.py's spgemm test
+@pytest.mark.parametrize("block", [8, 16])
+@pytest.mark.parametrize("shape", [(32, 16, 48), (48, 48, 48)])
+def test_ops_spgemm_matches_jax(block, shape):
+    m, k, n = shape
+    rng = np.random.default_rng(1)
+    a = _random_block_dense(rng, m, k, 0.5, block)
+    b = _random_block_dense(rng, k, n, 0.5, block)
+    ab, bb = to_bsr(a, block, block), to_bsr(b, block, block)
+    got, crows, ccols = ops.spgemm(ab, bb, device="cpu")
+    want, jrows, jcols = jax_ops.spgemm(_jax_bsr(ab), _jax_bsr(bb), interpret=True)
+    np.testing.assert_array_equal(crows, jrows)
+    np.testing.assert_array_equal(ccols, jcols)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    c = bsr_to_dense(BlockSparse(got.numpy(), crows, ccols, (m, n)))
+    np.testing.assert_allclose(c, a @ b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("bm, bk, bn", [(8, 16, 8), (16, 8, 32), (4, 8, 12)])
+def test_ops_spgemm_rectangular_blocks_match_jax(bm, bk, bn):
+    """(bm, bk) A blocks times (bk, bn) B blocks, as the JAX kernel takes."""
+    rng = np.random.default_rng(9)
+    a = (rng.standard_normal((48, 64)) * (rng.random((48, 64)) < 0.1)).astype(np.float32)
+    b = (rng.standard_normal((64, 96)) * (rng.random((64, 96)) < 0.1)).astype(np.float32)
+    ab, bb = to_bsr(a, bm, bk), to_bsr(b, bk, bn)
+    got, crows, ccols = ops.spgemm(ab, bb, device="cpu")
+    assert got.shape[1:] == (bm, bn)
+    want, jrows, jcols = jax_ops.spgemm(_jax_bsr(ab), _jax_bsr(bb), interpret=True)
+    np.testing.assert_array_equal(crows, jrows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    c = bsr_to_dense(BlockSparse(got.numpy(), crows, ccols, (ab.shape[0], bb.shape[1])))
+    np.testing.assert_allclose(c[:48, :96], a @ b, rtol=1e-4, atol=1e-4)
+
+
+def test_ops_spgemm_with_no_block_pairs_is_empty_like_jax():
+    a = np.zeros((16, 16), np.float32)
+    a[:8, :8] = 1.0  # A only in block-column 0
+    b = np.zeros((16, 16), np.float32)
+    b[8:, 8:] = 1.0  # B only in block-row 1
+    ab, bb = to_bsr(a, 8, 8), to_bsr(b, 8, 8)
+    got, crows, ccols = ops.spgemm(ab, bb, device="cpu")
+    want, jrows, _ = jax_ops.spgemm(_jax_bsr(ab), _jax_bsr(bb), interpret=True)
+    assert got.shape == tuple(want.shape) == (0, 8, 8)
+    assert got.dtype == torch.float32 and len(crows) == len(jrows) == 0
+
+
+def test_inner_block_sizes_must_agree():
+    a, b = torch.ones(2, 8, 16), torch.ones(2, 8, 8)
+    with pytest.raises(ValueError, match="inner size"):
+        bsr_spgemm(a, b, [0], [0], [0], 1)
 
 
 def test_wrapper_checks_inputs_and_counts_no_cpu_launch():

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the BSR SpGEMM kernel against its plain version,
-and the monoC front door and tiled path against dense ``A @ B``.
+"""The port on a CUDA card: the BSR SpGEMM, BSR SpMM and grouped GEMM
+kernels against their plain versions, the ``ops`` entry point against its
+CPU path, and the monoC front door and tiled path against dense ``A @ B``.
 
 Marked ``gpu``; every test skips where no CUDA device exists (decided in
 the ``cuda`` fixture, never at import).  On a card:
@@ -12,8 +13,11 @@ import torch
 import repro_torch
 from repro_torch.distributed.plan_ir import plan_monoC_from_dense
 from repro_torch.distributed.spgemm_exec import monoC_spgemm, unpack_monoC_result
+from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spgemm import bsr_spgemm, bsr_spgemm_local, build_pair_lists
-from repro_torch.kernels.ref import bsr_spgemm_ref
+from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local
+from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.ref import bsr_spgemm_ref, bsr_spmm_ref, moe_gemm_ref
 from repro_torch.sparse.bsr import to_bsr
 from repro_torch.sparse.structure import from_dense, spgemm_symbolic
 
@@ -65,6 +69,97 @@ def test_kernel_matches_plain_version(cuda, block, dtype):
     assert not got[-1].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "bm, bk, bn", [(8, 16, 8), (16, 8, 32), (4, 8, 12), (1, 8, 1), (64, 64, 64), (128, 128, 128)]
+)
+def test_kernel_takes_every_block_shape(cuda, bm, bk, bn, dtype):
+    rng = np.random.default_rng(bm * 1000 + bk * 10 + bn)
+    grid = 12 if max(bm, bk, bn) < 64 else 4
+    a_mask, b_mask = rng.random((2, grid, grid)) < 0.3
+    a_mask[0, 0] = b_mask[0, 0] = True
+    ab = to_bsr(np.kron(a_mask, np.ones((bm, bk), np.float32)), bm, bk)
+    bb = to_bsr(np.kron(b_mask, np.ones((bk, bn), np.float32)), bk, bn)
+    pa, pb, pc, crows, _ = build_pair_lists(ab.brows, ab.bcols, bb.brows, bb.bcols)
+    a_blocks = torch.from_numpy(rng.standard_normal(ab.blocks.shape).astype(np.float32))
+    b_blocks = torch.from_numpy(rng.standard_normal(bb.blocks.shape).astype(np.float32))
+    a_blocks, b_blocks = a_blocks.to(cuda, dtype), b_blocks.to(cuda, dtype)
+    before = dict(bsr_spgemm_local.launches)
+    got = bsr_spgemm(a_blocks, b_blocks, pa, pb, pc, len(crows))
+    torch.cuda.synchronize()
+    assert bsr_spgemm_local.launches == {**before, "block_runs": before["block_runs"] + 1}
+    assert got.shape == (len(crows), bm, bn) and got.dtype == dtype
+    idx = [torch.as_tensor(x, device=cuda) for x in (pa, pb, pc)]
+    want = bsr_spgemm_ref(a_blocks, b_blocks, *idx, len(crows))
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm, bk, n", [(8, 8, 256), (16, 8, 48), (4, 12, 300), (8, 40, 16)])
+def test_spmm_kernel_matches_plain_version(cuda, bm, bk, n, dtype):
+    rng = np.random.default_rng(bm + bk + n)
+    mask = rng.random((10, 7)) < 0.35
+    mask[3] = False  # an empty block-row
+    mask[0, 0] = True
+    a = rng.standard_normal((10 * bm, 7 * bk)).astype(np.float32)
+    a *= np.kron(mask, np.ones((bm, bk), np.float32))
+    bsr = to_bsr(a, bm, bk)
+    blocks = torch.from_numpy(bsr.blocks).to(cuda, dtype)
+    dense = torch.from_numpy(rng.standard_normal((7 * bk, n)).astype(np.float32)).to(cuda, dtype)
+    before = bsr_spmm_local.launches["block_rows"]
+    got = bsr_spmm(blocks, bsr.brows, bsr.bcols, dense, 10, b_n=n)
+    torch.cuda.synchronize()
+    assert bsr_spmm_local.launches["block_rows"] == before + 1
+    assert got.dtype == dtype and got.shape == (10 * bm, n)
+    want = bsr_spmm_ref(
+        blocks, torch.as_tensor(bsr.brows, device=cuda), torch.as_tensor(bsr.bcols, device=cuda),
+        dense, 10,
+    )
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert not got[3 * bm : 4 * bm].any()
+
+
+@pytest.mark.parametrize(
+    "x_dtype, w_dtype",
+    [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+     (torch.bfloat16, torch.float32)],
+)
+@pytest.mark.parametrize("shape", [(2, 16, 32, 24), (3, 200, 72, 136), (2, 256, 512, 384)])
+def test_moe_gemm_kernel_matches_plain_version(cuda, shape, x_dtype, w_dtype):
+    E, C, d, f = shape
+    rng = np.random.default_rng(C)
+    x = torch.from_numpy(rng.standard_normal((E, C, d)).astype(np.float32)).to(cuda, x_dtype)
+    w = torch.from_numpy(rng.standard_normal((E, d, f)).astype(np.float32) / np.sqrt(d))
+    w = w.to(cuda, w_dtype)
+    before = moe_gemm.launches["expert_tiles"]
+    got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches["expert_tiles"] == before + 1
+    assert got.dtype == x_dtype and got.shape == (E, C, f)
+    want = moe_gemm_ref(x, w)
+    tol = TOL[x_dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_ops_on_the_card_match_the_cpu(cuda):
+    rng = np.random.default_rng(11)
+    a = _block_operands(rng, (6, 5), 8, 0.4)
+    b = _block_operands(rng, (5, 4), 8, 0.5)
+    dense = rng.standard_normal((40, 128)).astype(np.float32)
+    ab, bb = to_bsr(a, 8, 8), to_bsr(b, 8, 8)
+    for got, want in (
+        (ops.spmm(ab, dense), ops.spmm(ab, dense, device="cpu")),
+        (ops.spgemm(ab, bb)[0], ops.spgemm(ab, bb, device="cpu")[0]),
+    ):
+        assert got.device.type == "cuda"
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4, atol=1e-4)
+    x = rng.standard_normal((2, 32, 64)).astype(np.float32)
+    w = rng.standard_normal((2, 64, 16)).astype(np.float32)
+    got = ops.grouped_gemm(x, w)
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), x @ w, rtol=1e-4, atol=1e-4)
+
+
 def test_front_door_on_the_card(cuda):
     rng = np.random.default_rng(0)
     a = (rng.standard_normal((60, 50)) * (rng.random((60, 50)) < 0.1)).astype(np.float32)
@@ -79,9 +174,9 @@ def test_front_door_on_the_card(cuda):
     np.testing.assert_allclose(c.cpu().numpy(), a @ b, rtol=1e-4, atol=1e-4)
 
 
-def test_tiled_path_on_the_card(cuda):
+@pytest.mark.parametrize("block", [16, 64])
+def test_tiled_path_on_the_card(cuda, block):
     rng = np.random.default_rng(1)
-    block = 16
     a = _block_operands(rng, (8, 6), block, 0.4)
     b = _block_operands(rng, (6, 7), block, 0.4)
     plan, _ = plan_monoC_from_dense(a, b, block, 4)

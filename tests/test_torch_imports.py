@@ -15,8 +15,11 @@ import repro_torch.distributed.comm, repro_torch.distributed.plan_ir
 import repro_torch.distributed.registry, repro_torch.distributed.runtime
 import repro_torch.distributed.spgemm_exec
 import repro_torch.kernels.bsr_spgemm, repro_torch.kernels.ref
-import repro_torch.kernels._build
+import repro_torch.kernels.bsr_spmm, repro_torch.kernels.moe_gemm
+import repro_torch.kernels.ops, repro_torch.kernels._build
 from repro_torch.core import matrices
+from repro_torch.kernels import ops
+from repro_torch.sparse.bsr import to_bsr
 from repro_torch.sparse.structure import random_structure
 
 rng = np.random.default_rng(0)
@@ -28,6 +31,14 @@ c = repro_torch.plan(a_s, b_s, p=2, model="monoC").compile(device="cpu")(av, bv)
 a = np.zeros(a_s.shape, np.float32); a[a_s.coo()] = av
 b = np.zeros(b_s.shape, np.float32); b[b_s.coo()] = bv
 np.testing.assert_allclose(c.numpy(), a @ b, rtol=1e-5, atol=1e-5)
+a8 = np.kron(rng.random((3, 2)) < 0.7, np.ones((8, 8))).astype(np.float32)
+b8 = rng.standard_normal((16, 8)).astype(np.float32)
+np.testing.assert_allclose(ops.spmm(to_bsr(a8, 8, 8), b8, device="cpu").numpy(), a8 @ b8,
+                           rtol=1e-5, atol=1e-5)
+ops.spgemm(to_bsr(a8, 8, 8), to_bsr(b8, 8, 8), device="cpu")
+x = rng.standard_normal((2, 8, 16)).astype(np.float32)
+np.testing.assert_allclose(ops.grouped_gemm(x, x.transpose(0, 2, 1), device="cpu").numpy(),
+                           x @ x.transpose(0, 2, 1), rtol=1e-5, atol=1e-5)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
