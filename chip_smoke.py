@@ -5,7 +5,8 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 
 Phases, each printing its seconds:
   1. the card (nvidia-smi name and power limit, torch's device name);
-  2. build every CUDA source of the port with nvcc (``-Xptxas -v`` lines);
+  2. build every CUDA source of the port with nvcc (``-Xptxas -v`` lines),
+     and count the HGMMA (wgmma) instructions in K3's SASS: none fails;
   3. the BSR SpGEMM kernel against its plain PyTorch version on seeded
      random block matrices, b in {1, 8, 16, 32}, fp32 and bf16, plus a pair
      list with a trailing garbage run;
@@ -25,14 +26,17 @@ Phases, each printing its seconds:
      scipy, times a seeded (74,088, 256) dense block, fp32 and bf16,
      against scipy in float64 and against the plain version;
   8. K3 (``ops.grouped_gemm``): the up and down expert projections of
-     Qwen3-MoE-235B-A22B (E = 128, C = 640, d = 4096, f = 1536) in bf16,
-     against the plain version, beside ``torch.bmm``.
+     Qwen3-MoE-235B-A22B (E = 128, C = 640, d = 4096, f = 1536) in bf16
+     (``expert_wgmma``, tensor cores) and the up projection in fp32
+     (``expert_tiles``), against the plain version, beside ``torch.bmm``;
+     then ``expert_wgmma`` off every tile grid in bf16 and fp16, and a
+     misaligned bf16 view that must take ``expert_tiles``.
 Then one JSON line of per-kernel numbers (one entry per __global__:
 ``scalar_runs`` on the block-1 path, ``block_runs`` on the block-16 path,
-``block_rows`` on the fp32 AMG SpMM, ``expert_tiles`` on the up
-projection, each with the launches of its path), the card line, and the
-result line; the phases' full records go to ``chip_smoke.json`` under
-``OUT``.
+``block_rows`` on the fp32 AMG SpMM, ``expert_wgmma`` on the bf16 up
+projection, ``expert_tiles`` on the fp32 one, each with the launches of its
+path), the card line, and the result line; the phases' full records go to
+``chip_smoke.json`` under ``OUT``.
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -54,7 +58,7 @@ OUT = ROOT / "chiprun_out"  # full per-phase records (chip_smoke.json)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 P = 4
 AMG_N = 42
 WARMUP, REPS = 1, 10
@@ -617,10 +621,12 @@ def moe_qwen3(device):
     tokens at capacity factor 1.25 give C = ceil(T K / E * 1.25) = 640 rows
     per expert.
     The up projection (E, C, d) x (E, d, f) and the down projection of its
-    output (E, C, f) x (E, f, d) through ``ops.grouped_gemm`` in bf16, with
-    weights drawn N(0, 1/fan_in) so every output is O(1); each checked
-    against the plain version (tolerance 2e-2 + 2e-2 |want|: bf16 output
-    rounding), then timed beside ``torch.bmm`` on the same tensors."""
+    output (E, C, f) x (E, f, d) through ``ops.grouped_gemm`` in bf16 (both
+    ``expert_wgmma``), with weights drawn N(0, 1/fan_in) so every output is
+    O(1); each checked against the plain version (tolerance 2e-2 + 2e-2
+    |want|: bf16 output rounding), then timed beside ``torch.bmm`` on the same
+    tensors.  Then the up projection in fp32 (``expert_tiles``), checked at
+    1e-4 and timed beside ``torch.bmm`` in fp32 (TF32 off)."""
     import math
 
     import torch
@@ -642,32 +648,94 @@ def moe_qwen3(device):
     h = ops.grouped_gemm(x, w_up)
     y = ops.grouped_gemm(h, w_down)
     torch.cuda.synchronize()
-    launches = moe_gemm.launches["expert_tiles"]
-    if launches != 2:
-        fail(f"K3: {launches} expert_tiles launches in two ops.grouped_gemm calls")
+    launches = dict(moe_gemm.launches)
+    if launches != {"expert_wgmma": 2, "expert_tiles": 0}:
+        fail(f"K3: launches {launches} in two bf16 ops.grouped_gemm calls")
     records = {"config": "Qwen3-MoE-235B-A22B experts", "E": E, "top_k": K, "tokens": tokens,
-               "C": C, "d_model": d, "d_ff_expert": f, "dtype": "bfloat16"}
-    for name, (xi, wi, out) in (("up", (x, w_up, h)), ("down", (h, w_down, y))):
-        if out.shape != (E, C, wi.shape[2]) or out.dtype != torch.bfloat16:
-            fail(f"K3 {name}: result {tuple(out.shape)} {out.dtype}")
+               "C": C, "d_model": d, "d_ff_expert": f}
+
+    def record(xi, wi, out, kernel, n_launches, tol, reps):
+        """Check ``out`` against the plain version; time the kernel, the
+        plain version and ``torch.bmm`` on the same tensors."""
+        dtype = str(xi.dtype).removeprefix("torch.")
+        if out.shape != (E, C, wi.shape[2]) or out.dtype != xi.dtype:
+            fail(f"K3 {kernel} {dtype}: result {tuple(out.shape)} {out.dtype}")
         if not bool(torch.isfinite(out).all()):
-            fail(f"K3 {name}: result not finite")
+            fail(f"K3 {kernel} {dtype}: result not finite")
         want = moe_gemm_ref(xi, wi)
-        err = max_err_within(out, want, TOL["bfloat16"], f"K3 {name} against its plain version")
-        ms = cuda_ms(lambda: moe_gemm(xi, wi), reps=2, warmup=1)
+        err = max_err_within(out, want, tol, f"K3 {kernel} {dtype} against its plain version")
+        del want
+        ms = cuda_ms(lambda: moe_gemm(xi, wi), reps=reps)
         plain_ms = cuda_ms(lambda: moe_gemm_ref(xi, wi), reps=2, warmup=1)
-        library_ms = cuda_ms(lambda: torch.bmm(xi, wi), reps=5, warmup=1)
+        library_ms = cuda_ms(lambda: torch.bmm(xi, wi), reps=reps)
         n_bytes = (xi.numel() + wi.numel() + out.numel()) * xi.element_size()
         n_ops = 2.0 * E * C * xi.shape[2] * wi.shape[2]
         bound_ms, bound_by = bound(n_bytes, n_ops, xi.dtype)
-        records[name] = {
-            "shape": [list(xi.shape), list(wi.shape)], "launches": launches,
-            "max_abs_err": err, "out_std": float(out.float().std().item()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_bytes": n_bytes, "bound_flops": n_ops, "library_ms": library_ms,
-            "library_call": "torch.bmm",
+        return {
+            "kernel": kernel, "dtype": dtype, "shape": [list(xi.shape), list(wi.shape)],
+            "launches": n_launches, "max_abs_err": err,
+            "out_std": float(out.float().std().item()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": n_bytes,
+            "bound_flops": n_ops, "library_ms": library_ms, "library_call": "torch.bmm",
         }
+
+    for name, (xi, wi, out) in (("up", (x, w_up, h)), ("down", (h, w_down, y))):
+        records[name] = record(xi, wi, out, "expert_wgmma", launches["expert_wgmma"],
+                               TOL["bfloat16"], reps=20)
         print(f"K3 {name}", json.dumps(records[name]), flush=True)
+    # the fp32 route, at the up projection's shape and values
+    x32, w32 = x.float(), w_up.float()
+    del x, w_up, w_down, h, y, xi, wi, out
+    reset_launches()
+    out32 = ops.grouped_gemm(x32, w32)
+    torch.cuda.synchronize()
+    launches = dict(moe_gemm.launches)
+    if launches != {"expert_wgmma": 0, "expert_tiles": 1}:
+        fail(f"K3: launches {launches} in one fp32 ops.grouped_gemm call")
+    records["up_fp32"] = record(x32, w32, out32, "expert_tiles", launches["expert_tiles"],
+                                TOL["float32"], reps=3)
+    print("K3 up fp32", json.dumps(records["up_fp32"]), flush=True)
+    return records
+
+
+def moe_edges(device):
+    """``expert_wgmma`` off every tile grid, in bf16 and fp16, against the
+    plain version: C off 64 and 128 rows, d off 64, f off 128 and 256, and
+    expert boundaries inside a 128-row box.  Then a bf16 view one element
+    into its buffer (2 bytes off the 16 a tensor map needs), which must go to
+    ``expert_tiles`` and agree as well."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm, route
+    from repro_torch.kernels.ref import moe_gemm_ref
+
+    g = torch.Generator(device=device).manual_seed(1)
+    records = []
+
+    def check(x, w, kernel, what):
+        if route(x, w) != kernel:
+            fail(f"K3 {what}: routed to {route(x, w)}, not {kernel}")
+        before = dict(moe_gemm.launches)
+        got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
+        torch.cuda.synchronize()
+        if moe_gemm.launches != {**before, kernel: before[kernel] + 1}:
+            fail(f"K3 {what}: launches {before} -> {moe_gemm.launches}")
+        dtype = str(x.dtype).removeprefix("torch.")
+        err = max_err_within(got, moe_gemm_ref(x, w), TOL[dtype], f"K3 {what}")
+        records.append({"what": what, "kernel": kernel, "max_abs_err": err})
+        print(f"K3 edge {what} {kernel} max_abs_err={err:.3g}", flush=True)
+
+    for E, C, d, f in ((3, 200, 72, 136), (2, 256, 512, 384), (5, 96, 4096, 1536)):
+        for dtype in (torch.bfloat16, torch.float16):
+            x = torch.randn((E, C, d), generator=g, device=device).to(dtype)
+            w = (torch.randn((E, d, f), generator=g, device=device) / d**0.5).to(dtype)
+            check(x, w, "expert_wgmma", f"{(E, C, d, f)} {str(dtype).removeprefix('torch.')}")
+    E, C, d, f = 2, 256, 512, 384
+    flat = torch.randn(E * C * d + 1, generator=g, device=device).to(torch.bfloat16)
+    x = flat[1:].view(E, C, d)
+    w = (torch.randn((E, d, f), generator=g, device=device) / d**0.5).to(torch.bfloat16)
+    if x.data_ptr() % 16 != 2:
+        fail(f"K3 misaligned view: data_ptr() % 16 = {x.data_ptr() % 16}, not 2")
+    check(x, w, "expert_tiles", f"{(E, C, d, f)} bfloat16, x 2 bytes off")
     return records
 
 
@@ -698,8 +766,12 @@ def main() -> None:
     t0 = time.perf_counter()
     for name, log in _build.build_all().items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"ptxas[{name}] {line.strip()}")
+    hgmma = sum("HGMMA" in line for line in _build.sass("moe_gemm").splitlines())
+    print(f"sass[moe_gemm] HGMMA instructions: {hgmma}", flush=True)
+    if hgmma == 0:
+        fail("no HGMMA in the moe_gemm library: expert_wgmma is not on the tensor cores")
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -751,6 +823,10 @@ def main() -> None:
     moe = moe_qwen3(device)
     phase("K3 Qwen3-MoE experts", t0)
 
+    t0 = time.perf_counter()
+    moe["edges"] = moe_edges(device)
+    phase("K3 edge sweep", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
@@ -768,8 +844,10 @@ def main() -> None:
              blocked),
             ("bsr_spmm/block_rows", "bsr_spmm.cu", "src/repro/kernels/bsr_spmm.py:69",
              spmm["float32"]),
-            ("moe_gemm/expert_tiles", "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:61",
+            ("moe_gemm/expert_wgmma", "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:61",
              moe["up"]),
+            ("moe_gemm/expert_tiles", "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:61",
+             moe["up_fp32"]),
         )
     ]
     print(json.dumps({"kernels": kernels}))

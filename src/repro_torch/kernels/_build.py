@@ -27,6 +27,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills in the log
 )
+# No -lcuda: moe_gemm.cu reaches libcuda's cuTensorMapEncodeTiled through
+# the runtime's cudaGetDriverEntryPoint, so every library links the runtime alone.
 
 # element types the kernels take, and their codes in every csrc/*.cu
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -98,6 +100,18 @@ def build_all() -> dict[str, str]:
     with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
         logs = list(pool.map(lambda n: build(n)[1], names))
     return dict(zip(names, logs))
+
+
+def sass(name: str) -> str:
+    """The SASS of ``csrc/<name>.cu``'s library (``cuobjdump --dump-sass``,
+    from the toolkit that holds nvcc), built first if need be."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    proc = subprocess.run(
+        [str(cuobjdump), "--dump-sass", str(build(name)[0])], capture_output=True, text=True
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on lib{name}:\n{proc.stderr}")
+    return proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,10 +1,11 @@
-"""Grouped expert GEMM: the Hopper kernel's wrapper.
+"""Grouped expert GEMM: the Hopper kernels' wrapper.
 
 ``moe_gemm`` keeps the JAX package's signature and contract: the tiles
 ``(b_c, b_f, b_d)`` are clipped to the dims and must divide ``(C, f, d)``,
 else ``ValueError``; the result is in ``x.dtype``, summed in fp32.  CPU
 tensors run the plain version (``kernels.ref.moe_gemm_ref``); CUDA tensors
-launch ``csrc/moe_gemm.cu`` or raise.
+launch one of ``csrc/moe_gemm.cu``'s kernels, the one ``route`` names, or
+raise.
 """
 from __future__ import annotations
 
@@ -16,14 +17,47 @@ import torch
 from repro_torch.kernels._build import DTYPE_CODE, check_inputs, load
 from repro_torch.kernels.ref import moe_gemm_ref
 
+# the types expert_wgmma multiplies on the tensor cores; their products are
+# exact in its fp32 accumulators, as in the reference's fp32 dot
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+
+
+# the C entry point of each __global__ in csrc/moe_gemm.cu; both take
+# (x, w, out, E, C, d, f, in dtype code, out dtype code, stream)
+_ENTRY = {"expert_tiles": "repro_moe_gemm", "expert_wgmma": "repro_moe_gemm_wgmma"}
+
 
 @functools.cache
-def _kernel():
-    """The kernel's C entry point, built and bound on first use."""
-    fn = load("moe_gemm").repro_moe_gemm
+def _kernel(kernel: str):
+    """The C entry point that launches ``kernel``, built and bound on first use."""
+    fn = getattr(load("moe_gemm"), _ENTRY[kernel])
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The kernel ``moe_gemm`` launches for ``x`` (E, C, d) and ``w`` (E, d, f)
+    on the card.
+
+    ``"expert_wgmma"`` (tensor cores, TMA) when x and w share bf16 or fp16,
+    d and f are positive multiples of 8 and both data pointers are 16-byte
+    aligned: a TMA tensor map's base address and strides are multiples of
+    16 bytes.  ``"expert_tiles"`` (fp32 FMAs on the CUDA cores) for
+    everything else: fp32, mixed types (they meet at fp32), and shapes or
+    views the tensor maps cannot describe."""
+    d, f = x.shape[-1], w.shape[-1]
+    if (
+        x.dtype == w.dtype
+        and x.dtype in TENSOR_CORE_DTYPES
+        and d > 0
+        and d % 8 == 0
+        and f % 8 == 0
+        and x.data_ptr() % 16 == 0
+        and w.data_ptr() % 16 == 0
+    ):
+        return "expert_wgmma"
+    return "expert_tiles"
 
 
 def moe_gemm(
@@ -36,8 +70,9 @@ def moe_gemm(
     """``out[e] = x[e] @ w[e]`` -> (E, C, f) in ``x.dtype``.
 
     The tiles are the TPU kernel's; the port checks their contract and
-    tiles the card its own way.  On CUDA this adds one to
-    ``moe_gemm.launches["expert_tiles"]`` per launch."""
+    tiles the card its own way.  On CUDA the kernel is ``route(x, w)``,
+    decided before the launch (no fallback from one kernel to another); each
+    launch adds one to ``moe_gemm.launches[route(x, w)]``."""
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or x.shape[2] != w.shape[1]:
         raise ValueError(
             f"x must be (E, C, d) and w (E, d, f); got {tuple(x.shape)} and {tuple(w.shape)}"
@@ -56,14 +91,15 @@ def moe_gemm(
         raise ValueError(f"no grouped GEMM kernel for device type {device.type!r}")
     check_inputs([("x", x), ("w", w)], [])
     out = torch.empty((E, C, f), dtype=x.dtype, device=device)
-    # the kernel reads one element type: mixed inputs meet at the promoted
-    # type (float32), and it writes x's type
+    # the kernels read one element type: mixed inputs meet at the promoted
+    # type (float32), and they write x's type
     in_dtype = torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(in_dtype), w.to(in_dtype)
     if out.numel() == 0:
         return out
+    kernel = route(x, w)
     with torch.cuda.device(device):
-        err = _kernel()(
+        err = _kernel(kernel)(
             x.data_ptr(),
             w.data_ptr(),
             out.data_ptr(),
@@ -76,10 +112,10 @@ def moe_gemm(
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"moe_gemm kernel launch failed: CUDA error {err}")
-    moe_gemm.launches["expert_tiles"] += 1
+        raise RuntimeError(f"moe_gemm kernel {kernel} launch failed: CUDA error {err}")
+    moe_gemm.launches[kernel] += 1
     return out
 
 
 # launches since the last reset, per __global__ of csrc/moe_gemm.cu
-moe_gemm.launches = {"expert_tiles": 0}
+moe_gemm.launches = {"expert_tiles": 0, "expert_wgmma": 0}

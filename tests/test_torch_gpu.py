@@ -16,14 +16,14 @@ from repro_torch.distributed.spgemm_exec import monoC_spgemm, unpack_monoC_resul
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spgemm import bsr_spgemm, bsr_spgemm_local, build_pair_lists
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local
-from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.moe_gemm import moe_gemm, route
 from repro_torch.kernels.ref import bsr_spgemm_ref, bsr_spmm_ref, moe_gemm_ref
 from repro_torch.sparse.bsr import to_bsr
 from repro_torch.sparse.structure import from_dense, spgemm_symbolic
 
 pytestmark = pytest.mark.gpu
 
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 @pytest.fixture
@@ -119,26 +119,63 @@ def test_spmm_kernel_matches_plain_version(cuda, bm, bk, n, dtype):
     assert not got[3 * bm : 4 * bm].any()
 
 
+def _moe_operands(rng, shape, x_dtype, w_dtype, device):
+    E, C, d, f = shape
+    x = torch.from_numpy(rng.standard_normal((E, C, d)).astype(np.float32)).to(device, x_dtype)
+    w = torch.from_numpy(rng.standard_normal((E, d, f)).astype(np.float32) / np.sqrt(d))
+    return x, w.to(device, w_dtype)
+
+
 @pytest.mark.parametrize(
     "x_dtype, w_dtype",
     [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-     (torch.bfloat16, torch.float32)],
+     (torch.bfloat16, torch.float32), (torch.float16, torch.float16)],
 )
-@pytest.mark.parametrize("shape", [(2, 16, 32, 24), (3, 200, 72, 136), (2, 256, 512, 384)])
+# C off the 64- and 128-row grid, d off 64, f off 128 and 256; an expert
+# boundary inside a 128-row box; one (E, C) slice of Qwen3-MoE's width
+@pytest.mark.parametrize(
+    "shape", [(2, 16, 32, 24), (3, 200, 72, 136), (2, 256, 512, 384), (5, 96, 4096, 1536)]
+)
 def test_moe_gemm_kernel_matches_plain_version(cuda, shape, x_dtype, w_dtype):
     E, C, d, f = shape
-    rng = np.random.default_rng(C)
-    x = torch.from_numpy(rng.standard_normal((E, C, d)).astype(np.float32)).to(cuda, x_dtype)
-    w = torch.from_numpy(rng.standard_normal((E, d, f)).astype(np.float32) / np.sqrt(d))
-    w = w.to(cuda, w_dtype)
-    before = moe_gemm.launches["expert_tiles"]
+    x, w = _moe_operands(np.random.default_rng(C), shape, x_dtype, w_dtype, cuda)
+    kernel = route(x, w)
+    assert kernel == ("expert_tiles" if torch.float32 in (x_dtype, w_dtype) else "expert_wgmma")
+    before = dict(moe_gemm.launches)
     got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
     torch.cuda.synchronize()
-    assert moe_gemm.launches["expert_tiles"] == before + 1
+    assert moe_gemm.launches == {**before, kernel: before[kernel] + 1}
     assert got.dtype == x_dtype and got.shape == (E, C, f)
     want = moe_gemm_ref(x, w)
     tol = TOL[x_dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_moe_gemm_misaligned_view_takes_expert_tiles(cuda, dtype):
+    """A view one element into its buffer is 2 bytes off the 16 a tensor
+    map needs: it goes to the CUDA-core kernel, and gets the same answer."""
+    E, C, d, f = 2, 64, 128, 96
+    rng = np.random.default_rng(5)
+    flat = rng.standard_normal(E * C * d + 1).astype(np.float32)
+    x = torch.from_numpy(flat).to(cuda, dtype)[1:].view(E, C, d)
+    w = _moe_operands(rng, (E, C, d, f), dtype, dtype, cuda)[1]
+    assert x.data_ptr() % 16 == 2 and route(x, w) == "expert_tiles"
+    before = dict(moe_gemm.launches)
+    got = moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert moe_gemm.launches == {**before, "expert_tiles": before["expert_tiles"] + 1}
+    want = moe_gemm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_expert_wgmma_is_deterministic(cuda):
+    """The persistent walk sums each tile in one block, in one order, with
+    no atomics: the same inputs give the same bits."""
+    x, w = _moe_operands(np.random.default_rng(9), (5, 96, 4096, 1536), torch.bfloat16,
+                         torch.bfloat16, cuda)
+    assert route(x, w) == "expert_wgmma"
+    assert torch.equal(moe_gemm(x, w), moe_gemm(x, w))
 
 
 def test_ops_on_the_card_match_the_cpu(cuda):

@@ -1,6 +1,8 @@
 """The port's grouped expert GEMM (``repro_torch.kernels.ops.grouped_gemm``
 and ``kernels.moe_gemm``) on the CPU, held against the JAX package's
 ``ops.grouped_gemm`` (its Pallas kernel in interpret mode) and its oracle."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,7 +11,7 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels.moe_gemm import moe_gemm as jax_moe_gemm
 from repro_torch.kernels import ops
-from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.moe_gemm import moe_gemm, route
 
 
 def _f32(x) -> np.ndarray:
@@ -102,3 +104,34 @@ def test_grouped_gemm_needs_a_card_unless_told_cpu(monkeypatch):
         ops.grouped_gemm(x, w)
     np.testing.assert_array_equal(ops.grouped_gemm(x, w, device="cpu"), 8)
     assert moe_gemm.launches == before  # the CPU path launches no kernel
+
+
+def _misaligned(shape, dtype):
+    """A contiguous view that starts one element into a flat buffer."""
+    return torch.zeros(math.prod(shape) + 1, dtype=dtype)[1:].view(shape)
+
+
+# (E, C) of Qwen3-MoE-235B-A22B's experts; meta tensors carry the shape,
+# dtype and an aligned data pointer without the memory
+@pytest.mark.parametrize(
+    "x_dtype, w_dtype, d, f, misaligned, kernel",
+    [
+        (torch.bfloat16, torch.bfloat16, 4096, 1536, False, "expert_wgmma"),
+        (torch.float16, torch.float16, 4096, 1536, False, "expert_wgmma"),
+        (torch.float32, torch.float32, 4096, 1536, False, "expert_tiles"),
+        (torch.bfloat16, torch.float32, 4096, 1536, False, "expert_tiles"),
+        (torch.float16, torch.bfloat16, 4096, 1536, False, "expert_tiles"),
+        (torch.bfloat16, torch.bfloat16, 36, 1536, False, "expert_tiles"),  # d % 8
+        (torch.bfloat16, torch.bfloat16, 4096, 20, False, "expert_tiles"),  # f % 8
+        (torch.bfloat16, torch.bfloat16, 64, 48, True, "expert_tiles"),  # x 2 bytes off
+    ],
+)
+def test_route_picks_the_kernel_before_launch(x_dtype, w_dtype, d, f, misaligned, kernel):
+    if misaligned:
+        x = _misaligned((2, 8, d), x_dtype)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 2
+        w = torch.zeros((2, d, f), dtype=w_dtype)
+    else:
+        x = torch.empty((128, 640, d), dtype=x_dtype, device="meta")
+        w = torch.empty((128, d, f), dtype=w_dtype, device="meta")
+    assert route(x, w) == kernel
