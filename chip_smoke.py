@@ -6,8 +6,9 @@ Run from the repository root, with no arguments:  python3 chip_smoke.py
 Phases, each printing its seconds:
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build every CUDA source of the port with nvcc (``-Xptxas -v`` lines),
-     and count the HGMMA (wgmma) instructions in K3's SASS: none fails;
-  3. the BSR SpGEMM kernel against its plain PyTorch version on seeded
+     and count the HGMMA (wgmma) instructions in the SASS of K3 and of K1:
+     none in either fails;
+  3. the BSR SpGEMM kernels against their plain PyTorch version on seeded
      random block matrices, b in {1, 8, 16, 32}, fp32 and bf16, plus a pair
      list with a trailing garbage run;
   4. the main path at block 1: ``repro_torch.plan(inst, p=4, model="monoC")``
@@ -17,26 +18,35 @@ Phases, each printing its seconds:
      against one CSR @ CSR call, and a profiler breakdown of one call;
   5. the tiled path at block 16: ``plan_monoC_from_dense`` on a seeded
      4096 x 4096 block-sparse operand, squared, checked against a float64
-     dense product on the card;
+     dense product on the card (K1 ``warp_runs``);
   6. K1 at every block shape: (bm, bk, bn) in {(8, 16, 8), (16, 8, 32),
      (64, 64, 64), (128, 128, 128)}, fp32 and bf16, against its plain
      version; then ``repro_torch.kernels.ops.spgemm`` on the block-16
-     operand retiled 64 x 64, squared, against a float64 dense product;
+     operand retiled 32 x 32 (``block_runs``) and 64 x 64 (``mma_runs``),
+     squared, against a float64 dense product;
   7. K2 (``ops.spmm``): the AMG n=42 27-point operator tiled 8 x 8 by
      scipy, times a seeded (74,088, 256) dense block, fp32 and bf16,
      against scipy in float64 and against the plain version;
   8. K3 (``ops.grouped_gemm``): the up and down expert projections of
      Qwen3-MoE-235B-A22B (E = 128, C = 640, d = 4096, f = 1536) in bf16
-     (``expert_wgmma``, tensor cores) and the up projection in fp32
-     (``expert_tiles``), against the plain version, beside ``torch.bmm``;
-     then ``expert_wgmma`` off every tile grid in bf16 and fp16, and a
-     misaligned bf16 view that must take ``expert_tiles``.
-Then one JSON line of per-kernel numbers (one entry per __global__:
-``scalar_runs`` on the block-1 path, ``block_runs`` on the block-16 path,
-``block_rows`` on the fp32 AMG SpMM, ``expert_wgmma`` on the bf16 up
-projection, ``expert_tiles`` on the fp32 one, each with the launches of its
-path), the card line, and the result line; the phases' full records go to
-``chip_smoke.json`` under ``OUT``.
+     (``expert_wgmma``, tensor cores) and the up projection in fp32 on
+     full-mantissa data (``split3_bf16`` then ``expert_split``, split
+     products on the tensor cores), against the plain version, beside
+     ``torch.bmm``, with what sets its error; a bf16 view off alignment at
+     the same width, which must take ``expert_tiles``; then every
+     tensor-core route off its tile grid, an fp32 view off alignment
+     (``expert_split``), a small misaligned bf16 view (``expert_tiles``),
+     and ``expert_split`` held to each of its six products.
+Then one JSON line of per-kernel numbers (one entry per __global__, each
+with the launches of the path it is read on: ``scalar_runs`` on the block-1
+path, ``warp_runs`` on the block-16 path, ``block_runs`` and ``mma_runs``
+on the retiled 32 and 64 products, ``block_rows`` on the fp32 AMG SpMM,
+``expert_wgmma`` on the bf16 up projection, ``expert_split`` and
+``split3_bf16`` on the fp32 one, ``expert_tiles`` on the misaligned bf16
+up projection; bounds at the peak of each route's arithmetic,
+``PEAK_FLOPS``; a time under its bound fails), the card line, and the
+result line; the phases' full records go to ``chip_smoke.json`` under
+``OUT``.
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -57,7 +67,13 @@ SRC = ROOT / "src"
 OUT = ROOT / "chiprun_out"  # full per-phase records (chip_smoke.json)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+# Peak operations a second (H100 SXM data sheet, dense), by what a route
+# computes on: fp32 FMAs on the CUDA cores ("float32"); fp32-accurate
+# products on the tensor cores ("float32_split": six bf16 products of three
+# pieces at 989 TFLOP/s, the same time as three TF32 products at 494.7);
+# bf16 and fp16 on the tensor cores.
+PEAK_FLOPS = {"float32": 67e12, "float32_split": 989e12 / 6, "bfloat16": 989e12,
+              "float16": 989e12}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 P = 4
 AMG_N = 42
@@ -89,21 +105,60 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, ops: float, dtype):
-    """Least time (ms) for ``n_bytes`` of traffic and ``ops`` operations in
-    ``dtype`` on the card, and which of the two bounds it."""
+def dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time (ms) per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed between two events.  Unlike events around
+    back-to-back calls, this does not read the host's pace where a kernel
+    is shorter than its wrapper's Python."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capturing stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = cuda_ms(graph.replay, reps=3, warmup=1) / reps
+    del graph
+    return ms
+
+
+def bound(n_bytes: float, ops: float, peak: str):
+    """Least time (ms) for ``n_bytes`` of traffic and ``ops`` operations at
+    ``PEAK_FLOPS[peak]`` on the card, and which of the two bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_FLOPS[str(dtype).removeprefix("torch.")]
+    t_ops = ops / PEAK_FLOPS[peak]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_peak(a_tab, b_tab) -> str:
+    """The peak K1's route for these blocks is held to: fp32 on mma_runs
+    runs as split products on the tensor cores."""
+    from repro_torch.kernels.bsr_spgemm import route
+
+    name = dtype_name(a_tab.dtype)
+    kernel = route(a_tab.shape[1], a_tab.shape[2], b_tab.shape[2])
+    split = name == "float32" and kernel == "mma_runs"
+    return "float32_split" if split else name
 
 
 def kernel_bound(a_tab, b_tab, pa, pb, run_start, run_c):
     """Least time (ms) for K1's work and what bounds it.  Bytes: the
     A and B slots the pair list reads (each once), the four index arrays it
     reads, and one written C block per run, over the HBM rate.  Operations:
-    the multiply-adds of this pair list over the peak for the input type.
-    Table slots no pair reads (padding, unused receive slots) are not
-    counted, nor are C slots no run writes."""
+    the multiply-adds of this pair list over the peak of the route's
+    arithmetic (``k1_peak``).  Table slots no pair reads (padding, unused
+    receive slots) are not counted, nor are C slots no run writes.  Returns
+    (ms, bound by, bytes, operations, peak)."""
     import torch
 
     es = a_tab.element_size()
@@ -115,7 +170,8 @@ def kernel_bound(a_tab, b_tab, pa, pb, run_start, run_c):
         + sum(t.numel() * t.element_size() for t in (pa, pb, run_start, run_c))
     )
     ops = 2.0 * pa.numel() * bm * bk * bn
-    return (*bound(n_bytes, ops, a_tab.dtype), n_bytes, ops)
+    peak = k1_peak(a_tab, b_tab)
+    return (*bound(n_bytes, ops, peak), n_bytes, ops, peak)
 
 
 def random_block_case(rng, grid: int, shape, density: float, dtype, device):
@@ -170,10 +226,11 @@ def max_err_within(got, want, tol: float, what: str) -> float:
 
 def check_kernel(args, tol: float, garbage_slot: bool = True):
     """K1 against the plain version on the same inputs; returns
-    (max_abs_err, kernel ms, plain ms).  With ``garbage_slot`` the last C
-    slot is a padding run's and must stay zero."""
+    (max_abs_err, the kernel's ms by graph replay, the wrapper's call ms by
+    events, plain ms).  With ``garbage_slot`` the last C slot is a padding run's and
+    must stay zero."""
     import torch
-    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, launch
     from repro_torch.kernels.ref import bsr_spgemm_ref
 
     a, b, pa, pb, pc, rs, rc, n_c = args
@@ -183,9 +240,11 @@ def check_kernel(args, tol: float, garbage_slot: bool = True):
     err = max_err_within(got, want, tol, "K1 disagrees with its plain version")
     if garbage_slot and got[-1].any():
         fail("the garbage C slot is not zero")
-    ms = cuda_ms(lambda: bsr_spgemm_local(*args))
+    out = torch.zeros_like(got)
+    ms = graph_ms(lambda: launch(a, b, pa, pb, rs, rc, out))
+    call_ms = cuda_ms(lambda: bsr_spgemm_local(*args))
     plain_ms = cuda_ms(lambda: bsr_spgemm_ref(a, b, pa, pb, pc, n_c))
-    return err, ms, plain_ms
+    return err, ms, call_ms, plain_ms
 
 
 def scipy_csr(structure, values):
@@ -280,14 +339,17 @@ def kernel_record_at(exe, a, b, library_ms):
     a_own, b_own = exe.runtime.pack(*exe.pack(a, b))
     args = exe.runtime.step.kernel_inputs(a_own, b_own)
     a_tab, b_tab, pa, pb, pc, rs, rc, n_c = args
-    err, ms, plain_ms = check_kernel(args, TOL[str(a_tab.dtype).removeprefix("torch.")])
-    bound_ms, bound_by, n_bytes, ops = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
+    err, ms, call_ms, plain_ms = check_kernel(args, TOL[dtype_name(a_tab.dtype)])
+    bound_ms, bound_by, n_bytes, ops, peak = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
     return {
+        "kernel": "scalar_runs",
         "max_abs_err": err,
         "ms": ms,
+        "call_ms": call_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_peak": peak,
         "bound_bytes": n_bytes,
         "bound_flops": ops,
         "library_ms": library_ms,
@@ -352,7 +414,7 @@ def block16_path(device, rng):
     import torch
     from repro_torch.distributed.plan_ir import plan_monoC_from_dense
     from repro_torch.distributed.runtime import compile_spgemm
-    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, route
     from repro_torch.sparse.bsr import to_bsr
 
     block, grid = 16, 256
@@ -381,9 +443,10 @@ def block16_path(device, rng):
         c = exe.unpack(exe(v, v))
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = bsr_spgemm_local.launches["block_runs"]
+    kernel = route(block, block, block)
+    launches = bsr_spgemm_local.launches[kernel]
     if launches < REPS:
-        fail(f"block 16: {launches} kernel launches in {REPS} calls")
+        fail(f"block 16: {launches} {kernel} launches in {REPS} calls")
     # the last call against a float64 dense product on the card
     rows = torch.as_tensor(ab.brows, device=device)
     cols = torch.as_tensor(ab.bcols, device=device)
@@ -398,9 +461,9 @@ def block16_path(device, rng):
         fail(f"block 16: wrong product, max abs err {err.max().item()}")
     a_own, b_own = exe.pack(vals[-1], vals[-1])
     args = exe.step.kernel_inputs(a_own, b_own)
-    k_err, k_ms, k_plain = check_kernel(args, TOL["float32"])
+    k_err, k_ms, k_call, k_plain = check_kernel(args, TOL["float32"])
     a_tab, b_tab, pa, pb, pc, rs, rc, n_c = args
-    bound_ms, bound_by, n_bytes, ops = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
+    bound_ms, bound_by, n_bytes, ops, peak = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
     # the same product as one scalar CSR @ CSR call, on the last call's values
     with warnings.catch_warnings():  # CSR is "beta" in PyTorch; not our concern
         warnings.simplefilter("ignore", UserWarning)
@@ -420,10 +483,10 @@ def block16_path(device, rng):
         "max_abs_err": float(err.max().item()),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
-    record = {"launches": launches, "max_abs_err": k_err, "ms": k_ms,
-              "plain_ms": k_plain, "bound_ms": bound_ms, "bound_by": bound_by,
-              "bound_bytes": n_bytes, "bound_flops": ops, "library_ms": library_ms,
-              "pairs": pa.numel(), "runs": rc.numel(), "block": block}
+    record = {"kernel": kernel, "launches": launches, "max_abs_err": k_err, "ms": k_ms,
+              "call_ms": k_call, "plain_ms": k_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_peak": peak, "bound_bytes": n_bytes, "bound_flops": ops,
+              "library_ms": library_ms, "pairs": pa.numel(), "runs": rc.numel(), "block": block}
     print("block16 path", json.dumps(stats), flush=True)
     print("K1 at block 16", json.dumps(record), flush=True)
     return stats, record, dense
@@ -434,44 +497,50 @@ def k1_block_shapes(rng, device):
     with a trailing garbage run; fp32 and bf16."""
     import torch
 
+    from repro_torch.kernels.bsr_spgemm import route
+
     cases = {(8, 16, 8): (512, 0.02), (16, 8, 32): (256, 0.05),
              (64, 64, 64): (64, 0.1), (128, 128, 128): (32, 0.15)}
     records = []
     for shape, (grid, density) in cases.items():
         for dtype in (torch.float32, torch.bfloat16):
             args = random_block_case(rng, grid, shape, density, dtype, device)
-            name = str(dtype).removeprefix("torch.")
-            err, ms, plain_ms = check_kernel(args, TOL[name])
+            name = dtype_name(dtype)
+            err, ms, call_ms, plain_ms = check_kernel(args, TOL[name])
             a_tab, b_tab, pa, pb, _, rs, rc, _ = args
-            bound_ms, bound_by, _, _ = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
-            rec = {"shape": list(shape), "dtype": name, "pairs": pa.numel(),
-                   "runs": rc.numel(), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
+            bound_ms, bound_by, _, _, peak = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
+            rec = {"shape": list(shape), "dtype": name, "kernel": route(*shape),
+                   "pairs": pa.numel(), "runs": rc.numel(), "max_abs_err": err, "ms": ms,
+                   "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "bound_peak": peak}
             records.append(rec)
-            print(f"K1 check {shape} {name} pairs={pa.numel()} max_abs_err={err:.3g} "
-                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}", flush=True)
+            print(f"K1 check {shape} {name} {rec['kernel']} pairs={pa.numel()} "
+                  f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f}", flush=True)
     return records
 
 
-def retiled_spgemm(dense, device):
-    """``ops.spgemm`` on the block16-4096 operand retiled at 64 x 64,
+def retiled_spgemm(dense, device, block: int):
+    """``ops.spgemm`` on the block16-4096 operand retiled at block x block,
     squared, against a float64 dense product on the card; then K1 at those
     inputs against its plain version and one CSR @ CSR call."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, build_pair_lists, pair_runs
+    from repro_torch.kernels.bsr_spgemm import (
+        bsr_spgemm_local, build_pair_lists, pair_runs, route,
+    )
     from repro_torch.sparse.bsr import to_bsr
 
-    block = 64
     ab = to_bsr(dense, block, block)
+    kernel = route(block, block, block)
     reset_launches()
     t0 = time.perf_counter()
     c_blocks, crows, ccols = ops.spgemm(ab, ab)
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3
-    launches = bsr_spgemm_local.launches["block_runs"]
-    if launches != 1:
-        fail(f"retiled {block}: {launches} block_runs launches in one ops.spgemm call")
+    launches = bsr_spgemm_local.launches[kernel]
+    if launches != 1 or sum(bsr_spgemm_local.launches.values()) != 1:
+        fail(f"retiled {block}: launches {bsr_spgemm_local.launches} in one ops.spgemm call")
     grid = dense.shape[0] // block
     a64 = torch.from_numpy(dense).to(device, torch.float64)
     want = a64 @ a64
@@ -490,17 +559,19 @@ def retiled_spgemm(dense, device):
     blocks = torch.from_numpy(ab.blocks).to(device)
     pa_t, pb_t, rs_t, rc_t = idx(pa), idx(pb), idx(rs), idx(rc)
     args = (blocks, blocks, pa_t, pb_t, idx(pc), rs_t, rc_t, len(crows))
-    k_err, ms, plain_ms = check_kernel(args, TOL["float32"], garbage_slot=False)
-    bound_ms, bound_by, n_bytes, n_ops = kernel_bound(blocks, blocks, pa_t, pb_t, rs_t, rc_t)
+    k_err, ms, k_call, plain_ms = check_kernel(args, TOL["float32"], garbage_slot=False)
+    bound_ms, bound_by, n_bytes, n_ops, peak = kernel_bound(blocks, blocks, pa_t, pb_t, rs_t,
+                                                            rc_t)
     with warnings.catch_warnings():  # CSR is "beta" in PyTorch; not our concern
         warnings.simplefilter("ignore", UserWarning)
         a_csr = a64.float().to_sparse_csr()
     record = {"instance": f"block16-4096-d0.05 retiled {block}x{block}, squared",
               "n_blocks": ab.n_blocks, "c_blocks": len(crows), "pairs": len(pa),
-              "runs": len(rc), "ops_call_ms": call_ms, "launches": launches,
+              "runs": len(rc), "kernel": kernel, "ops_call_ms": call_ms, "launches": launches,
               "max_abs_err_vs_float64": err, "max_abs_err": k_err, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-              "bound_bytes": n_bytes, "bound_flops": n_ops,
+              "call_ms": k_call, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "bound_peak": peak, "bound_bytes": n_bytes,
+              "bound_flops": n_ops,
               "library_ms": library_csr_ms(a_csr, a_csr)}
     print(f"K1 retiled {block}", json.dumps(record), flush=True)
     return record
@@ -566,19 +637,21 @@ def spmm_amg(a_struct, device, rng):
         got = bsr_spmm_local(*args)
         plain = bsr_spmm_ref(blocks, rows, cols32, dense_dev, m_blocks)
         err = max_err_within(got, plain, TOL[name], f"K2 {name} against its plain version")
-        ms = cuda_ms(lambda: bsr_spmm_local(*args))
+        ms = graph_ms(lambda: bsr_spmm_local(*args))
+        call_ms = cuda_ms(lambda: bsr_spmm_local(*args))
         plain_ms = cuda_ms(lambda: bsr_spmm_ref(blocks, rows, cols32, dense_dev, m_blocks),
                            reps=5, warmup=1)
         es = blocks.element_size()
         n_bytes = ((blocks.numel() + dense_dev.numel() + out.numel()) * es
                    + (cols32.numel() + row_start.numel()) * 4)
         n_ops = 2.0 * nb * block * block * n_cols
-        bound_ms, bound_by = bound(n_bytes, n_ops, dtype)
+        bound_ms, bound_by = bound(n_bytes, n_ops, name)
         library_ms, library_call = spmm_library_ms(a_bsr, a_struct, vals, blocks, dense_dev,
                                                    device)
         records[name] = {
             "launches": launches, "max_abs_err": err, "max_abs_err_vs_float64": err64,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "bound_bytes": n_bytes, "bound_flops": n_ops, "library_ms": library_ms,
             "library_call": library_call,
         }
@@ -625,21 +698,32 @@ def moe_qwen3(device):
     ``expert_wgmma``), with weights drawn N(0, 1/fan_in) so every output is
     O(1); each checked against the plain version (tolerance 2e-2 + 2e-2
     |want|: bf16 output rounding), then timed beside ``torch.bmm`` on the same
-    tensors.  Then the up projection in fp32 (``expert_tiles``), checked at
-    1e-4 and timed beside ``torch.bmm`` in fp32 (TF32 off)."""
+    tensors.  Then the up projection in fp32 on operands drawn in fp32 with
+    full 24-bit significands (not bf16 values, which would hide a kernel
+    that multiplied in bf16 or TF32): ``split3_bf16`` twice and
+    ``expert_split``, checked at 1e-4 against the plain version (fp32, TF32
+    off) and against a float64 product on one expert, and timed beside
+    ``torch.bmm`` in fp32 (TF32 off); the split pass alone against its plain
+    version, bit for bit.  What sets expert_split's error, on expert 0
+    against float64: the same kernel on the bf16 values of x and w (their
+    pieces x1, x2, w1, w2 are zero, so it sums x0 w0 alone in the same
+    accumulators) and ``torch.bmm`` fp32 on the full-mantissa data.  Last,
+    ``expert_tiles`` at this width: the up projection in bf16 through a view
+    of x 2 bytes into its buffer, off the 16 bytes a tensor map needs, timed
+    beside its plain version and ``torch.bmm``."""
     import math
 
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gemm import moe_gemm
-    from repro_torch.kernels.ref import moe_gemm_ref
+    from repro_torch.kernels.moe_gemm import moe_gemm, route, split3_bf16
+    from repro_torch.kernels.ref import moe_gemm_ref, split3_bf16_ref
 
     tokens, E, K, d, f = 8192, 128, 8, 4096, 1536
     C = math.ceil(tokens * K / E * 1.25)
     g = torch.Generator(device=device).manual_seed(0)
 
-    def normal(shape, std):
-        return (torch.randn(shape, generator=g, device=device) * std).to(torch.bfloat16)
+    def normal(shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=device) * std).to(dtype)
 
     x = normal((E, C, d), 1.0)
     w_up = normal((E, d, f), 1 / math.sqrt(d))
@@ -648,16 +732,17 @@ def moe_qwen3(device):
     h = ops.grouped_gemm(x, w_up)
     y = ops.grouped_gemm(h, w_down)
     torch.cuda.synchronize()
-    launches = dict(moe_gemm.launches)
-    if launches != {"expert_wgmma": 2, "expert_tiles": 0}:
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    if launches != {"expert_wgmma": 2}:
         fail(f"K3: launches {launches} in two bf16 ops.grouped_gemm calls")
     records = {"config": "Qwen3-MoE-235B-A22B experts", "E": E, "top_k": K, "tokens": tokens,
                "C": C, "d_model": d, "d_ff_expert": f}
 
-    def record(xi, wi, out, kernel, n_launches, tol, reps):
+    def record(xi, wi, out, kernel, n_launches, tol, reps, peak):
         """Check ``out`` against the plain version; time the kernel, the
-        plain version and ``torch.bmm`` on the same tensors."""
-        dtype = str(xi.dtype).removeprefix("torch.")
+        plain version and ``torch.bmm`` on the same tensors (by events:
+        these kernels take milliseconds)."""
+        dtype = dtype_name(xi.dtype)
         if out.shape != (E, C, wi.shape[2]) or out.dtype != xi.dtype:
             fail(f"K3 {kernel} {dtype}: result {tuple(out.shape)} {out.dtype}")
         if not bool(torch.isfinite(out).all()):
@@ -670,40 +755,96 @@ def moe_qwen3(device):
         library_ms = cuda_ms(lambda: torch.bmm(xi, wi), reps=reps)
         n_bytes = (xi.numel() + wi.numel() + out.numel()) * xi.element_size()
         n_ops = 2.0 * E * C * xi.shape[2] * wi.shape[2]
-        bound_ms, bound_by = bound(n_bytes, n_ops, xi.dtype)
+        bound_ms, bound_by = bound(n_bytes, n_ops, peak)
         return {
             "kernel": kernel, "dtype": dtype, "shape": [list(xi.shape), list(wi.shape)],
             "launches": n_launches, "max_abs_err": err,
             "out_std": float(out.float().std().item()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": n_bytes,
-            "bound_flops": n_ops, "library_ms": library_ms, "library_call": "torch.bmm",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": peak,
+            "bound_bytes": n_bytes, "bound_flops": n_ops, "library_ms": library_ms,
+            "library_call": "torch.bmm",
         }
 
     for name, (xi, wi, out) in (("up", (x, w_up, h)), ("down", (h, w_down, y))):
         records[name] = record(xi, wi, out, "expert_wgmma", launches["expert_wgmma"],
-                               TOL["bfloat16"], reps=20)
+                               TOL["bfloat16"], reps=20, peak="bfloat16")
         print(f"K3 {name}", json.dumps(records[name]), flush=True)
-    # the fp32 route, at the up projection's shape and values
-    x32, w32 = x.float(), w_up.float()
     del x, w_up, w_down, h, y, xi, wi, out
+
+    # the fp32 route, at the up projection's shape, on full-mantissa fp32 data
+    x32 = normal((E, C, d), 1.0, torch.float32)
+    w32 = normal((E, d, f), 1 / math.sqrt(d), torch.float32)
+    for name, t in (("x", x32), ("w", w32)):
+        if not bool((t != t.bfloat16().float()).any()):
+            fail(f"K3 fp32: {name} holds only bf16 values")
     reset_launches()
     out32 = ops.grouped_gemm(x32, w32)
     torch.cuda.synchronize()
-    launches = dict(moe_gemm.launches)
-    if launches != {"expert_wgmma": 0, "expert_tiles": 1}:
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    if launches != {"split3_bf16": 2, "expert_split": 1}:
         fail(f"K3: launches {launches} in one fp32 ops.grouped_gemm call")
-    records["up_fp32"] = record(x32, w32, out32, "expert_tiles", launches["expert_tiles"],
-                                TOL["float32"], reps=3)
-    print("K3 up fp32", json.dumps(records["up_fp32"]), flush=True)
+    want64 = x32[0].double() @ w32[0].double()
+    err64 = max_err_within(out32[0].double(), want64, TOL["float32"],
+                           "K3 expert_split against float64 on expert 0")
+    # the error of summing in the kernel's accumulators, without the pieces
+    xb, wb = x32[:1].bfloat16().float(), w32[:1].bfloat16().float()
+    bf16_err64 = max_err_within(moe_gemm(xb, wb)[0].double(), xb[0].double() @ wb[0].double(),
+                                TOL["float32"], "K3 expert_split on bf16 values, expert 0")
+    bmm_err64 = max_err_within(torch.bmm(x32[:1], w32[:1])[0].double(), want64, TOL["float32"],
+                               "torch.bmm fp32 against float64 on expert 0")
+    del want64, xb, wb
+    rec = record(x32, w32, out32, "expert_split", launches["expert_split"], TOL["float32"],
+                 reps=5, peak="float32_split")
+    rec.update(max_abs_err_vs_float64_expert0=err64,
+               bf16_values_max_abs_err_vs_float64_expert0=bf16_err64,
+               library_max_abs_err_vs_float64_expert0=bmm_err64)
+    records["up_fp32"] = rec
+    print("K3 up fp32", json.dumps(rec), flush=True)
+    del out32
+    # the split pass alone, on the same operands
+    for name, t in (("x", x32), ("w", w32)):
+        if not torch.equal(split3_bf16(t), split3_bf16_ref(t)):
+            fail(f"K3 split3_bf16 of {name} differs from its plain version")
+    n = x32.numel() + w32.numel()
+    bound_ms, bound_by = bound(10.0 * n, 0.0, "float32")  # 4 bytes read, 6 written a value
+    rec = {"kernel": "split3_bf16", "launches": launches["split3_bf16"], "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: (split3_bf16(x32), split3_bf16(w32)), reps=5),
+           "plain_ms": cuda_ms(lambda: (split3_bf16_ref(x32), split3_bf16_ref(w32)), reps=2,
+                               warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": None,
+           "bound_bytes": 10.0 * n, "bound_flops": 0.0, "library_ms": None, "values": n}
+    records["split_fp32"] = rec
+    print("K3 split3_bf16 (x and w of the fp32 up projection)", json.dumps(rec), flush=True)
+    # expert_tiles: the bf16 up projection through a misaligned view of x
+    x_mis = torch.empty(E * C * d + 1, dtype=torch.bfloat16, device=device)[1:].view(E, C, d)
+    x_mis.copy_(x32)
+    w_bf16 = w32.bfloat16()
+    del x32, w32
+    if x_mis.data_ptr() % 16 != 2 or route(x_mis, w_bf16) != "expert_tiles":
+        fail(f"K3 misaligned bf16 view: data_ptr() % 16 = {x_mis.data_ptr() % 16}, "
+             f"routed to {route(x_mis, w_bf16)}")
+    reset_launches()
+    out_mis = ops.grouped_gemm(x_mis, w_bf16)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    if launches != {"expert_tiles": 1}:
+        fail(f"K3: launches {launches} in one misaligned bf16 ops.grouped_gemm call")
+    rec = record(x_mis, w_bf16, out_mis, "expert_tiles", launches["expert_tiles"],
+                 TOL["bfloat16"], reps=3, peak="bfloat16")
+    records["tiles_misaligned"] = rec
+    print("K3 up bf16, x 2 bytes off", json.dumps(rec), flush=True)
     return records
 
 
 def moe_edges(device):
-    """``expert_wgmma`` off every tile grid, in bf16 and fp16, against the
-    plain version: C off 64 and 128 rows, d off 64, f off 128 and 256, and
-    expert boundaries inside a 128-row box.  Then a bf16 view one element
-    into its buffer (2 bytes off the 16 a tensor map needs), which must go to
-    ``expert_tiles`` and agree as well."""
+    """Every route off its tile grid against the plain version:
+    ``expert_wgmma`` in bf16 and fp16 and ``expert_split`` in fp32 (full
+    mantissas), with C off 64 and 128 rows, d off 64, f off 128 and 256, and
+    expert boundaries inside a 128-row box; an fp32 view 4 bytes into its
+    buffer, which ``expert_split`` takes (its pieces are fresh); a bf16
+    view 2 bytes off the 16 a tensor map needs, which must go to
+    ``expert_tiles``; and ``expert_split`` held to its six products
+    (``split_products``)."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm, route
     from repro_torch.kernels.ref import moe_gemm_ref
@@ -717,26 +858,64 @@ def moe_edges(device):
         before = dict(moe_gemm.launches)
         got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
         torch.cuda.synchronize()
-        if moe_gemm.launches != {**before, kernel: before[kernel] + 1}:
+        after = {kernel: before[kernel] + 1}
+        if kernel == "expert_split":
+            after["split3_bf16"] = before["split3_bf16"] + 2
+        if moe_gemm.launches != {**before, **after}:
             fail(f"K3 {what}: launches {before} -> {moe_gemm.launches}")
-        dtype = str(x.dtype).removeprefix("torch.")
-        err = max_err_within(got, moe_gemm_ref(x, w), TOL[dtype], f"K3 {what}")
+        err = max_err_within(got, moe_gemm_ref(x, w), TOL[dtype_name(x.dtype)], f"K3 {what}")
         records.append({"what": what, "kernel": kernel, "max_abs_err": err})
         print(f"K3 edge {what} {kernel} max_abs_err={err:.3g}", flush=True)
 
     for E, C, d, f in ((3, 200, 72, 136), (2, 256, 512, 384), (5, 96, 4096, 1536)):
-        for dtype in (torch.bfloat16, torch.float16):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             x = torch.randn((E, C, d), generator=g, device=device).to(dtype)
             w = (torch.randn((E, d, f), generator=g, device=device) / d**0.5).to(dtype)
-            check(x, w, "expert_wgmma", f"{(E, C, d, f)} {str(dtype).removeprefix('torch.')}")
+            kernel = "expert_split" if dtype == torch.float32 else "expert_wgmma"
+            check(x, w, kernel, f"{(E, C, d, f)} {dtype_name(dtype)}")
     E, C, d, f = 2, 256, 512, 384
-    flat = torch.randn(E * C * d + 1, generator=g, device=device).to(torch.bfloat16)
+    flat = torch.randn(E * C * d + 1, generator=g, device=device)
     x = flat[1:].view(E, C, d)
-    w = (torch.randn((E, d, f), generator=g, device=device) / d**0.5).to(torch.bfloat16)
+    w = torch.randn((E, d, f), generator=g, device=device) / d**0.5
+    if x.data_ptr() % 16 != 4:
+        fail(f"K3 misaligned fp32 view: data_ptr() % 16 = {x.data_ptr() % 16}, not 4")
+    check(x, w, "expert_split", f"{(E, C, d, f)} float32, x 4 bytes off")
+    x, w = flat.bfloat16()[1:].view(E, C, d), w.bfloat16()
     if x.data_ptr() % 16 != 2:
         fail(f"K3 misaligned view: data_ptr() % 16 = {x.data_ptr() % 16}, not 2")
     check(x, w, "expert_tiles", f"{(E, C, d, f)} bfloat16, x 2 bytes off")
+    records.append(split_products(device))
     return records
+
+
+def split_products(device):
+    """``expert_split`` sums all six products x_i w_j (i + j <= 2) of the
+    bf16 pieces: at d = 64, one k-block, where summing in the tensor cores'
+    accumulators costs little, the result is held to those products of
+    ``split3_bf16_ref``'s pieces summed in float64, within half the largest
+    term of the smallest product.  A kernel that dropped any product would
+    miss by at least twice that; the three-product, two-piece scheme's miss
+    is recorded beside it."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.ref import split3_bf16_ref
+
+    E, C, d, f = 2, 256, 64, 256
+    g = torch.Generator(device=device).manual_seed(2)
+    x = torch.randn((E, C, d), generator=g, device=device)
+    w = torch.randn((E, d, f), generator=g, device=device) / d**0.5
+    xs, ws = split3_bf16_ref(x).double(), split3_bf16_ref(w).double()
+    terms = {(i, j): xs[i] @ ws[j] for i in range(3) for j in range(3 - i)}
+    want = sum(terms.values())
+    tol = min(t.abs().max().item() for t in terms.values()) / 2
+    two_piece = (terms[0, 0] + terms[0, 1] + terms[1, 0] - want).abs().max().item()
+    err = (moe_gemm(x, w).double() - want).abs().max().item()
+    if not err < tol:
+        fail(f"K3 expert_split misses its six products by {err} (tolerance {tol})")
+    rec = {"what": f"{(E, C, d, f)} float32, six products", "kernel": "expert_split",
+           "max_abs_err": err, "tol": tol, "two_piece_max_abs_err": two_piece}
+    print("K3 expert_split products", json.dumps(rec), flush=True)
+    return rec
 
 
 def main() -> None:
@@ -751,7 +930,7 @@ def main() -> None:
     device = torch.device("cuda", 0)
     from repro_torch.core.matrices import amg_instances
     from repro_torch.kernels import _build
-    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, route
 
     t0 = time.perf_counter()
     card = subprocess.run(
@@ -768,10 +947,11 @@ def main() -> None:
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling entry", "wgmma")):
                 print(f"ptxas[{name}] {line.strip()}")
-    hgmma = sum("HGMMA" in line for line in _build.sass("moe_gemm").splitlines())
-    print(f"sass[moe_gemm] HGMMA instructions: {hgmma}", flush=True)
-    if hgmma == 0:
-        fail("no HGMMA in the moe_gemm library: expert_wgmma is not on the tensor cores")
+    for lib in ("moe_gemm", "bsr_spgemm"):  # expert_wgmma, expert_split; mma_runs
+        hgmma = sum("HGMMA" in line for line in _build.sass(lib).splitlines())
+        print(f"sass[{lib}] HGMMA instructions: {hgmma}", flush=True)
+        if hgmma == 0:
+            fail(f"no HGMMA in the {lib} library: its wgmma kernels are not on the tensor cores")
     phase("build", t0)
 
     t0 = time.perf_counter()
@@ -781,9 +961,10 @@ def main() -> None:
         for dtype in (torch.float32, torch.bfloat16):
             args = random_block_case(rng, grid, (block,) * 3, density, dtype, device)
             name = str(dtype).removeprefix("torch.")
-            err, ms, plain_ms = check_kernel(args, TOL[name])
-            print(f"K1 check b={block} {name} pairs={args[2].numel()} "
-                  f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+            err, ms, _, plain_ms = check_kernel(args, TOL[name])
+            print(f"K1 check b={block} {name} {route(block, block, block)} "
+                  f"pairs={args[2].numel()} max_abs_err={err:.3g} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f}", flush=True)
     phase("kernel checks", t0)
 
     t0 = time.perf_counter()
@@ -812,7 +993,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     shape_checks = k1_block_shapes(rng, device)
-    retiled = retiled_spgemm(block16_dense, device)
+    retiled = {block: retiled_spgemm(block16_dense, device, block) for block in (32, 64)}
     phase("K1 every block shape", t0)
 
     t0 = time.perf_counter()
@@ -831,25 +1012,34 @@ def main() -> None:
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
-        "k1_retiled64": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe,
+        "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe,
     }, indent=1))
+    # one entry per __global__, each read on the path that launches it
+    k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",
+                  "src/repro/kernels/moe_gemm.py:61")
+    k1_paths = {rec["kernel"]: rec for rec in (blocked, retiled[32], retiled[64])}
+    entries = [
+        ("bsr_spgemm/scalar_runs", "bsr_spgemm.cu", k1, scalar),
+        ("bsr_spgemm/warp_runs", "bsr_spgemm.cu", k1, k1_paths["warp_runs"]),
+        ("bsr_spgemm/block_runs", "bsr_spgemm.cu", k1, k1_paths["block_runs"]),
+        ("bsr_spgemm/mma_runs", "bsr_spgemm.cu", k1, k1_paths["mma_runs"]),
+        ("bsr_spmm/block_rows", "bsr_spmm.cu", k2, spmm["float32"]),
+        ("moe_gemm/expert_wgmma", "moe_gemm.cu", k3, moe["up"]),
+        ("moe_gemm/expert_split", "moe_gemm.cu", k3, moe["up_fp32"]),
+        ("moe_gemm/split3_bf16", "moe_gemm.cu", k3, moe["split_fp32"]),
+        ("moe_gemm/expert_tiles", "moe_gemm.cu", k3, moe["tiles_misaligned"]),
+    ]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
          "replaces": replaces, **{k: rec[k] for k in keys}}
-        for name, source, replaces, rec in (
-            ("bsr_spgemm/scalar_runs", "bsr_spgemm.cu", "src/repro/kernels/bsr_spgemm.py:63",
-             scalar),
-            ("bsr_spgemm/block_runs", "bsr_spgemm.cu", "src/repro/kernels/bsr_spgemm.py:63",
-             blocked),
-            ("bsr_spmm/block_rows", "bsr_spmm.cu", "src/repro/kernels/bsr_spmm.py:69",
-             spmm["float32"]),
-            ("moe_gemm/expert_wgmma", "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:61",
-             moe["up"]),
-            ("moe_gemm/expert_tiles", "moe_gemm.cu", "src/repro/kernels/moe_gemm.py:61",
-             moe["up_fp32"]),
-        )
+        for name, source, replaces, rec in entries
     ]
+    for k in kernels:
+        if not k["launches"]:
+            fail(f"{k['name']}: no launch on its path")
+        if k["ms"] < k["bound_ms"]:  # the bound or the timing is wrong
+            fail(f"{k['name']} took {k['ms']} ms, under its bound {k['bound_ms']} ms")
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

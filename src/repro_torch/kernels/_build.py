@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/repro_torch_kernels/`` at the repository root, named by a hash
-of its source and flags, so an edited source rebuilds and an unchanged one
-is compiled once.  Nothing here runs at import time: the CPU tests import
-every module on a machine without nvcc.  The checks every wrapper makes
-before it hands pointers to a kernel live here too.
+of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is compiled once.  Nothing here
+runs at import time: the CPU tests import every module on a machine without
+nvcc.  The checks every wrapper makes before it hands pointers to a kernel
+live here too.
 """
 from __future__ import annotations
 
@@ -75,7 +76,8 @@ def build(name: str) -> tuple[Path, str]:
     place, so concurrent builders never load a half-written file.
     """
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     log = lib.with_suffix(".log")
     if not lib.exists():

@@ -157,13 +157,67 @@ def bsr_spgemm(
     )
 
 
+# the __global__s of csrc/bsr_spgemm.cu, numbered as its C entry point
+# repro_bsr_spgemm(kernel, a, b, pair_a, pair_b, run_start, run_c, out, n_runs,
+# bm, bk, bn, dtype code, stream) takes them
+KERNELS = ("scalar_runs", "warp_runs", "block_runs", "mma_runs")
+
+
 @functools.cache
 def _kernel():
-    """The kernel's C entry point, built and bound on first use."""
+    """The kernels' C entry point, built and bound on first use."""
     fn = load("bsr_spgemm").repro_bsr_spgemm
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def route(bm: int, bk: int, bn: int) -> str:
+    """The kernel ``bsr_spgemm_local`` launches for (bm, bk) A blocks and
+    (bk, bn) B blocks on the card, decided before the launch.
+
+    ``"scalar_runs"`` at 1 x 1 x 1; ``"warp_runs"`` (each warp walks a few
+    runs' pairs as one stream, the next pair's blocks in flight) where bm,
+    bn and bk are at most 16; ``"mma_runs"`` (wgmma tiles, fp32 as three bf16 pieces)
+    where bm or bn is over 32; ``"block_runs"`` (a thread block per C tile,
+    fp32 FMAs) for the rest."""
+    if bm == bk == bn == 1:
+        return "scalar_runs"
+    if max(bm, bk, bn) <= 16:
+        return "warp_runs"
+    if max(bm, bn) > 32:
+        return "mma_runs"
+    return "block_runs"
+
+
+def launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out) -> str:
+    """Launch the kernel ``route`` names for these blocks on CUDA tensors
+    checked as ``bsr_spgemm_local`` checks them, summing into the zeroed
+    ``out``; raise if it is refused, else return the kernel's name.  Counts
+    nothing: ``bsr_spgemm_local`` counts its launches."""
+    bm, bk, bn = _block_shapes(a_blocks, b_blocks)
+    kernel = route(bm, bk, bn)
+    device = a_blocks.device
+    with torch.cuda.device(device):
+        err = _kernel()(
+            KERNELS.index(kernel),
+            a_blocks.data_ptr(),
+            b_blocks.data_ptr(),
+            pair_a.data_ptr(),
+            pair_b.data_ptr(),
+            run_start.data_ptr(),
+            run_c.data_ptr(),
+            out.data_ptr(),
+            run_c.numel(),
+            bm,
+            bk,
+            bn,
+            DTYPE_CODE[out.dtype],
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bsr_spgemm kernel {kernel} launch failed: CUDA error {err}")
+    return kernel
 
 
 def _block_shapes(a_blocks, b_blocks) -> tuple[int, int, int]:
@@ -195,10 +249,9 @@ def bsr_spgemm_local(
     (bk, bn), of any size.  ``(run_start, run_c)`` is
     ``pair_runs(pair_c)``, computed once by the caller, and every index is
     in range (``bsr_spgemm`` checks that; the executors build their lists
-    in range).  On the CPU this is
-    the plain version; on CUDA it launches the kernel (adding one to
-    ``bsr_spgemm_local.launches["scalar_runs"]`` for 1 x 1 blocks, else to
-    ``["block_runs"]``) or raises.  The result is in
+    in range).  On the CPU this is the plain version; on CUDA it launches
+    the kernel ``route(bm, bk, bn)`` names (adding one to
+    ``bsr_spgemm_local.launches[kernel]``) or raises.  The result is in
     ``promote_types(a, b)``, accumulated in fp32; C blocks no pair touches
     are zero.
     """
@@ -234,28 +287,10 @@ def bsr_spgemm_local(
         raise ValueError("run_start must hold n_runs + 1 offsets")
     if n_runs == 0:
         return out
-    with torch.cuda.device(device):
-        err = _kernel()(
-            a_blocks.data_ptr(),
-            b_blocks.data_ptr(),
-            pair_a.data_ptr(),
-            pair_b.data_ptr(),
-            run_start.data_ptr(),
-            run_c.data_ptr(),
-            out.data_ptr(),
-            n_runs,
-            bm,
-            bk,
-            bn,
-            DTYPE_CODE[out_dtype],
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"bsr_spgemm kernel launch failed: CUDA error {err}")
-    scalar = bm == bk == bn == 1
-    bsr_spgemm_local.launches["scalar_runs" if scalar else "block_runs"] += 1
+    kernel = launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out)
+    bsr_spgemm_local.launches[kernel] += 1
     return out
 
 
 # launches since the last reset, per __global__ of csrc/bsr_spgemm.cu
-bsr_spgemm_local.launches = {"scalar_runs": 0, "block_runs": 0}
+bsr_spgemm_local.launches = {name: 0 for name in KERNELS}

@@ -13,7 +13,7 @@
 // What bounds it: operations.  At the full width of Qwen3-MoE-235B-A22B's
 // experts (E = 128, C = 640, d = 4096, f = 1536) a projection is 1.03 TFLOP
 // against 2.5 GB: 1.04 ms at the bf16 tensor cores' 989 TFLOP/s, 0.76 ms at
-// 3.35 TB/s.  Two kernels, picked by the wrapper before launch:
+// 3.35 TB/s.  Three routes, picked by the wrapper before launch:
 //
 // expert_wgmma<T> (x and w both bf16 or both fp16, d and f multiples of 8,
 // 16-byte aligned data): the tensor-core kernel the bound asks for.
@@ -48,10 +48,35 @@
 //   (8-bit significands) or two fp16 values (11-bit) is exact in fp32
 //   (24 bits), so wgmma with fp32 accumulation forms the same sum, up to the
 //   order of the additions.  fp32 inputs are another matter: TF32 would drop
-//   about three digits, so they stay on the CUDA cores.
+//   about three digits; they take the next route.
 //
-// expert_tiles<T, TO> (fp32, mixed inputs met at fp32, and 16-bit inputs the
-// tensor maps cannot describe): fp32 FMAs on the CUDA cores.  A program owns
+// split3_bf16 then expert_split<TO> (fp32 x and w, and mixed inputs met at
+// fp32; d and f multiples of 8): fp32-accurate products on the tensor cores.
+//   - split3_bf16 writes each operand as three bf16 pieces, v == v0 + v1 + v2
+//     exactly (hopper.cuh's split3), into fresh, aligned arrays: so an fp32
+//     view a few bytes off alignment takes this route too.  It reads 4 bytes
+//     and writes 6 per value: at the Qwen3-MoE up projection 4.56 GB read and
+//     6.84 GB written, about 3.4 ms at 3.35 TB/s, inside the wrapper's time.
+//   - expert_split runs the six products x_i w_j with i + j <= 2 per k16
+//     step (the pieces' terms down to 2^-16 of x w; the rest are below
+//     fp32's rounding), the five small ones into accumulators of their own.
+//     x's three pieces go to wgmma from registers (ldmatrix, once each a
+//     k16 step): read from shared memory by each product instead, A and B
+//     together asked more than the 128 bytes a clock an SM's shared memory
+//     gives at the tensor cores' rate, and the GEMM ran at about 55% of the
+//     bf16 peak against about 80% from registers (chip_smoke.py, H100 80GB
+//     HBM3 at 700 W).  Two pieces with three products would keep only 16
+//     significant bits, which fails 1e-4 on long sums of N(0, 1) data; TF32
+//     with three products has the same bound (3 at 494.7 against 6 at 989
+//     TFLOP/s) but wgmma takes TF32 only with k-major B, which would need w
+//     transposed.  The bound is the fp32-accurate peak: 6 bf16 products at
+//     989 TFLOP/s, 1.031 TFLOP of fp32 work in 6.25 ms at Qwen3-MoE's width.
+//   - Fusing the split into the GEMM's producer (fp32 tiles by TMA, split in
+//     shared memory) would save the pass's traffic; it is not done yet.
+//
+// expert_tiles<T, TO> (fp32 or mixed inputs with d or f off a multiple of 8,
+// and 16-bit inputs the tensor maps cannot describe): fp32 FMAs on the CUDA
+// cores.  A program owns
 // a 128 x 128 output tile; its 16 x 16 threads each keep an 8 x 8 fp32
 // accumulator (two 4-row by two 4-column quadrants, so each thread's
 // shared-memory reads are 16-byte and conflict-free); the d loop stages a
@@ -73,6 +98,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kSide = 16;             // threads per side of a program
@@ -80,21 +107,6 @@ constexpr int kTile = 128;            // output rows and columns per program
 constexpr int kSliceD = 16;           // d per staged slice
 constexpr int kHalf = kTile / 2;      // quadrant offset
 constexpr int kMaxGridYZ = 65535;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half(x); }
 
 // Program (blockIdx.x, blockIdx.y, blockIdx.z) owns columns
 // [blockIdx.x * 128, +128) and rows [blockIdx.y * 128, +128) of expert
@@ -194,135 +206,6 @@ constexpr int kWgSmem =
     kSwizzleAtom + kWgStages * (kABytes + kBBytes) + 2 * kOutBytes + 2 * kWgStages * 8;
 static_assert(kWgBN % kBox == 0 && kWgSmem <= 227 * 1024, "tile does not fit");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed.  A lost
-// arrival would hang the card; after 10 s this traps instead, so the launch
-// fails with an error the wrapper raises.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - t0 > 10000000000ull) __trap();
-  }
-}
-
-// One box of a 3-D tensor map into shared memory; completion counts bytes
-// on `bar`.
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// One box from shared memory into a 3-D tensor map; the parts of the box
-// outside the array are not written.
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled operand:
-// start address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ACC8(i)                                                                           \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (+)= A (64 x 16, k-major) * B (16 x 256, MN-major: imm-trans-b = 1); the
-// accumulators are overwritten where scale_d is 0.
-#define WGMMA_M64N256K16(TY)                                                                                \
-  asm volatile(                                                                                             \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                                                         \
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY "\n"                                         \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"                            \
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,\n"                  \
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"                  \
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,\n"                  \
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,\n"                  \
-      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,\n"                  \
-      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,\n"      \
-      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},\n" \
-      " %128, %129, p, 1, 1, 0, 1;\n}\n"                                                                    \
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56),                       \
-        ACC8(64), ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)                   \
-      : "l"(da), "l"(db), "r"(scale_d))
-
-template <typename T>
-__device__ __forceinline__ void wgmma_k16(float (&d)[kWgBN / 2], uint64_t da, uint64_t db,
-                                          int scale_d) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    WGMMA_M64N256K16("bf16");
-  } else {
-    WGMMA_M64N256K16("f16");
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack2(float a, float b);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-template <>
-__device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
-  const __half2 v = __floats2half2_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // Block b walks tiles t = b, b + gridDim.x, ... of the n_experts x
 // ceil(C/128) x ceil(f/256) grid, expert-major, then row tile, then column
 // tile.
@@ -403,7 +286,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           // A: k-major, 8-row groups 1024 B apart, 16 k = 32 B further per step.
           // B: MN-major, 64-column boxes kBoxBytes apart, 8-row (k) groups
           // 1024 B apart, 16 k = 16 rows = 2048 B further per step.
-          wgmma_k16<T>(acc, smem_desc(a + kk * 32, 16, 1024),
+          wgmma_k16<T, kWgBN / 2>(acc, smem_desc(a + kk * 32, 16, 1024),
                        smem_desc(b + kk * 2048, kBoxBytes, 1024), kb > 0 || kk > 0);
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -456,6 +339,201 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ------------------------------------------------------ split3_bf16, expert_split
+
+constexpr int kSpBN = 128;                   // tile columns: one wgmma m64n128k16 a product
+constexpr int kSpStages = 2;                 // what fits: a stage holds six pieces
+constexpr int kPieceA = kWgBM * kWgBK * 2;   // one piece of x per stage: 16 KB
+constexpr int kPieceB = kWgBK * kSpBN * 2;   // one piece of w per stage, two boxes: 16 KB
+constexpr int kSpStageBytes = 3 * (kPieceA + kPieceB);  // 96 KB
+constexpr int kSpSmem = kSwizzleAtom + kSpStages * kSpStageBytes + 2 * kSpStages * 8;
+static_assert(kSpBN % kBox == 0 && kSpSmem <= 227 * 1024, "split tile does not fit");
+constexpr int kSplitThreads = 256;
+
+// dst[k * n + i] = piece k of src[i] (split3), for i < n.  Four values a
+// thread per step, 16-byte loads and 8-byte stores, where src is 16-byte
+// aligned and n % 4 == 0; one value a step otherwise (an fp32 view that
+// starts a few bytes into its buffer).
+__global__ void __launch_bounds__(kSplitThreads)
+    split3_bf16(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, int64_t n) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 && n % 4 == 0;
+  const int64_t n_vec = vec ? n / 4 : 0;
+  for (int64_t i = first; i < n_vec; i += stride) {
+    const float4 v = reinterpret_cast<const float4*>(src)[i];
+    uint32_t lo[3], hi[3];
+    split3x2(v.x, v.y, lo);
+    split3x2(v.z, v.w, hi);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      *reinterpret_cast<uint2*>(dst + k * n + 4 * i) = make_uint2(lo[k], hi[k]);
+    }
+  }
+  for (int64_t i = 4 * n_vec + first; i < n; i += stride) {
+    split3(src[i], dst[i], dst[n + i], dst[2 * n + i]);
+  }
+}
+
+template <typename TO>
+__device__ __forceinline__ void store2(TO* p, float a, float b) {
+  if constexpr (std::is_same<TO, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = pack2<TO>(a, b);
+  }
+}
+
+// fp32-accurate grouped GEMM on the tensor cores: x = x0 + x1 + x2 and
+// w = w0 + w1 + w2 (split3_bf16), and
+//     out[e] = sum over i + j <= 2 of x_i[e] @ w_j[e]
+// in fp32 accumulators.  The five products with i + j >= 1 are about 2^-8 of
+// the sum or smaller; they go first, into accumulators of their own (lo), and
+// x0 w0 into hi, so the small terms are summed at their own scale; the two
+// are added once, at the tile's end.  The terms left out (i + j >= 3) are
+// below 2^-24 of the sum.
+// The walk, the ring and the warp roles are expert_wgmma's, with 128 x 128
+// tiles: the six pieces of a stage take 96 KB, so two stages fit.  Each
+// consumer issues one wgmma group a k16 step, with x's pieces in registers
+// (two sets, so a step's ldmatrix never overwrites fragments the running
+// group still reads) and w's from the swizzled stage.  x's
+// pieces are one (3E, C, d) array and w's one (3E, d, f) array, so piece k
+// of expert e is slice k E + e of a 3-D tensor map.  The fp32 (or, for
+// mixed inputs, 16-bit) result is written straight from the registers, its
+// pairs of columns 8 or 4 bytes at a time, clipped at the C and f edges.
+template <typename TO>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    expert_split(const __grid_constant__ CUtensorMap x_map,
+                 const __grid_constant__ CUtensorMap w_map, TO* __restrict__ out,
+                 int n_experts, int c, int d, int f) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + kSwizzleAtom - 1) & ~uint32_t(kSwizzleAtom - 1);
+  const uint32_t full = base + kSpStages * kSpStageBytes;  // one mbarrier per stage
+  const uint32_t empty = full + kSpStages * 8;
+  const int n_tiles = (f + kSpBN - 1) / kSpBN;
+  const int per_expert = ((c + kWgBM - 1) / kWgBM) * n_tiles;
+  const int n_work = n_experts * per_expert;
+  const int k_blocks = (d + kWgBK - 1) / kWgBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSpStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+        const int e = t / per_expert, r = t % per_expert;
+        const int m0 = (r / n_tiles) * kWgBM, n0 = (r % n_tiles) * kSpBN;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t bar = full + 8 * stage;
+          const uint32_t s = base + stage * kSpStageBytes;
+          mbar_expect_tx(bar, kSpStageBytes);  // whole boxes, zero fill included
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            tma_load_3d(s + i * kPieceA, &x_map, bar, kb * kWgBK, m0, i * n_experts + e);
+#pragma unroll
+            for (int j = 0; j < kSpBN / kBox; ++j) {
+              tma_load_3d(s + 3 * kPieceA + i * kPieceB + j * kBoxBytes, &w_map, bar,
+                          n0 + j * kBox, kb * kWgBK, i * n_experts + e);
+            }
+          }
+          if (++stage == kSpStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    float hi[kSpBN / 2], lo[kSpBN / 2];
+    uint32_t frag[2][3][4];  // x's pieces for two k16 steps: A from registers
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+      const int e = t / per_expert, r = t % per_expert;
+      const int m0 = (r / n_tiles) * kWgBM, n0 = (r % n_tiles) * kSpBN;
+      int held = -1;
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t a = base + stage * kSpStageBytes + cw * (64 * 128);
+        const uint32_t b = base + stage * kSpStageBytes + 3 * kPieceA;
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {
+          // one group a k16 step; at most the previous one is still running,
+          // so the group that read this step's fragment registers is done
+          wgmma_wait<1>();
+          fence_acc(hi);
+          fence_acc(lo);
+          fence_regs(reinterpret_cast<uint32_t(&)[24]>(frag));
+          // the previous k-block's last group is done: its stage may be refilled
+          if (kk == 1 && held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+          // x's three pieces for this k16 step, into registers once each
+          // (16 rows of the warp, k in two 16-byte chunks of the swizzled rows)
+          uint32_t(&fa)[3][4] = frag[kk & 1];
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            ldmatrix_x4(fa[i], a + i * kPieceA +
+                                   swizzle128(16 * warp + lane % 16, 32 * kk + 16 * (lane / 16)));
+          }
+          uint64_t db[3];  // w's pieces: descriptors as expert_wgmma's, 64-column boxes
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            db[j] = smem_desc(b + j * kPieceB + kk * 2048, kBoxBytes, 1024);
+          }
+          const int acc = kb > 0 || kk > 0;  // 0: the tile's first products overwrite
+          wgmma_fence();
+          wgmma_rs_k16_n128_bf16(lo, fa[2], db[0], acc);
+          wgmma_rs_k16_n128_bf16(lo, fa[1], db[1], 1);
+          wgmma_rs_k16_n128_bf16(lo, fa[0], db[2], 1);
+          wgmma_rs_k16_n128_bf16(lo, fa[1], db[0], 1);
+          wgmma_rs_k16_n128_bf16(lo, fa[0], db[1], 1);
+          wgmma_rs_k16_n128_bf16(hi, fa[0], db[0], acc);
+          wgmma_commit();
+          fence_regs(reinterpret_cast<uint32_t(&)[24]>(frag));  // live until their group ends
+        }
+        fence_acc(hi);
+        fence_acc(lo);
+        held = stage;
+        if (++stage == kSpStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(hi);
+      fence_acc(lo);
+      if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+      // epilogue: hi + lo rounded once to TO, straight to global memory
+      TO* oe = out + static_cast<int64_t>(e) * c * f;
+      const int row0 = m0 + 64 * cw + 16 * warp + lane / 4;
+#pragma unroll
+      for (int j = 0; j < kSpBN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);  // f % 8 == 0: col < f means col + 1 < f
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row < c && col < f) {
+            const int i = 4 * j + 2 * h;
+            store2<TO>(oe + static_cast<int64_t>(row) * f + col, hi[i] + lo[i],
+                       hi[i + 1] + lo[i + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
     void* p = nullptr;
@@ -468,6 +546,14 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
     return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }();
   return fn;
+}
+
+// The current device's SM count: a persistent kernel's grid.
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
 }
 
 // A 3-D map of a contiguous (outer, mid, inner) array of 16-bit values, in
@@ -502,12 +588,35 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* out, int e, int c, 
   // device's context, and a process may launch on more than one card
   cudaError_t err = cudaFuncSetAttribute(expert_wgmma<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
-  int dev = 0, sms = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int grid = static_cast<int>(work < sms ? work : sms);
   expert_wgmma<T><<<grid, kWgThreads, kWgSmem, stream>>>(x_map, w_map, out_map, e, c, d, f);
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t launch_split(const void* xp, const void* wp, void* out, int e, int c, int d, int f,
+                         cudaStream_t stream) {
+  const int64_t work = static_cast<int64_t>(e) * ((c + kWgBM - 1) / kWgBM) *
+                       ((f + kSpBN - 1) / kSpBN);
+  if (work > INT_MAX || 3ll * e > INT_MAX) return cudaErrorInvalidValue;
+  if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap x_map, w_map;
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode_3d(&x_map, bf16, xp, d, c, 3ull * e, kWgBM) ||  // boxes of 128 rows x 64 d
+      !encode_3d(&w_map, bf16, wp, f, d, 3ull * e, kWgBK)) {  // boxes of 64 d x 64 f
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(expert_split<TO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSpSmem);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  expert_split<TO><<<grid, kWgThreads, kSpSmem, stream>>>(x_map, w_map, static_cast<TO*>(out),
+                                                          e, c, d, f);
   return cudaGetLastError();
 }
 
@@ -567,4 +676,43 @@ extern "C" int repro_moe_gemm_wgmma(const void* x, const void* w, void* out, int
                                                   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
                     : launch_wgmma<__half>(x, w, out, e, c, d, f,
                                            CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
+}
+
+
+// split3_bf16.  src: n float32 values; dst: 3 n bfloat16, the three pieces
+// one after another (dst 16-byte aligned).  Returns as repro_moe_gemm does.
+extern "C" int repro_split3_bf16(const void* src, void* dst, long long n, void* stream) {
+  if (n < 0 || reinterpret_cast<uintptr_t>(dst) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    const long long blocks = (n / 4 + kSplitThreads - 1) / kSplitThreads + 1;
+    const int grid = static_cast<int>(blocks < 4096 ? blocks : 4096);  // then grid-stride
+    split3_bf16<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(src), static_cast<__nv_bfloat16*>(dst), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// expert_split.  xp: x's pieces, (3, E, C, d) bfloat16; wp: w's pieces,
+// (3, E, d, f) bfloat16; out: (E, C, f) in out_dtype (0 = float32,
+// 1 = bfloat16, 2 = float16).  d > 0, d and f multiples of 8, all three
+// 16-byte aligned.  Returns as repro_moe_gemm does.
+extern "C" int repro_moe_gemm_split(const void* xp, const void* wp, void* out, int e, int c,
+                                    int d, int f, int out_dtype, void* stream) {
+  if (e < 0 || c < 0 || d <= 0 || f < 0 || d % 8 != 0 || f % 8 != 0 || out_dtype < 0 ||
+      out_dtype > 2 || reinterpret_cast<uintptr_t>(xp) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wp) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e == 0 || c == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (out_dtype) {
+    case 0:
+      return static_cast<int>(launch_split<float>(xp, wp, out, e, c, d, f, st));
+    case 1:
+      return static_cast<int>(launch_split<__nv_bfloat16>(xp, wp, out, e, c, d, f, st));
+    default:
+      return static_cast<int>(launch_split<__half>(xp, wp, out, e, c, d, f, st));
+  }
 }

@@ -81,3 +81,18 @@ def moe_gemm_ref(
     """
     acc_dtype = _acc_dtype(torch.promote_types(x.dtype, w.dtype))
     return torch.einsum("ecd,edf->ecf", x.to(acc_dtype), w.to(acc_dtype)).to(x.dtype)
+
+
+def split3_bf16_ref(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` as three bf16 pieces, (3, *x.shape): ``x0 = bf16(x)``,
+    ``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0 - x1)``, each rounded to
+    nearest.  Every residual is exact in fp32, so ``x0 + x1 + x2 == x``
+    exactly for finite x whose last piece does not underflow.  The plain
+    version of ``csrc/moe_gemm.cu``'s ``split3_bf16``; the card's main path
+    never calls it."""
+    x = x.float()
+    x0 = x.to(torch.bfloat16)
+    r = x - x0.float()
+    x1 = r.to(torch.bfloat16)
+    x2 = (r - x1.float()).to(torch.bfloat16)
+    return torch.stack([x0, x1, x2])

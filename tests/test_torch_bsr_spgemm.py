@@ -11,10 +11,12 @@ from repro.kernels.ref import bsr_spgemm_ref as jax_ref
 from repro.sparse.bsr import BlockSparse as JaxBlockSparse
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spgemm import (
+    KERNELS,
     bsr_spgemm,
     bsr_spgemm_local,
     build_pair_lists,
     pair_runs,
+    route,
 )
 from repro_torch.kernels.ref import bsr_spgemm_ref
 from repro_torch.sparse.bsr import bsr_to_dense, to_bsr, BlockSparse
@@ -178,3 +180,26 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
             ta, tb.to("meta"), *(torch.as_tensor(x) for x in (pa, pb, pc)),
             *(torch.as_tensor(x) for x in pair_runs(pc)), n_c,
         )
+
+
+@pytest.mark.parametrize(
+    "bm, bk, bn, kernel",
+    [
+        (1, 1, 1, "scalar_runs"),
+        (8, 8, 8, "warp_runs"),
+        (16, 16, 16, "warp_runs"),  # the block16-4096 path
+        (8, 16, 8, "warp_runs"),
+        (4, 8, 12, "warp_runs"),
+        (1, 8, 1, "warp_runs"),
+        (16, 8, 32, "block_runs"),
+        (32, 32, 32, "block_runs"),
+        (8, 64, 8, "block_runs"),  # bk over 16
+        (64, 64, 64, "mma_runs"),  # block16-4096 retiled 64
+        (128, 128, 128, "mma_runs"),
+        (48, 8, 16, "mma_runs"),
+        (3, 5, 33, "mma_runs"),
+    ],
+)
+def test_route_picks_the_kernel_by_block_shape(bm, bk, bn, kernel):
+    assert route(bm, bk, bn) == kernel
+    assert kernel in KERNELS and set(bsr_spgemm_local.launches) == set(KERNELS)

@@ -14,16 +14,35 @@ import repro_torch
 from repro_torch.distributed.plan_ir import plan_monoC_from_dense
 from repro_torch.distributed.spgemm_exec import monoC_spgemm, unpack_monoC_result
 from repro_torch.kernels import ops
-from repro_torch.kernels.bsr_spgemm import bsr_spgemm, bsr_spgemm_local, build_pair_lists
+from repro_torch.kernels.bsr_spgemm import (
+    bsr_spgemm,
+    bsr_spgemm_local,
+    build_pair_lists,
+    route as k1_route,
+)
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local
-from repro_torch.kernels.moe_gemm import moe_gemm, route
-from repro_torch.kernels.ref import bsr_spgemm_ref, bsr_spmm_ref, moe_gemm_ref
+from repro_torch.kernels.moe_gemm import moe_gemm, route, split3_bf16
+from repro_torch.kernels.ref import (
+    bsr_spgemm_ref,
+    bsr_spmm_ref,
+    moe_gemm_ref,
+    split3_bf16_ref,
+)
 from repro_torch.sparse.bsr import to_bsr
 from repro_torch.sparse.structure import from_dense, spgemm_symbolic
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def _counted(counts: dict, before: dict, kernel: str) -> bool:
+    """The counters moved by exactly one launch of ``kernel`` (and, for
+    K3's ``expert_split``, the two ``split3_bf16`` launches it makes)."""
+    after = {kernel: before[kernel] + 1}
+    if kernel == "expert_split":
+        after["split3_bf16"] = before["split3_bf16"] + 2
+    return counts == {**before, **after}
 
 
 @pytest.fixture
@@ -56,11 +75,12 @@ def test_kernel_matches_plain_version(cuda, block, dtype):
     pb = np.r_[pb, [len(bb.blocks)] * 7]
     pc = np.r_[pc, [len(crows)] * 7]
     n_c = len(crows) + 1
-    kernel = "scalar_runs" if block == 1 else "block_runs"
+    kernel = k1_route(block, block, block)
+    assert kernel == {1: "scalar_runs", 8: "warp_runs", 16: "warp_runs", 32: "block_runs"}[block]
     before = dict(bsr_spgemm_local.launches)
     got = bsr_spgemm(a_blocks, b_blocks, pa, pb, pc, n_c)
     torch.cuda.synchronize()
-    assert bsr_spgemm_local.launches == {**before, kernel: before[kernel] + 1}
+    assert _counted(bsr_spgemm_local.launches, before, kernel)
     assert got.dtype == dtype and got.device.type == "cuda"
     idx = [torch.as_tensor(x, device=cuda) for x in (pa, pb, pc)]
     want = bsr_spgemm_ref(a_blocks, b_blocks, *idx, n_c)
@@ -87,7 +107,7 @@ def test_kernel_takes_every_block_shape(cuda, bm, bk, bn, dtype):
     before = dict(bsr_spgemm_local.launches)
     got = bsr_spgemm(a_blocks, b_blocks, pa, pb, pc, len(crows))
     torch.cuda.synchronize()
-    assert bsr_spgemm_local.launches == {**before, "block_runs": before["block_runs"] + 1}
+    assert _counted(bsr_spgemm_local.launches, before, k1_route(bm, bk, bn))
     assert got.shape == (len(crows), bm, bn) and got.dtype == dtype
     idx = [torch.as_tensor(x, device=cuda) for x in (pa, pb, pc)]
     want = bsr_spgemm_ref(a_blocks, b_blocks, *idx, len(crows))
@@ -140,11 +160,11 @@ def test_moe_gemm_kernel_matches_plain_version(cuda, shape, x_dtype, w_dtype):
     E, C, d, f = shape
     x, w = _moe_operands(np.random.default_rng(C), shape, x_dtype, w_dtype, cuda)
     kernel = route(x, w)
-    assert kernel == ("expert_tiles" if torch.float32 in (x_dtype, w_dtype) else "expert_wgmma")
+    assert kernel == ("expert_split" if torch.float32 in (x_dtype, w_dtype) else "expert_wgmma")
     before = dict(moe_gemm.launches)
     got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
     torch.cuda.synchronize()
-    assert moe_gemm.launches == {**before, kernel: before[kernel] + 1}
+    assert _counted(moe_gemm.launches, before, kernel)
     assert got.dtype == x_dtype and got.shape == (E, C, f)
     want = moe_gemm_ref(x, w)
     tol = TOL[x_dtype]
@@ -164,9 +184,123 @@ def test_moe_gemm_misaligned_view_takes_expert_tiles(cuda, dtype):
     before = dict(moe_gemm.launches)
     got = moe_gemm(x, w)
     torch.cuda.synchronize()
-    assert moe_gemm.launches == {**before, "expert_tiles": before["expert_tiles"] + 1}
+    assert _counted(moe_gemm.launches, before, "expert_tiles")
     want = moe_gemm_ref(x, w)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _full_mantissa(rng, shape, std, device):
+    """fp32 N(0, std^2) values with full 24-bit significands."""
+    x = torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32)).to(device)
+    assert bool((x != x.bfloat16().float()).any())  # not bf16 values
+    return x
+
+
+@pytest.mark.parametrize("shape", [(3, 200, 72, 136), (4, 640, 4096, 256)])
+def test_expert_split_is_fp32_accurate_on_full_mantissas(cuda, shape):
+    """fp32 inputs that bf16 cannot hold: a kernel that multiplied in bf16 or
+    TF32 would miss 1e-4 here."""
+    E, C, d, f = shape
+    rng = np.random.default_rng(d)
+    x = _full_mantissa(rng, (E, C, d), 1.0, cuda)
+    w = _full_mantissa(rng, (E, d, f), d**-0.5, cuda)
+    assert route(x, w) == "expert_split"
+    before = dict(moe_gemm.launches)
+    got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
+    torch.cuda.synchronize()
+    assert _counted(moe_gemm.launches, before, "expert_split")
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, moe_gemm_ref(x, w), rtol=1e-4, atol=1e-4)
+    want64 = torch.einsum("ecd,edf->ecf", x.double(), w.double())
+    torch.testing.assert_close(got.double(), want64, rtol=1e-4, atol=1e-4)
+
+
+def test_expert_split_sums_all_six_products(cuda):
+    """At d = 64 (one k-block, so summing in the tensor cores' accumulators
+    costs little) the kernel is held to the six products x_i w_j, i + j <= 2,
+    of ``split3_bf16_ref``'s pieces summed in float64, within half the
+    largest term of the smallest product: dropping any product misses by
+    at least twice that, and so does the two-piece, three-product scheme."""
+    E, C, d, f = 2, 256, 64, 256
+    rng = np.random.default_rng(64)
+    x = _full_mantissa(rng, (E, C, d), 1.0, cuda)
+    w = _full_mantissa(rng, (E, d, f), d**-0.5, cuda)
+    xs, ws = split3_bf16_ref(x).double(), split3_bf16_ref(w).double()
+    terms = {(i, j): xs[i] @ ws[j] for i in range(3) for j in range(3 - i)}
+    want = sum(terms.values())
+    tol = min(t.abs().max().item() for t in terms.values()) / 2
+    two_piece = terms[0, 0] + terms[0, 1] + terms[1, 0]
+    assert (two_piece - want).abs().max().item() > tol
+    before = dict(moe_gemm.launches)
+    got = moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert _counted(moe_gemm.launches, before, "expert_split")
+    assert (got.double() - want).abs().max().item() < tol
+
+
+def test_split3_kernel_matches_plain_version_bit_for_bit(cuda):
+    rng = np.random.default_rng(3)
+    sig = 1 + rng.integers(0, 2**23, 100_003) / 2**23
+    vals = rng.choice([-1.0, 1.0], sig.size) * np.ldexp(sig, rng.integers(-60, 60, sig.size))
+    flat = torch.from_numpy(vals.astype(np.float32)).to(cuda)
+    for x in (flat, flat[1:]):  # aligned, and a view 4 bytes off (one value a thread)
+        before = dict(moe_gemm.launches)
+        got = split3_bf16(x)
+        assert moe_gemm.launches["split3_bf16"] == before["split3_bf16"] + 1
+        assert torch.equal(got, split3_bf16_ref(x))
+        assert torch.equal(got.double().sum(0), x.double())
+
+
+def test_expert_split_takes_a_misaligned_fp32_view(cuda):
+    E, C, d, f = 2, 64, 128, 96
+    rng = np.random.default_rng(6)
+    flat = _full_mantissa(rng, (E * C * d + 1,), 1.0, cuda)
+    x = flat[1:].view(E, C, d)
+    w = _full_mantissa(rng, (E, d, f), d**-0.5, cuda)
+    assert x.data_ptr() % 16 == 4 and route(x, w) == "expert_split"
+    before = dict(moe_gemm.launches)
+    got = moe_gemm(x, w)
+    torch.cuda.synchronize()
+    assert _counted(moe_gemm.launches, before, "expert_split")
+    torch.testing.assert_close(got, moe_gemm_ref(x, w), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("run_len", [1, 2, 24])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "bm, bk, bn", [(16, 16, 16), (8, 16, 8), (8, 8, 8), (64, 64, 64), (128, 64, 96), (64, 42, 70)]
+)
+def test_k1_routes_at_run_lengths(cuda, bm, bk, bn, dtype, run_len):
+    """Small blocks (warp_runs) and large ones (mma_runs) over runs of 1, 2
+    and 24 pairs on N(0, 1) data with full fp32 mantissas: 3 x 2 C blocks,
+    each summing run_len pairs, then a garbage run into a last slot."""
+    rng = np.random.default_rng(bm + bk + bn + run_len)
+    na, nb = 3 * run_len, run_len * 2
+    a32 = _full_mantissa(rng, (na + 1, bm, bk), 1.0, cuda)
+    b32 = _full_mantissa(rng, (nb + 1, bk, bn), 1.0, cuda)
+    a32[-1], b32[-1] = 0.0, 0.0
+    ai, bj = np.meshgrid(np.arange(3), np.arange(2), indexing="ij")
+    k = np.arange(run_len)
+    pa = (ai.ravel()[:, None] * run_len + k).ravel()  # A block (i, k)
+    pb = (k * 2 + bj.ravel()[:, None]).ravel()  # B block (k, j)
+    pc = np.repeat(np.arange(6), run_len)
+    pa, pb, pc = np.r_[pa, [na] * 5], np.r_[pb, [nb] * 5], np.r_[pc, [6] * 5]
+    a_blocks, b_blocks = a32.to(dtype), b32.to(dtype)
+    kernel = k1_route(bm, bk, bn)
+    assert kernel == ("warp_runs" if max(bm, bk, bn) <= 16 else "mma_runs")
+    before = dict(bsr_spgemm_local.launches)
+    got = bsr_spgemm(a_blocks, b_blocks, pa, pb, pc, 7)
+    torch.cuda.synchronize()
+    assert _counted(bsr_spgemm_local.launches, before, kernel)
+    assert got.dtype == dtype and got.shape == (7, bm, bn)
+    idx = [torch.as_tensor(x, device=cuda) for x in (pa, pb, pc)]
+    want = bsr_spgemm_ref(a_blocks, b_blocks, *idx, 7)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[-1].any()
+    if dtype == torch.float32:  # and against float64, on full mantissas
+        want64 = bsr_spgemm_ref(a32.double(), b32.double(), *idx, 7)
+        torch.testing.assert_close(got.double(), want64, rtol=1e-4, atol=1e-4)
 
 
 def test_expert_wgmma_is_deterministic(cuda):

@@ -112,24 +112,31 @@ def _misaligned(shape, dtype):
 
 
 # (E, C) of Qwen3-MoE-235B-A22B's experts; meta tensors carry the shape,
-# dtype and an aligned data pointer without the memory
+# dtype and an aligned data pointer without the memory.
 @pytest.mark.parametrize(
     "x_dtype, w_dtype, d, f, misaligned, kernel",
     [
         (torch.bfloat16, torch.bfloat16, 4096, 1536, False, "expert_wgmma"),
         (torch.float16, torch.float16, 4096, 1536, False, "expert_wgmma"),
-        (torch.float32, torch.float32, 4096, 1536, False, "expert_tiles"),
-        (torch.bfloat16, torch.float32, 4096, 1536, False, "expert_tiles"),
-        (torch.float16, torch.bfloat16, 4096, 1536, False, "expert_tiles"),
+        (torch.float32, torch.float32, 4096, 1536, False, "expert_split"),
+        (torch.bfloat16, torch.float32, 4096, 1536, False, "expert_split"),
+        (torch.float16, torch.bfloat16, 4096, 1536, False, "expert_split"),
         (torch.bfloat16, torch.bfloat16, 36, 1536, False, "expert_tiles"),  # d % 8
         (torch.bfloat16, torch.bfloat16, 4096, 20, False, "expert_tiles"),  # f % 8
         (torch.bfloat16, torch.bfloat16, 64, 48, True, "expert_tiles"),  # x 2 bytes off
+        # fp32 and mixed inputs: split into fresh aligned pieces, so a view
+        # off alignment takes the tensor cores too; d or f off 8 cannot
+        (torch.float32, torch.float32, 64, 48, True, "expert_split"),  # x 4 bytes off
+        (torch.float32, torch.bfloat16, 4096, 1536, False, "expert_split"),
+        (torch.float32, torch.float32, 36, 1536, False, "expert_tiles"),  # d % 8
+        (torch.float32, torch.float32, 4096, 20, False, "expert_tiles"),  # f % 8
+        (torch.bfloat16, torch.float32, 4096, 12, False, "expert_tiles"),  # f % 8
     ],
 )
 def test_route_picks_the_kernel_before_launch(x_dtype, w_dtype, d, f, misaligned, kernel):
     if misaligned:
         x = _misaligned((2, 8, d), x_dtype)
-        assert x.is_contiguous() and x.data_ptr() % 16 == 2
+        assert x.is_contiguous() and x.data_ptr() % 16 == x.element_size()
         w = torch.zeros((2, d, f), dtype=w_dtype)
     else:
         x = torch.empty((128, 640, d), dtype=x_dtype, device="meta")
