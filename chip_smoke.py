@@ -25,28 +25,31 @@ Phases, each printing its seconds:
      operand retiled 32 x 32 (``block_runs``) and 64 x 64 (``mma_runs``),
      squared, against a float64 dense product;
   7. K2 (``ops.spmm``): the AMG n=42 27-point operator tiled 8 x 8 by
-     scipy, times a seeded (74,088, 256) dense block, fp32 and bf16,
-     against scipy in float64 and against the plain version;
+     scipy, times a seeded (74,088, 256) dense block, in fp32
+     (``warp_rows``) and bf16 (``mma_rows``, tensor cores), and tiled
+     12 x 12 in fp32 (``block_rows``), against scipy in float64 and
+     against the plain version, with the bytes each gathers;
   8. K3 (``ops.grouped_gemm``): the up and down expert projections of
      Qwen3-MoE-235B-A22B (E = 128, C = 640, d = 4096, f = 1536) in bf16
      (``expert_wgmma``, tensor cores) and the up projection in fp32 on
      full-mantissa data (``split3_bf16`` then ``expert_split``, split
      products on the tensor cores), against the plain version, beside
-     ``torch.bmm``, with what sets its error; a bf16 view off alignment at
-     the same width, which must take ``expert_tiles``; then every
-     tensor-core route off its tile grid, an fp32 view off alignment
-     (``expert_split``), a small misaligned bf16 view (``expert_tiles``),
-     and ``expert_split`` held to each of its six products.
+     ``torch.bmm``, with what sets its error; a bf16 view of x off
+     alignment at the same width, which must take ``stage16`` then
+     ``expert_wgmma``, beside ``torch.bmm`` on the same view, and the
+     stage alone bit for bit; then every route off its tile grid, d and f
+     off a multiple of 8 in bf16, fp16, fp32 and mixed, views off
+     alignment, and ``expert_split`` held to each of its six products.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``block_runs`` and ``mma_runs``
-on the retiled 32 and 64 products, ``block_rows`` on the fp32 AMG SpMM,
-``expert_wgmma`` on the bf16 up projection, ``expert_split`` and
-``split3_bf16`` on the fp32 one, ``expert_tiles`` on the misaligned bf16
-up projection; bounds at the peak of each route's arithmetic,
-``PEAK_FLOPS``; a time under its bound fails), the card line, and the
-result line; the phases' full records go to ``chip_smoke.json`` under
-``OUT``.
+on the retiled 32 and 64 products, ``warp_rows``, ``mma_rows`` and
+``block_rows`` on the fp32, bf16 and 12 x 12 AMG SpMMs, ``expert_wgmma``
+on the bf16 up projection, ``expert_split`` and ``split3_bf16`` on the
+fp32 one, ``stage16`` on the misaligned bf16 up projection; bounds at the
+peak of each route's arithmetic, ``PEAK_FLOPS``; a time under its bound
+fails), the card line, and the result line; the phases' full records go to
+``chip_smoke.json`` under ``OUT``.
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -580,63 +583,68 @@ def retiled_spgemm(dense, device, block: int):
 def spmm_amg(a_struct, device, rng):
     """K2 at the repo's AMG size: the 27-point operator of AMG n=42 with
     seeded values, tiled 8 x 8 by scipy's BSR conversion, times a seeded
-    dense (n, 256) block of vectors through ``ops.spmm`` in fp32 and bf16;
-    checked against scipy in float64 on the same (rounded) inputs, then the
-    kernel against its plain version and one PyTorch sparse @ dense call."""
+    dense (n, 256) block of vectors through ``ops.spmm`` in fp32
+    (``warp_rows``) and bf16 (``mma_rows``), and tiled 12 x 12 in fp32
+    (``block_rows``, the route of every other block shape); each checked
+    against scipy in float64 on the same (rounded) inputs, then the kernel
+    against its plain version and one PyTorch sparse @ dense call.  Beside
+    the bound (each input read once) each record keeps the bytes the
+    kernel gathers, one dense slab of bk rows a block, and their rate."""
     import scipy.sparse as sp
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.bsr_spmm import bsr_spmm_local, row_offsets
+    from repro_torch.kernels.bsr_spmm import bsr_spmm_local, route, row_offsets
     from repro_torch.kernels.ref import bsr_spmm_ref
     from repro_torch.sparse.bsr import BlockSparse
 
-    block, n_cols = 8, 256
+    n_cols = 256
     t0 = time.perf_counter()
     vals = rng.standard_normal(a_struct.nnz).astype(np.float32)
-    a_bsr = scipy_csr(a_struct, vals).astype(np.float32).tobsr(blocksize=(block, block))
-    a_bsr.sort_indices()
-    m_blocks = a_struct.shape[0] // block
-    brows = np.repeat(np.arange(m_blocks), np.diff(a_bsr.indptr))
-    bcols = a_bsr.indices.astype(np.int64)
     dense = rng.standard_normal((a_struct.shape[1], n_cols)).astype(np.float32)
+    tiled = {}
+    for block in (8, 12):
+        a_bsr = scipy_csr(a_struct, vals).astype(np.float32).tobsr(blocksize=(block, block))
+        a_bsr.sort_indices()
+        tiled[block] = a_bsr
     setup_s = time.perf_counter() - t0
-    nb = len(bcols)
-    fill = a_struct.nnz / (nb * block * block)
-    inputs, outs = {}, {}
-    reset_launches()
-    for dtype in (torch.float32, torch.bfloat16):
+    cases = (("float32", 8, torch.float32), ("bfloat16", 8, torch.bfloat16),
+             ("float32_12x12", 12, torch.float32))
+    records = {"instance": f"AMG n={AMG_N} 27-point A, 8x8 and 12x12 BSR, N={n_cols}",
+               "shape": list(a_struct.shape), "nnz": a_struct.nnz, "setup_s": setup_s}
+    for name, block, dtype in cases:
+        a_bsr = tiled[block]
+        m_blocks = a_struct.shape[0] // block
+        brows = np.repeat(np.arange(m_blocks), np.diff(a_bsr.indptr))
+        bcols = a_bsr.indices.astype(np.int64)
+        nb = len(bcols)
         blocks = torch.from_numpy(a_bsr.data).to(device, dtype)
         dense_dev = torch.from_numpy(dense).to(device, dtype)
-        inputs[dtype] = blocks, dense_dev
-        outs[dtype] = ops.spmm(BlockSparse(blocks, brows, bcols, a_struct.shape), dense_dev)
-    torch.cuda.synchronize()
-    launches = bsr_spmm_local.launches["block_rows"]
-    if launches != 2:
-        fail(f"K2: {launches} block_rows launches in two ops.spmm calls")
-    records = {"instance": f"AMG n={AMG_N} 27-point A, {block}x{block} BSR, N={n_cols}",
-               "shape": list(a_struct.shape), "nnz": a_struct.nnz, "n_blocks": nb,
-               "block_rows": m_blocks, "fill": fill, "setup_s": setup_s}
-    rows = torch.as_tensor(brows, device=device)
-    row_start = torch.as_tensor(row_offsets(brows, m_blocks), device=device)
-    cols32 = torch.as_tensor(bcols.astype(np.int32), device=device)
-    for dtype, out in outs.items():
-        name = str(dtype).removeprefix("torch.")
-        blocks, dense_dev = inputs[dtype]
+        kernel = route(block, block, dtype)
+        reset_launches()
+        out = ops.spmm(BlockSparse(blocks, brows, bcols, a_struct.shape), dense_dev)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in bsr_spmm_local.launches.items() if v}
+        if launches != {kernel: 1}:
+            fail(f"K2 {name}: launches {launches} in one ops.spmm call, not {kernel}")
         if out.shape != (a_struct.shape[0], n_cols) or out.dtype != dtype:
             fail(f"K2 {name}: result {tuple(out.shape)} {out.dtype}")
         if not bool(torch.isfinite(out).all()):
             fail(f"K2 {name}: result not finite")
+        tol = TOL[dtype_name(dtype)]
         # scipy in float64 on the inputs as the card saw them (bf16-rounded)
         a_seen = sp.bsr_matrix(
             (blocks.double().cpu().numpy(), a_bsr.indices, a_bsr.indptr), shape=a_struct.shape
         )
         want = torch.from_numpy(a_seen @ dense_dev.double().cpu().numpy()).to(device)
-        err64 = max_err_within(out.double(), want, TOL[name], f"K2 {name} against scipy")
+        err64 = max_err_within(out.double(), want, tol, f"K2 {name} against scipy")
         # the kernel against its plain version, on the same device tensors
+        rows = torch.as_tensor(brows, device=device)
+        row_start = torch.as_tensor(row_offsets(brows, m_blocks), device=device)
+        cols32 = torch.as_tensor(bcols.astype(np.int32), device=device)
         args = (blocks, row_start, cols32, dense_dev, m_blocks)
         got = bsr_spmm_local(*args)
         plain = bsr_spmm_ref(blocks, rows, cols32, dense_dev, m_blocks)
-        err = max_err_within(got, plain, TOL[name], f"K2 {name} against its plain version")
+        err = max_err_within(got, plain, tol, f"K2 {name} against its plain version")
         ms = graph_ms(lambda: bsr_spmm_local(*args))
         call_ms = cuda_ms(lambda: bsr_spmm_local(*args))
         plain_ms = cuda_ms(lambda: bsr_spmm_ref(blocks, rows, cols32, dense_dev, m_blocks),
@@ -645,15 +653,18 @@ def spmm_amg(a_struct, device, rng):
         n_bytes = ((blocks.numel() + dense_dev.numel() + out.numel()) * es
                    + (cols32.numel() + row_start.numel()) * 4)
         n_ops = 2.0 * nb * block * block * n_cols
-        bound_ms, bound_by = bound(n_bytes, n_ops, name)
+        bound_ms, bound_by = bound(n_bytes, n_ops, dtype_name(dtype))
+        gathered = nb * block * n_cols * es  # a dense slab per block
         library_ms, library_call = spmm_library_ms(a_bsr, a_struct, vals, blocks, dense_dev,
                                                    device)
         records[name] = {
-            "launches": launches, "max_abs_err": err, "max_abs_err_vs_float64": err64,
+            "kernel": kernel, "block": block, "n_blocks": nb, "block_rows": m_blocks,
+            "fill": a_struct.nnz / (nb * block * block),
+            "launches": launches[kernel], "max_abs_err": err, "max_abs_err_vs_float64": err64,
             "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "bound_bytes": n_bytes, "bound_flops": n_ops, "library_ms": library_ms,
-            "library_call": library_call,
+            "bound_by": bound_by, "bound_bytes": n_bytes, "bound_flops": n_ops,
+            "gathered_bytes": gathered, "gathered_tb_per_s": gathered / ms / 1e9,
+            "library_ms": library_ms, "library_call": library_call,
         }
         print(f"K2 AMG {name}", json.dumps(records[name]), flush=True)
     return records
@@ -708,15 +719,17 @@ def moe_qwen3(device):
     against float64: the same kernel on the bf16 values of x and w (their
     pieces x1, x2, w1, w2 are zero, so it sums x0 w0 alone in the same
     accumulators) and ``torch.bmm`` fp32 on the full-mantissa data.  Last,
-    ``expert_tiles`` at this width: the up projection in bf16 through a view
-    of x 2 bytes into its buffer, off the 16 bytes a tensor map needs, timed
-    beside its plain version and ``torch.bmm``."""
+    the up projection in bf16 through a view of x 2 bytes into its buffer,
+    off the 16 bytes a tensor map needs: ``stage16`` copies x to an aligned
+    buffer, then ``expert_wgmma``; the call timed beside its plain version
+    and ``torch.bmm`` on the same view, and the stage alone held bit for bit
+    to its plain version and timed beside ``clone`` (the same copy)."""
     import math
 
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gemm import moe_gemm, route, split3_bf16
-    from repro_torch.kernels.ref import moe_gemm_ref, split3_bf16_ref
+    from repro_torch.kernels.moe_gemm import launch_plan, moe_gemm, split3_bf16, stage16
+    from repro_torch.kernels.ref import moe_gemm_ref, split3_bf16_ref, stage16_ref
 
     tokens, E, K, d, f = 8192, 128, 8, 4096, 1536
     C = math.ceil(tokens * K / E * 1.25)
@@ -815,24 +828,44 @@ def moe_qwen3(device):
            "bound_bytes": 10.0 * n, "bound_flops": 0.0, "library_ms": None, "values": n}
     records["split_fp32"] = rec
     print("K3 split3_bf16 (x and w of the fp32 up projection)", json.dumps(rec), flush=True)
-    # expert_tiles: the bf16 up projection through a misaligned view of x
+    # the bf16 up projection through a misaligned view of x: stage16, then
+    # expert_wgmma
     x_mis = torch.empty(E * C * d + 1, dtype=torch.bfloat16, device=device)[1:].view(E, C, d)
     x_mis.copy_(x32)
     w_bf16 = w32.bfloat16()
     del x32, w32
-    if x_mis.data_ptr() % 16 != 2 or route(x_mis, w_bf16) != "expert_tiles":
+    plan = {"stage16": 1, "expert_wgmma": 1}
+    if x_mis.data_ptr() % 16 != 2 or launch_plan(x_mis, w_bf16) != plan:
         fail(f"K3 misaligned bf16 view: data_ptr() % 16 = {x_mis.data_ptr() % 16}, "
-             f"routed to {route(x_mis, w_bf16)}")
+             f"launch plan {launch_plan(x_mis, w_bf16)}")
     reset_launches()
     out_mis = ops.grouped_gemm(x_mis, w_bf16)
     torch.cuda.synchronize()
     launches = {k: v for k, v in moe_gemm.launches.items() if v}
-    if launches != {"expert_tiles": 1}:
+    if launches != plan:
         fail(f"K3: launches {launches} in one misaligned bf16 ops.grouped_gemm call")
-    rec = record(x_mis, w_bf16, out_mis, "expert_tiles", launches["expert_tiles"],
-                 TOL["bfloat16"], reps=3, peak="bfloat16")
-    records["tiles_misaligned"] = rec
+    rec = record(x_mis, w_bf16, out_mis, "stage16 + expert_wgmma", launches["expert_wgmma"],
+                 TOL["bfloat16"], reps=10, peak="bfloat16")
+    records["staged_misaligned"] = rec
     print("K3 up bf16, x 2 bytes off", json.dumps(rec), flush=True)
+    del out_mis
+    # the stage alone: a fresh aligned copy of x, bit for bit its plain version's
+    staged = stage16(x_mis, d)
+    if staged.data_ptr() % 16 or not torch.equal(staged.view(torch.int16),
+                                                 stage16_ref(x_mis, d).view(torch.int16)):
+        fail("K3 stage16 of the misaligned x differs from its plain version")
+    del staged
+    n_bytes = 2.0 * x_mis.numel() * x_mis.element_size()  # read once, written once
+    bound_ms, bound_by = bound(n_bytes, 0.0, "bfloat16")
+    rec = {"kernel": "stage16", "launches": launches["stage16"], "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: stage16(x_mis, d), reps=10),
+           "plain_ms": cuda_ms(lambda: stage16_ref(x_mis, d), reps=5, warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bound_peak": None,
+           "bound_bytes": n_bytes, "bound_flops": 0.0,
+           "library_ms": cuda_ms(lambda: x_mis.clone(), reps=10), "library_call": "clone",
+           "values": x_mis.numel()}
+    records["stage_misaligned"] = rec
+    print("K3 stage16 (x of the bf16 up projection, 2 bytes off)", json.dumps(rec), flush=True)
     return records
 
 
@@ -840,50 +873,60 @@ def moe_edges(device):
     """Every route off its tile grid against the plain version:
     ``expert_wgmma`` in bf16 and fp16 and ``expert_split`` in fp32 (full
     mantissas), with C off 64 and 128 rows, d off 64, f off 128 and 256, and
-    expert boundaries inside a 128-row box; an fp32 view 4 bytes into its
-    buffer, which ``expert_split`` takes (its pieces are fresh); a bf16
-    view 2 bytes off the 16 a tensor map needs, which must go to
-    ``expert_tiles``; and ``expert_split`` held to its six products
-    (``split_products``)."""
+    expert boundaries inside a 128-row box; d off a multiple of 8 (x's row
+    pitch), f off one (w's and the output's), and both, in bf16, fp16, fp32
+    and mixed (bf16 x, fp32 w), each also with x a view one value into its
+    buffer: the 16-bit ones take ``stage16`` before ``expert_wgmma`` (and
+    after it, for the output, with f off 8), the fp32 and mixed ones
+    ``split3_bf16``'s padded pieces; a w view off alignment in fp16; and
+    ``expert_split`` held to its six products (``split_products``).  Each
+    call must launch what ``launch_plan`` lists."""
     import torch
-    from repro_torch.kernels.moe_gemm import moe_gemm, route
+    from repro_torch.kernels.moe_gemm import launch_plan, moe_gemm
     from repro_torch.kernels.ref import moe_gemm_ref
 
     g = torch.Generator(device=device).manual_seed(1)
     records = []
 
-    def check(x, w, kernel, what):
-        if route(x, w) != kernel:
-            fail(f"K3 {what}: routed to {route(x, w)}, not {kernel}")
+    def check(x, w, what):
+        plan = launch_plan(x, w)
         before = dict(moe_gemm.launches)
-        got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
+        E, C, d = x.shape
+        got = moe_gemm(x, w, b_c=C, b_f=w.shape[2], b_d=d)
         torch.cuda.synchronize()
-        after = {kernel: before[kernel] + 1}
-        if kernel == "expert_split":
-            after["split3_bf16"] = before["split3_bf16"] + 2
-        if moe_gemm.launches != {**before, **after}:
-            fail(f"K3 {what}: launches {before} -> {moe_gemm.launches}")
+        moved = {k: v - before[k] for k, v in moe_gemm.launches.items() if v != before[k]}
+        if moved != plan:
+            fail(f"K3 {what}: launches {moved}, not {plan}")
         err = max_err_within(got, moe_gemm_ref(x, w), TOL[dtype_name(x.dtype)], f"K3 {what}")
-        records.append({"what": what, "kernel": kernel, "max_abs_err": err})
-        print(f"K3 edge {what} {kernel} max_abs_err={err:.3g}", flush=True)
+        records.append({"what": what, "launches": plan, "max_abs_err": err})
+        print(f"K3 edge {what} {plan} max_abs_err={err:.3g}", flush=True)
 
-    for E, C, d, f in ((3, 200, 72, 136), (2, 256, 512, 384), (5, 96, 4096, 1536)):
-        for dtype in (torch.bfloat16, torch.float16, torch.float32):
-            x = torch.randn((E, C, d), generator=g, device=device).to(dtype)
-            w = (torch.randn((E, d, f), generator=g, device=device) / d**0.5).to(dtype)
-            kernel = "expert_split" if dtype == torch.float32 else "expert_wgmma"
-            check(x, w, kernel, f"{(E, C, d, f)} {dtype_name(dtype)}")
-    E, C, d, f = 2, 256, 512, 384
-    flat = torch.randn(E * C * d + 1, generator=g, device=device)
-    x = flat[1:].view(E, C, d)
-    w = torch.randn((E, d, f), generator=g, device=device) / d**0.5
-    if x.data_ptr() % 16 != 4:
-        fail(f"K3 misaligned fp32 view: data_ptr() % 16 = {x.data_ptr() % 16}, not 4")
-    check(x, w, "expert_split", f"{(E, C, d, f)} float32, x 4 bytes off")
-    x, w = flat.bfloat16()[1:].view(E, C, d), w.bfloat16()
-    if x.data_ptr() % 16 != 2:
-        fail(f"K3 misaligned view: data_ptr() % 16 = {x.data_ptr() % 16}, not 2")
-    check(x, w, "expert_tiles", f"{(E, C, d, f)} bfloat16, x 2 bytes off")
+    def operands(shape, x_dtype, w_dtype, x_off=0, w_off=0):
+        E, C, d, f = shape
+        x = torch.randn(E * C * d + x_off, generator=g, device=device)[x_off:].to(x_dtype)
+        w = torch.randn(E * d * f + w_off, generator=g, device=device)[w_off:] / d**0.5
+        if x_off:  # the cast made a fresh buffer: view it off alignment again
+            x = torch.empty(E * C * d + x_off, dtype=x_dtype, device=device)[x_off:].copy_(x)
+        w = w.to(w_dtype)
+        if w_off:
+            w = torch.empty(E * d * f + w_off, dtype=w_dtype, device=device)[w_off:].copy_(w)
+        return x.view(E, C, d), w.view(E, d, f)
+
+    dtypes = {"bfloat16": (torch.bfloat16,) * 2, "float16": (torch.float16,) * 2,
+              "float32": (torch.float32,) * 2, "mixed": (torch.bfloat16, torch.float32)}
+    for shape in ((3, 200, 72, 136), (2, 256, 512, 384), (5, 96, 4096, 1536)):
+        for name in ("bfloat16", "float16", "float32"):
+            check(*operands(shape, *dtypes[name]), f"{shape} {name}")
+    # d off 8, f off 8, both (odd), at one and several k-blocks
+    for shape in ((3, 200, 36, 136), (2, 256, 512, 100), (2, 130, 1001, 257), (2, 64, 4100, 20)):
+        for name, (x_dtype, w_dtype) in dtypes.items():
+            for x_off in (0, 1):
+                what = f"{shape} {name}" + (", x one value off" if x_off else "")
+                check(*operands(shape, x_dtype, w_dtype, x_off=x_off), what)
+    shape = (2, 256, 512, 384)
+    for name, x_off in (("float32", 1), ("bfloat16", 1)):
+        check(*operands(shape, *dtypes[name], x_off=x_off), f"{shape} {name}, x one value off")
+    check(*operands(shape, *dtypes["float16"], w_off=3), f"{shape} float16, w 3 values off")
     records.append(split_products(device))
     return records
 
@@ -1023,11 +1066,13 @@ def main() -> None:
         ("bsr_spgemm/warp_runs", "bsr_spgemm.cu", k1, k1_paths["warp_runs"]),
         ("bsr_spgemm/block_runs", "bsr_spgemm.cu", k1, k1_paths["block_runs"]),
         ("bsr_spgemm/mma_runs", "bsr_spgemm.cu", k1, k1_paths["mma_runs"]),
-        ("bsr_spmm/block_rows", "bsr_spmm.cu", k2, spmm["float32"]),
+        ("bsr_spmm/warp_rows", "bsr_spmm.cu", k2, spmm["float32"]),
+        ("bsr_spmm/mma_rows", "bsr_spmm.cu", k2, spmm["bfloat16"]),
+        ("bsr_spmm/block_rows", "bsr_spmm.cu", k2, spmm["float32_12x12"]),
         ("moe_gemm/expert_wgmma", "moe_gemm.cu", k3, moe["up"]),
         ("moe_gemm/expert_split", "moe_gemm.cu", k3, moe["up_fp32"]),
         ("moe_gemm/split3_bf16", "moe_gemm.cu", k3, moe["split_fp32"]),
-        ("moe_gemm/expert_tiles", "moe_gemm.cu", k3, moe["tiles_misaligned"]),
+        ("moe_gemm/stage16", "moe_gemm.cu", k3, moe["stage_misaligned"]),
     ]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

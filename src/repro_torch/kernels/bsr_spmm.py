@@ -6,7 +6,8 @@ by block-row, ``b_n = min(b_n, N)`` and a ``ValueError`` unless ``N % b_n
 gives a wrong answer) and on indices out of range.  It computes the
 block-row offsets on the host, once per call, and hands them to
 ``bsr_spmm_local``, which runs the plain version (``kernels.ref``) for CPU
-tensors and launches ``csrc/bsr_spmm.cu`` for CUDA tensors or raises.
+tensors and launches the kernel of ``csrc/bsr_spmm.cu`` that ``route``
+names for CUDA tensors, or raises.
 """
 from __future__ import annotations
 
@@ -68,13 +69,41 @@ def bsr_spmm(
     )
 
 
+# the __global__s of csrc/bsr_spmm.cu, numbered as its C entry point
+# repro_bsr_spmm(kernel, blocks, row_start, bcols, dense, out, m_blocks, bm,
+# bk, N, dtype code, stream) takes them
+KERNELS = ("block_rows", "warp_rows", "mma_rows")
+
+# the types mma_rows multiplies on the tensor cores; their products are
+# exact in its fp32 accumulators, as in the reference's fp32 sum
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+
+
 @functools.cache
 def _kernel():
-    """The kernel's C entry point, built and bound on first use."""
+    """The kernels' C entry point, built and bound on first use."""
     fn = load("bsr_spmm").repro_bsr_spmm
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def route(bm: int, bk: int, dtype: torch.dtype) -> str:
+    """The kernel ``bsr_spmm_local`` launches for (bm, bk) blocks whose
+    product is in ``dtype`` (the promoted type of blocks and dense), decided
+    before the launch.
+
+    With bm = 8 and bk a multiple of 8, a warp walks 128 columns of a run of
+    block-rows 8 block columns (a k8 unit) at a time, the next three steps'
+    dense slabs in flight in its own ring in shared memory:
+    ``"mma_rows"`` for bf16 and fp16 (the transposed product on the tensor
+    cores, two units a k16 mma step), ``"warp_rows"`` for fp32 (FMAs on the
+    CUDA cores, one unit a step).  Every other block shape takes
+    ``"block_rows"`` (one program per block-row, one block between two
+    barriers)."""
+    if bm != 8 or bk % 8:
+        return "block_rows"
+    return "mma_rows" if dtype in TENSOR_CORE_DTYPES else "warp_rows"
 
 
 def bsr_spmm_local(
@@ -87,10 +116,16 @@ def bsr_spmm_local(
     """``A_bsr @ dense`` from block-row offsets: all tensors on one device,
     ``row_start = row_offsets(brows, m_blocks)`` and every index in range
     (``bsr_spmm`` checks that).  On the CPU this is the plain version; on
-    CUDA it launches the kernel (adding one to
-    ``bsr_spmm_local.launches["block_rows"]``) or raises.  The result is in
-    ``promote_types(blocks, dense)``, summed in fp32 over each block-row;
-    rows of empty block-rows are zero."""
+    CUDA it launches the kernel ``route(bm, bk, result type)`` names (adding
+    one to ``bsr_spmm_local.launches[kernel]``) or raises.  The result is
+    in ``promote_types(blocks, dense)``, summed in fp32 over each block-row
+    and rounded once; rows of empty block-rows are zero.
+
+    Each block reads its own bk x N slab of ``dense``, so the kernels move
+    several times the bytes of their inputs from L2 (at the AMG n=42 SpMM,
+    N = 256: 0.70 GB in bf16, 1.39 GB in fp32, against 0.10 and 0.20 GB read
+    once); ``mma_rows`` and ``warp_rows`` are paced by that gather, which
+    they keep in flight, and ``block_rows`` by its loads' latency."""
     device = blocks.device
     for name, t in (("row_start", row_start), ("bcols", bcols), ("dense", dense)):
         if t.device != device:
@@ -117,8 +152,10 @@ def bsr_spmm_local(
     out = torch.empty((m_blocks * bm, N), dtype=out_dtype, device=device)
     if out.numel() == 0:
         return out
+    kernel = route(bm, bk, out_dtype)
     with torch.cuda.device(device):
         err = _kernel()(
+            KERNELS.index(kernel),
             blocks.data_ptr(),
             row_start.data_ptr(),
             bcols.data_ptr(),
@@ -132,10 +169,10 @@ def bsr_spmm_local(
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {err}")
-    bsr_spmm_local.launches["block_rows"] += 1
+        raise RuntimeError(f"bsr_spmm kernel {kernel} launch failed: CUDA error {err}")
+    bsr_spmm_local.launches[kernel] += 1
     return out
 
 
 # launches since the last reset, per __global__ of csrc/bsr_spmm.cu
-bsr_spmm_local.launches = {"block_rows": 0}
+bsr_spmm_local.launches = {name: 0 for name in KERNELS}

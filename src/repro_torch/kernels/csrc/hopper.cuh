@@ -1,7 +1,8 @@
 // Device helpers shared by the port's Hopper (sm_90a) kernels: type
-// conversions, mbarriers, TMA copies, wgmma shared-memory descriptors and
-// the wgmma instructions the kernels issue.  Included by moe_gemm.cu and
-// bsr_spgemm.cu; kernels/_build.py hashes it into both libraries' names.
+// conversions, mbarriers, TMA and cp.async copies, wgmma shared-memory
+// descriptors, and the wgmma and mma.sync instructions the kernels issue.
+// Included by every csrc/*.cu; kernels/_build.py hashes it into every
+// library's name.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -246,6 +247,56 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
                : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit values, each transposed on the way: lane l
+// of the warp receives elements (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4)
+// of each matrix as stored (rows at the addresses lanes 8 m to 8 m + 7 give).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += A (16 x 16, row-major fragment) * B (16 x 8, column-major fragment)
+// on the tensor cores, T = bf16 or fp16, fp32 accumulators.  Lane l = 4 g + t
+// holds A rows g and g + 8, columns 2t, 2t + 1 (+ 8); B rows 2t, 2t + 1 (+ 8),
+// column g; C rows g and g + 8, columns 2t and 2t + 1.
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    static_assert(std::is_same<T, __half>::value, "mma_16816 takes bf16 or fp16");
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+// 16 bytes from global to shared memory without passing through registers,
+// cached in L2 only; the last 16 - src_bytes bytes are written zero
+// (src_bytes = 0 reads nothing).  Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // One wgmma m64nNk16 with T (bf16 or fp16) operands, N = 2 * (accumulators

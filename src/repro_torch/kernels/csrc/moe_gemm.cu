@@ -13,10 +13,11 @@
 // What bounds it: operations.  At the full width of Qwen3-MoE-235B-A22B's
 // experts (E = 128, C = 640, d = 4096, f = 1536) a projection is 1.03 TFLOP
 // against 2.5 GB: 1.04 ms at the bf16 tensor cores' 989 TFLOP/s, 0.76 ms at
-// 3.35 TB/s.  Three routes, picked by the wrapper before launch:
+// 3.35 TB/s.  Two routes, picked by the wrapper before launch, and a stage
+// in front of the first for inputs its tensor maps cannot describe:
 //
-// expert_wgmma<T> (x and w both bf16 or both fp16, d and f multiples of 8,
-// 16-byte aligned data): the tensor-core kernel the bound asks for.
+// expert_wgmma<T> (x and w both bf16 or both fp16): the tensor-core kernel
+// the bound asks for.
 //   - Operands come by TMA from 3-D tensor maps, x as {d, C, E} and w as
 //     {f, d, E}, so a tile never reads across an expert and the ragged edges
 //     of C, d and f arrive zero-filled.  A stage holds a 128 x 64 tile of x
@@ -51,10 +52,12 @@
 //   about three digits; they take the next route.
 //
 // split3_bf16 then expert_split<TO> (fp32 x and w, and mixed inputs met at
-// fp32; d and f multiples of 8): fp32-accurate products on the tensor cores.
+// fp32; any d and f): fp32-accurate products on the tensor cores.
 //   - split3_bf16 writes each operand as three bf16 pieces, v == v0 + v1 + v2
-//     exactly (hopper.cuh's split3), into fresh, aligned arrays: so an fp32
-//     view a few bytes off alignment takes this route too.  It reads 4 bytes
+//     exactly (hopper.cuh's split3), into fresh, aligned arrays whose rows
+//     are padded to a multiple of 8 values with zeros (which split into
+//     zeros): so an fp32 view a few bytes off alignment, and d or f off 8,
+//     take this route too.  It reads 4 bytes
 //     and writes 6 per value: at the Qwen3-MoE up projection 4.56 GB read and
 //     6.84 GB written, about 3.4 ms at 3.35 TB/s, inside the wrapper's time.
 //   - expert_split runs the six products x_i w_j with i + j <= 2 per k16
@@ -74,16 +77,23 @@
 //   - Fusing the split into the GEMM's producer (fp32 tiles by TMA, split in
 //     shared memory) would save the pass's traffic; it is not done yet.
 //
-// expert_tiles<T, TO> (fp32 or mixed inputs with d or f off a multiple of 8,
-// and 16-bit inputs the tensor maps cannot describe): fp32 FMAs on the CUDA
-// cores.  A program owns
-// a 128 x 128 output tile; its 16 x 16 threads each keep an 8 x 8 fp32
-// accumulator (two 4-row by two 4-column quadrants, so each thread's
-// shared-memory reads are 16-byte and conflict-free); the d loop stages a
-// 128 x 16 slice of x (transposed) and a 16 x 128 slice of w in shared
-// memory as fp32, and each element staged is used 128 times.  Edges are
-// masked, so any (C, d, f) works; the wrapper keeps the TPU kernel's
-// divisibility contract.
+// stage16 (16-bit inputs a tensor map cannot describe: a base off 16 bytes,
+// x with d off a multiple of 8, w with f off one): a tensor map's base and
+// row pitch are multiples of 16 bytes, so the offending operand is copied
+// once into a fresh buffer with an aligned base and a pitch of a multiple of
+// 8 values, its tail zeroed, and expert_wgmma reads it through a map that
+// keeps the true d and f (TMA zero-fills past them).  With f off 8 the
+// output goes to such a pitched buffer too, and stage16 copies its f
+// columns out.  A copy is bound by bytes, each value read and written once:
+// at the Qwen3-MoE up projection with x 2 bytes off, 2 x 671 MB, 0.40 ms at
+// 3.35 TB/s beside expert_wgmma's 1.04 ms bound.  A view off alignment
+// whose rows stay whole is one flat copy, 16 bytes a thread: each thread
+// reads the two aligned 16-byte chunks its 16 bytes straddle and
+// funnel-shifts them into place.  Padded or cropped rows go 8 values a
+// thread.  On an H100 80GB HBM3 at 700 W (chip_smoke.py) the copy takes
+// 0.47 ms and the staged call 1.87 ms, against torch.bmm's 7.41 on the same
+// view; expert_tiles, the fp32 FMAs on the CUDA cores these inputs took
+// before, took 32.6 ms.
 //
 // The host side reaches libcuda's cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so the library links against the runtime alone.
@@ -101,92 +111,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kSide = 16;             // threads per side of a program
-constexpr int kTile = 128;            // output rows and columns per program
-constexpr int kSliceD = 16;           // d per staged slice
-constexpr int kHalf = kTile / 2;      // quadrant offset
-constexpr int kMaxGridYZ = 65535;
-
-// Program (blockIdx.x, blockIdx.y, blockIdx.z) owns columns
-// [blockIdx.x * 128, +128) and rows [blockIdx.y * 128, +128) of expert
-// blockIdx.z.  Thread (ty, tx) holds rows {ty*4 + i, 64 + ty*4 + i} and
-// columns {tx*4 + j, 64 + tx*4 + j}, i, j < 4.
-template <typename T, typename TO>
-__global__ void __launch_bounds__(kSide* kSide)
-    expert_tiles(const T* __restrict__ x, const T* __restrict__ w, TO* __restrict__ out,
-                 int c, int d, int f) {
-  __shared__ __align__(16) float x_s[kSliceD][kTile];  // x slice, transposed
-  __shared__ __align__(16) float w_s[kSliceD][kTile];
-  const int e = blockIdx.z;
-  const int row0 = blockIdx.y * kTile;
-  const int col0 = blockIdx.x * kTile;
-  const T* xe = x + static_cast<int64_t>(e) * c * d;
-  const T* we = w + static_cast<int64_t>(e) * d * f;
-  const int t = threadIdx.x;
-  const int tx = t % kSide;
-  const int ty = t / kSide;
-  // staging: thread t loads 8 consecutive d of x row t / 2, and 8
-  // consecutive columns of w slice row t / 16
-  const int xr = t / 2, xk = (t % 2) * 8;
-  const int wk = t / kSide, wc = (t % kSide) * 8;
-  const bool x_row_in = row0 + xr < c;
-  const T* x_row = xe + static_cast<int64_t>(row0 + xr) * d;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < d; k0 += kSliceD) {
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int gk = k0 + xk + q;
-      x_s[xk + q][xr] = (x_row_in && gk < d) ? to_f32(x_row[gk]) : 0.f;
-    }
-    const int gk = k0 + wk;
-    const T* w_row = we + static_cast<int64_t>(gk) * f + col0 + wc;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      w_s[wk][wc + q] = (gk < d && col0 + wc + q < f) ? to_f32(w_row[q]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kSliceD; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&x_s[k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&x_s[k][kHalf + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&w_s[k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&w_s[k][kHalf + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-  TO* oe = out + static_cast<int64_t>(e) * c * f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = row0 + (i < 4 ? ty * 4 + i : kHalf + ty * 4 + i - 4);
-    if (row >= c) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = col0 + (j < 4 ? tx * 4 + j : kHalf + tx * 4 + j - 4);
-      if (col < f) oe[static_cast<int64_t>(row) * f + col] = from_f32<TO>(acc[i][j]);
-    }
-  }
-}
-
-template <typename T, typename TO>
-void launch(const void* x, const void* w, void* out, int e, int c, int d, int f,
-            cudaStream_t stream) {
-  const dim3 grid((f + kTile - 1) / kTile, (c + kTile - 1) / kTile, e);
-  expert_tiles<T, TO><<<grid, kSide * kSide, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<TO*>(out), c, d, f);
-}
 
 // ---------------------------------------------------------------- expert_wgmma
 
@@ -350,14 +274,27 @@ constexpr int kSpSmem = kSwizzleAtom + kSpStages * kSpStageBytes + 2 * kSpStages
 static_assert(kSpBN % kBox == 0 && kSpSmem <= 227 * 1024, "split tile does not fit");
 constexpr int kSplitThreads = 256;
 
-// dst[k * n + i] = piece k of src[i] (split3), for i < n.  Four values a
-// thread per step, 16-byte loads and 8-byte stores, where src is 16-byte
-// aligned and n % 4 == 0; one value a step otherwise (an fp32 view that
-// starts a few bytes into its buffer).
+// src holds rows x cols values; dst three pieces of rows x pitch, one after
+// another: dst[k n + r pitch + c] = piece k of src[r cols + c] (split3) for
+// c < cols, and 0 for cols <= c < pitch, with n = rows pitch.  Unpadded
+// (pitch == cols): four values a thread per step, 16-byte loads and 8-byte
+// stores, where src is 16-byte aligned and n % 4 == 0, else one value a
+// step (an fp32 view that starts a few bytes into its buffer).  Padded: one
+// value a step.
 __global__ void __launch_bounds__(kSplitThreads)
-    split3_bf16(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, int64_t n) {
+    split3_bf16(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, int64_t rows,
+                int cols, int pitch) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t n = rows * pitch;
+  if (cols != pitch) {
+    for (int64_t i = first; i < n; i += stride) {
+      const int c = static_cast<int>(i % pitch);
+      const float v = c < cols ? src[(i / pitch) * cols + c] : 0.f;
+      split3(v, dst[i], dst[n + i], dst[2 * n + i]);
+    }
+    return;
+  }
   const bool vec = reinterpret_cast<uintptr_t>(src) % 16 == 0 && n % 4 == 0;
   const int64_t n_vec = vec ? n / 4 : 0;
   for (int64_t i = first; i < n_vec; i += stride) {
@@ -372,6 +309,87 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
   for (int64_t i = 4 * n_vec + first; i < n; i += stride) {
     split3(src[i], dst[i], dst[n + i], dst[2 * n + i]);
+  }
+}
+
+// ------------------------------------------------------------------ stage16
+
+constexpr int kStageThreads = 256;
+
+// dst[i] = src[i], i < n, 16-bit values: 8 a thread per step, src SHIFT
+// bytes past 16-byte alignment and dst aligned.  Each thread reads the two
+// aligned 16-byte chunks its source bytes straddle and funnel-shifts them
+// into one 16-byte store.  (The second chunk's unused bytes may lie past
+// the tensor's last value, never past its 16-byte granule.)
+template <int SHIFT>
+__device__ __forceinline__ void copy_flat(const uint16_t* __restrict__ src,
+                                          uint16_t* __restrict__ dst, int64_t n) {
+  const uint4* chunk =
+      reinterpret_cast<const uint4*>(reinterpret_cast<const uint8_t*>(src) - SHIFT);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t n8 = n / 8;
+  for (int64_t j = first; j < n8; j += stride) {
+    uint4 v = chunk[j];
+    if constexpr (SHIFT != 0) {
+      const uint4 next = chunk[j + 1];
+      const uint32_t w[8] = {v.x, v.y, v.z, v.w, next.x, next.y, next.z, next.w};
+      constexpr int q = SHIFT / 4, bits = (SHIFT % 4) * 8;
+      v = make_uint4(__funnelshift_r(w[q], w[q + 1], bits),
+                     __funnelshift_r(w[q + 1], w[q + 2], bits),
+                     __funnelshift_r(w[q + 2], w[q + 3], bits),
+                     __funnelshift_r(w[q + 3], w[q + 4], bits));
+    }
+    reinterpret_cast<uint4*>(dst)[j] = v;
+  }
+  for (int64_t i = 8 * n8 + first; i < n; i += stride) dst[i] = src[i];
+}
+
+// dst[r dst_pitch + c] = src[r src_pitch + c] for c < min(src_pitch,
+// dst_pitch), 0 for the rest of each dst row: 16-bit values.  Rows of the
+// same pitch are one flat copy (copy_flat, where dst is 16-byte aligned);
+// otherwise a thread writes 8 consecutive values of a dst row, as one
+// 16-byte store where dst and dst_pitch allow.
+__global__ void __launch_bounds__(kStageThreads)
+    stage16(const uint16_t* __restrict__ src, uint16_t* __restrict__ dst, int64_t rows,
+            int src_pitch, int dst_pitch) {
+  if (src_pitch == dst_pitch && reinterpret_cast<uintptr_t>(dst) % 16 == 0) {
+    const int64_t n = rows * src_pitch;
+    switch (reinterpret_cast<uintptr_t>(src) % 16) {  // even: 16-bit values
+      case 0: copy_flat<0>(src, dst, n); break;
+      case 2: copy_flat<2>(src, dst, n); break;
+      case 4: copy_flat<4>(src, dst, n); break;
+      case 6: copy_flat<6>(src, dst, n); break;
+      case 8: copy_flat<8>(src, dst, n); break;
+      case 10: copy_flat<10>(src, dst, n); break;
+      case 12: copy_flat<12>(src, dst, n); break;
+      default: copy_flat<14>(src, dst, n); break;
+    }
+    return;
+  }
+  const int cols = src_pitch < dst_pitch ? src_pitch : dst_pitch;
+  const int per_row = (dst_pitch + 7) / 8;
+  const bool vec = reinterpret_cast<uintptr_t>(dst) % 16 == 0 && dst_pitch % 8 == 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       q < rows * per_row; q += stride) {
+    const int64_t r = q / per_row;
+    const int c0 = static_cast<int>(q % per_row) * 8;
+    const uint16_t* s = src + r * src_pitch + c0;
+    uint16_t v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = c0 + e < cols ? s[e] : uint16_t(0);
+    uint16_t* d = dst + r * dst_pitch + c0;
+    if (vec) {
+      *reinterpret_cast<uint4*>(d) =
+          make_uint4(v[0] | uint32_t(v[1]) << 16, v[2] | uint32_t(v[3]) << 16,
+                     v[4] | uint32_t(v[5]) << 16, v[6] | uint32_t(v[7]) << 16);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (c0 + e < dst_pitch) d[e] = v[e];
+      }
+    }
   }
 }
 
@@ -396,11 +414,12 @@ __device__ __forceinline__ void store2(TO* p, float a, float b) {
 // tiles: the six pieces of a stage take 96 KB, so two stages fit.  Each
 // consumer issues one wgmma group a k16 step, with x's pieces in registers
 // (two sets, so a step's ldmatrix never overwrites fragments the running
-// group still reads) and w's from the swizzled stage.  x's
-// pieces are one (3E, C, d) array and w's one (3E, d, f) array, so piece k
-// of expert e is slice k E + e of a 3-D tensor map.  The fp32 (or, for
-// mixed inputs, 16-bit) result is written straight from the registers, its
-// pairs of columns 8 or 4 bytes at a time, clipped at the C and f edges.
+// group still reads) and w's from the swizzled stage.  x's pieces are one
+// (3E, C, d) array and w's one (3E, d, f) array (rows padded to a multiple
+// of 8 values), so piece k of expert e is slice k E + e of a 3-D tensor map.
+// The fp32 (or, for mixed inputs, 16-bit) result is written straight from
+// the registers, its pairs of columns 8 or 4 bytes at a time where f is
+// even, one value at a time where it is odd, clipped at the C and f edges.
 template <typename TO>
 __global__ void __launch_bounds__(kWgThreads, 1)
     expert_split(const __grid_constant__ CUtensorMap x_map,
@@ -519,14 +538,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       const int row0 = m0 + 64 * cw + 16 * warp + lane / 4;
 #pragma unroll
       for (int j = 0; j < kSpBN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * (lane % 4);  // f % 8 == 0: col < f means col + 1 < f
+        const int col = n0 + 8 * j + 2 * (lane % 4);  // even
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = row0 + 8 * h;
           if (row < c && col < f) {
             const int i = 4 * j + 2 * h;
-            store2<TO>(oe + static_cast<int64_t>(row) * f + col, hi[i] + lo[i],
-                       hi[i + 1] + lo[i + 1]);
+            TO* p = oe + static_cast<int64_t>(row) * f + col;
+            if (f % 2 == 0) {  // col + 1 < f, and p is 8 (or 4) bytes aligned
+              store2<TO>(p, hi[i] + lo[i], hi[i + 1] + lo[i + 1]);
+            } else {
+              p[0] = from_f32<TO>(hi[i] + lo[i]);
+              if (col + 1 < f) p[1] = from_f32<TO>(hi[i + 1] + lo[i + 1]);
+            }
           }
         }
       }
@@ -556,13 +580,14 @@ cudaError_t sm_count(int* sms) {
   return err;
 }
 
-// A 3-D map of a contiguous (outer, mid, inner) array of 16-bit values, in
-// {64, box_mid, 1} boxes (128 bytes wide) with the 128-byte swizzle; loads
-// read zero outside the array and stores write nothing there.
+// A 3-D map of an (outer, mid, inner) array of 16-bit values whose rows are
+// `pitch` values apart (pitch >= inner, a multiple of 8), in {64, box_mid, 1}
+// boxes (128 bytes wide) with the 128-byte swizzle; loads read zero outside
+// the array (past inner too) and stores write nothing there.
 bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint64_t inner,
-               uint64_t mid, uint64_t outer, uint32_t box_mid) {
+               uint64_t mid, uint64_t outer, uint32_t box_mid, uint64_t pitch) {
   const cuuint64_t dims[3] = {inner, mid, outer};
-  const cuuint64_t strides[2] = {inner * 2, inner * mid * 2};  // bytes, dims 1 and 2
+  const cuuint64_t strides[2] = {pitch * 2, pitch * mid * 2};  // bytes, dims 1 and 2
   const cuuint32_t box[3] = {kBox, box_mid, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return tensor_map_encoder()(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
@@ -573,15 +598,15 @@ bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint
 
 template <typename T>
 cudaError_t launch_wgmma(const void* x, const void* w, void* out, int e, int c, int d, int f,
-                         CUtensorMapDataType type, cudaStream_t stream) {
+                         int xp, int wp, int op, CUtensorMapDataType type, cudaStream_t stream) {
   const int64_t work = static_cast<int64_t>(e) * ((c + kWgBM - 1) / kWgBM) *
                        ((f + kWgBN - 1) / kWgBN);
   if (work > INT_MAX) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
   CUtensorMap x_map, w_map, out_map;
-  if (!encode_3d(&x_map, type, x, d, c, e, kWgBM) ||   // boxes of 128 rows x 64 d
-      !encode_3d(&w_map, type, w, f, d, e, kWgBK) ||   // boxes of 64 d x 64 f
-      !encode_3d(&out_map, type, out, f, c, e, 64)) {  // boxes of 64 rows x 64 f
+  if (!encode_3d(&x_map, type, x, d, c, e, kWgBM, xp) ||   // boxes of 128 rows x 64 d
+      !encode_3d(&w_map, type, w, f, d, e, kWgBK, wp) ||   // boxes of 64 d x 64 f
+      !encode_3d(&out_map, type, out, f, c, e, 64, op)) {  // boxes of 64 rows x 64 f
     return cudaErrorInvalidValue;
   }
   // set on every launch, not once: the attribute belongs to the current
@@ -598,15 +623,15 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* out, int e, int c, 
 
 template <typename TO>
 cudaError_t launch_split(const void* xp, const void* wp, void* out, int e, int c, int d, int f,
-                         cudaStream_t stream) {
+                         int x_pitch, int w_pitch, cudaStream_t stream) {
   const int64_t work = static_cast<int64_t>(e) * ((c + kWgBM - 1) / kWgBM) *
                        ((f + kSpBN - 1) / kSpBN);
   if (work > INT_MAX || 3ll * e > INT_MAX) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
   CUtensorMap x_map, w_map;
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!encode_3d(&x_map, bf16, xp, d, c, 3ull * e, kWgBM) ||  // boxes of 128 rows x 64 d
-      !encode_3d(&w_map, bf16, wp, f, d, 3ull * e, kWgBK)) {  // boxes of 64 d x 64 f
+  if (!encode_3d(&x_map, bf16, xp, d, c, 3ull * e, kWgBM, x_pitch) ||  // 128 rows x 64 d
+      !encode_3d(&w_map, bf16, wp, f, d, 3ull * e, kWgBK, w_pitch)) {  // 64 d x 64 f
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(expert_split<TO>,
@@ -622,49 +647,23 @@ cudaError_t launch_split(const void* xp, const void* wp, void* out, int e, int c
 
 }  // namespace
 
-// expert_tiles.  in_dtype (x and w) and out_dtype: 0 = float32,
-// 1 = bfloat16, 2 = float16.  The output type is x's; x and w share
-// in_dtype, which differs from it only when mixed inputs met at float32.
-// Returns cudaGetLastError() after the launch (0 on success); the wrapper
-// raises on anything else.
-extern "C" int repro_moe_gemm(const void* x, const void* w, void* out, int e, int c, int d,
-                              int f, int in_dtype, int out_dtype, void* stream) {
-  if (e < 0 || c < 0 || d < 0 || f < 0 || e > kMaxGridYZ ||
-      (c + kTile - 1) / kTile > kMaxGridYZ || in_dtype < 0 || in_dtype > 2 ||
-      out_dtype < 0 || out_dtype > 2 || (in_dtype != out_dtype && in_dtype != 0)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (e > 0 && c > 0 && f > 0) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (in_dtype * 3 + out_dtype) {
-      case 0:
-        launch<float, float>(x, w, out, e, c, d, f, st);
-        break;
-      case 1:
-        launch<float, __nv_bfloat16>(x, w, out, e, c, d, f, st);
-        break;
-      case 2:
-        launch<float, __half>(x, w, out, e, c, d, f, st);
-        break;
-      case 4:
-        launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, e, c, d, f, st);
-        break;
-      default:
-        launch<__half, __half>(x, w, out, e, c, d, f, st);
-        break;
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
+// Every entry point returns cudaErrorInvalidValue for arguments its kernel
+// does not take, else cudaGetLastError() after the launch (0 on success);
+// the wrapper raises on anything else.
 
-// expert_wgmma.  in_dtype (x and w) and out_dtype both 1 = bfloat16 or
-// both 2 = float16; d > 0, d and f multiples of 8 and x, w, out 16-byte
+// Pitches (values between rows) must be multiples of 8 and the bases 16-byte
 // aligned: a tensor map's base and strides are multiples of 16 bytes.
-// Returns as repro_moe_gemm does.
+static bool pitch_ok(int pitch, int extent) { return pitch % 8 == 0 && pitch >= extent; }
+
+// expert_wgmma.  x: (E, C, x_pitch), w: (E, d, w_pitch), out: (E, C,
+// out_pitch), of which the first d, f and f values of a row are read or
+// written; in_dtype (x and w) and out_dtype both 1 = bfloat16 or both
+// 2 = float16; d > 0.
 extern "C" int repro_moe_gemm_wgmma(const void* x, const void* w, void* out, int e, int c,
-                                    int d, int f, int in_dtype, int out_dtype, void* stream) {
-  if (e < 0 || c < 0 || d <= 0 || f < 0 || d % 8 != 0 || f % 8 != 0 ||
-      (in_dtype != 1 && in_dtype != 2) || out_dtype != in_dtype ||
+                                    int d, int f, int x_pitch, int w_pitch, int out_pitch,
+                                    int in_dtype, int out_dtype, void* stream) {
+  if (e < 0 || c < 0 || d <= 0 || f < 0 || !pitch_ok(x_pitch, d) || !pitch_ok(w_pitch, f) ||
+      !pitch_ok(out_pitch, f) || (in_dtype != 1 && in_dtype != 2) || out_dtype != in_dtype ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -672,35 +671,60 @@ extern "C" int repro_moe_gemm_wgmma(const void* x, const void* w, void* out, int
   if (e == 0 || c == 0 || f == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      in_dtype == 1 ? launch_wgmma<__nv_bfloat16>(x, w, out, e, c, d, f,
-                                                  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
-                    : launch_wgmma<__half>(x, w, out, e, c, d, f,
+      in_dtype == 1 ? launch_wgmma<__nv_bfloat16>(x, w, out, e, c, d, f, x_pitch, w_pitch,
+                                                  out_pitch, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
+                    : launch_wgmma<__half>(x, w, out, e, c, d, f, x_pitch, w_pitch, out_pitch,
                                            CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
 }
 
 
-// split3_bf16.  src: n float32 values; dst: 3 n bfloat16, the three pieces
-// one after another (dst 16-byte aligned).  Returns as repro_moe_gemm does.
-extern "C" int repro_split3_bf16(const void* src, void* dst, long long n, void* stream) {
-  if (n < 0 || reinterpret_cast<uintptr_t>(dst) % 16 != 0) {
+// split3_bf16.  src: rows x cols float32 values; dst: 3 x rows x pitch
+// bfloat16, the three pieces one after another, 16-byte aligned; pitch >=
+// cols.
+extern "C" int repro_split3_bf16(const void* src, void* dst, long long rows, int cols,
+                                 int pitch, void* stream) {
+  if (rows < 0 || cols < 0 || pitch < cols || reinterpret_cast<uintptr_t>(dst) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long n = rows * pitch;
   if (n > 0) {
     const long long blocks = (n / 4 + kSplitThreads - 1) / kSplitThreads + 1;
     const int grid = static_cast<int>(blocks < 4096 ? blocks : 4096);  // then grid-stride
     split3_bf16<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(src), static_cast<__nv_bfloat16*>(dst), n);
+        static_cast<const float*>(src), static_cast<__nv_bfloat16*>(dst), rows, cols, pitch);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// expert_split.  xp: x's pieces, (3, E, C, d) bfloat16; wp: w's pieces,
-// (3, E, d, f) bfloat16; out: (E, C, f) in out_dtype (0 = float32,
-// 1 = bfloat16, 2 = float16).  d > 0, d and f multiples of 8, all three
-// 16-byte aligned.  Returns as repro_moe_gemm does.
+// stage16.  src: rows x src_pitch 16-bit values (any 2-byte alignment); dst:
+// rows x dst_pitch; copies min(src_pitch, dst_pitch) values a row and zeroes
+// the rest of each dst row.
+extern "C" int repro_stage16(const void* src, void* dst, long long rows, int src_pitch,
+                             int dst_pitch, void* stream) {
+  if (rows < 0 || src_pitch < 0 || dst_pitch < 0 || reinterpret_cast<uintptr_t>(src) % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(dst) % 2 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n = rows * dst_pitch;
+  if (n > 0) {
+    const long long blocks = (n / 8 + kStageThreads - 1) / kStageThreads + 1;
+    const int grid = static_cast<int>(blocks < 8192 ? blocks : 8192);  // then grid-stride
+    stage16<<<grid, kStageThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint16_t*>(src), static_cast<uint16_t*>(dst), rows, src_pitch,
+        dst_pitch);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// expert_split.  xp: x's pieces, (3, E, C, x_pitch) bfloat16; wp: w's
+// pieces, (3, E, d, w_pitch) bfloat16; out: (E, C, f) in out_dtype
+// (0 = float32, 1 = bfloat16, 2 = float16).  d > 0, all three 16-byte
+// aligned.
 extern "C" int repro_moe_gemm_split(const void* xp, const void* wp, void* out, int e, int c,
-                                    int d, int f, int out_dtype, void* stream) {
-  if (e < 0 || c < 0 || d <= 0 || f < 0 || d % 8 != 0 || f % 8 != 0 || out_dtype < 0 ||
+                                    int d, int f, int x_pitch, int w_pitch, int out_dtype,
+                                    void* stream) {
+  if (e < 0 || c < 0 || d <= 0 || f < 0 || !pitch_ok(x_pitch, d) || !pitch_ok(w_pitch, f) ||
+      out_dtype < 0 ||
       out_dtype > 2 || reinterpret_cast<uintptr_t>(xp) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(wp) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -709,10 +733,11 @@ extern "C" int repro_moe_gemm_split(const void* xp, const void* wp, void* out, i
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (out_dtype) {
     case 0:
-      return static_cast<int>(launch_split<float>(xp, wp, out, e, c, d, f, st));
+      return static_cast<int>(launch_split<float>(xp, wp, out, e, c, d, f, x_pitch, w_pitch, st));
     case 1:
-      return static_cast<int>(launch_split<__nv_bfloat16>(xp, wp, out, e, c, d, f, st));
+      return static_cast<int>(
+          launch_split<__nv_bfloat16>(xp, wp, out, e, c, d, f, x_pitch, w_pitch, st));
     default:
-      return static_cast<int>(launch_split<__half>(xp, wp, out, e, c, d, f, st));
+      return static_cast<int>(launch_split<__half>(xp, wp, out, e, c, d, f, x_pitch, w_pitch, st));
   }
 }

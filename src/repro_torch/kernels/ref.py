@@ -83,16 +83,29 @@ def moe_gemm_ref(
     return torch.einsum("ecd,edf->ecf", x.to(acc_dtype), w.to(acc_dtype)).to(x.dtype)
 
 
-def split3_bf16_ref(x: torch.Tensor) -> torch.Tensor:
+def split3_bf16_ref(x: torch.Tensor, pitch: int | None = None) -> torch.Tensor:
     """fp32 ``x`` as three bf16 pieces, (3, *x.shape): ``x0 = bf16(x)``,
     ``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0 - x1)``, each rounded to
     nearest.  Every residual is exact in fp32, so ``x0 + x1 + x2 == x``
-    exactly for finite x whose last piece does not underflow.  The plain
-    version of ``csrc/moe_gemm.cu``'s ``split3_bf16``; the card's main path
-    never calls it."""
+    exactly for finite x whose last piece does not underflow.  With
+    ``pitch``, each row is first padded with zeros to ``pitch`` values
+    (zeros split into zeros).  The plain version of ``csrc/moe_gemm.cu``'s
+    ``split3_bf16``; the card's main path never calls it."""
     x = x.float()
+    if pitch is not None:
+        x = torch.nn.functional.pad(x, (0, pitch - x.shape[-1]))
     x0 = x.to(torch.bfloat16)
     r = x - x0.float()
     x1 = r.to(torch.bfloat16)
     x2 = (r - x1.float()).to(torch.bfloat16)
     return torch.stack([x0, x1, x2])
+
+
+def stage16_ref(x: torch.Tensor, pitch: int) -> torch.Tensor:
+    """A contiguous (*x.shape[:-1], pitch) copy of ``x``: each row's first
+    min(x.shape[-1], pitch) values, then zeros.  The plain version of
+    ``csrc/moe_gemm.cu``'s ``stage16``."""
+    cols = x.shape[-1]
+    if pitch <= cols:
+        return x[..., :pitch].clone(memory_format=torch.contiguous_format)
+    return torch.nn.functional.pad(x, (0, pitch - cols))

@@ -10,7 +10,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels.bsr_spmm import bsr_spmm as jax_bsr_spmm
 from repro.sparse.bsr import BlockSparse as JaxBlockSparse
 from repro_torch.kernels import ops
-from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local, row_offsets
+from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local, route, row_offsets
 from repro_torch.sparse.bsr import BlockSparse, to_bsr
 
 
@@ -159,3 +159,98 @@ def test_spmm_needs_a_card_unless_told_cpu(monkeypatch):
         ops.spmm(bsr, np.ones((8, 4), np.float32))
     np.testing.assert_array_equal(ops.spmm(bsr, np.ones((8, 4), np.float32), device="cpu"), 1)
     assert bsr_spmm_local.launches == before  # the CPU path launches no kernel
+
+
+# the kernel bsr_spmm_local launches on the card, by block shape and result type
+@pytest.mark.parametrize(
+    "bm, bk, dtype, kernel",
+    [
+        (8, 8, torch.bfloat16, "mma_rows"),  # the AMG SpMM's blocks
+        (8, 8, torch.float16, "mma_rows"),
+        (8, 16, torch.bfloat16, "mma_rows"),
+        (8, 40, torch.float16, "mma_rows"),
+        (8, 8, torch.float32, "warp_rows"),
+        (8, 24, torch.float32, "warp_rows"),
+        (16, 8, torch.bfloat16, "block_rows"),  # bm other than 8
+        (4, 8, torch.float32, "block_rows"),
+        (8, 12, torch.bfloat16, "block_rows"),  # bk off a multiple of 8
+        (8, 4, torch.float32, "block_rows"),
+        (12, 12, torch.float32, "block_rows"),
+        (64, 64, torch.float32, "block_rows"),
+        (128, 128, torch.bfloat16, "block_rows"),
+    ],
+)
+def test_route_picks_the_kernel_before_launch(bm, bk, dtype, kernel):
+    assert route(bm, bk, dtype) == kernel
+
+
+def _paired_k16(blocks, brows, bcols, dense, m_blocks):
+    """mma_rows's order of summation in plain PyTorch: a block-row's k8
+    units (8 columns of a block, with their 8 dense rows) in order, paired
+    into k16 steps, the last one of an odd row with a zero half; each step's
+    16 products summed in fp32 and added to the row's fp32 sum, which is
+    rounded once.  Rows with no blocks are zero."""
+    nb, bm, bk = blocks.shape
+    N = dense.shape[1]
+    out_dtype = torch.promote_types(blocks.dtype, dense.dtype)
+    a = blocks.float().reshape(nb, bm, bk // 8, 8).permute(0, 2, 1, 3)  # (nb, unit, 8, 8)
+    d = dense.float().reshape(-1, 8, N)  # k8 slabs
+    out = torch.zeros((m_blocks, bm, N))
+    brows = torch.as_tensor(brows)
+    for r in range(m_blocks):
+        units = [(a[i, c], d[int(bcols[i]) * (bk // 8) + c])
+                 for i in torch.nonzero(brows == r).ravel().tolist() for c in range(bk // 8)]
+        if len(units) % 2:
+            units.append((torch.zeros(bm, 8), torch.zeros(8, N)))
+        for (a0, d0), (a1, d1) in zip(units[::2], units[1::2]):
+            out[r] += torch.cat([a0, a1], 1) @ torch.cat([d0, d1], 0)  # one k16 step
+    return out.reshape(m_blocks * bm, N).to(out_dtype)
+
+
+@pytest.mark.parametrize("bk", [8, 16, 24])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_paired_k16_order_matches_jax(bk, dtype):
+    """The tensor-core route's order of summation, with odd block counts
+    (a zero half in the last k16 step) and empty block-rows, against the
+    JAX kernel in interpret mode (which ops.spmm pads with zero blocks) and
+    float64.  fp32: within 1e-5 of both.  bf16: the model sums the exact
+    products in fp32 and rounds once, so it is within 1e-5 of float64
+    before that rounding and half a bf16 ulp (2^-8 relative) after it; the
+    JAX kernel rounds its running sum to bf16 after each block product, so
+    it may differ from the model by up to the row's block count plus one
+    half-ulps of the largest partial sum, bounded by |A| @ |dense|."""
+    rng = np.random.default_rng(bk)
+    counts = [1, 3, 0, 2, 5, 0, 4]  # blocks per block-row: odd, even, empty
+    mask = np.zeros((len(counts), 7), bool)
+    for r, c in enumerate(counts):
+        mask[r, rng.choice(7, c, replace=False)] = True
+    a = rng.standard_normal((8 * len(counts), 7 * bk)).astype(np.float32)
+    a *= np.kron(mask, np.ones((8, bk), np.float32))
+    b = rng.standard_normal((7 * bk, 24)).astype(dtype)
+    bsr = to_bsr(a, 8, bk)
+    bsr = BlockSparse(bsr.blocks.astype(dtype), bsr.brows, bsr.bcols, bsr.shape)
+    assert np.array_equal(np.bincount(bsr.brows, minlength=len(counts)), counts)
+    blocks, dense = ops.as_tensor(bsr.blocks, "cpu"), ops.as_tensor(b, "cpu")
+    got = _paired_k16(blocks, bsr.brows, bsr.bcols, dense, len(counts))
+    want = _f32(jax_ops.spmm(_both(bsr), b, interpret=True))
+    np.testing.assert_array_equal(_f32(got)[16:24], 0)
+    np.testing.assert_array_equal(_f32(got)[40:48], 0)
+    a64 = np.zeros((8 * len(counts), 7 * bk))
+    for blk, r, c in zip(np.asarray(_f32(blocks), np.float64), bsr.brows, bsr.bcols):
+        a64[8 * r:8 * r + 8, bk * c:bk * c + bk] = blk
+    d64 = np.asarray(_f32(dense), np.float64)
+    want64 = a64 @ d64
+    if dtype == np.float32:
+        np.testing.assert_allclose(_f32(got), want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(_f32(got), want64, rtol=1e-5, atol=1e-5)
+    else:
+        unrounded = _paired_k16(blocks.float(), bsr.brows, bsr.bcols, dense.float(), len(counts))
+        np.testing.assert_allclose(unrounded.numpy(), want64, rtol=1e-5, atol=1e-5)
+        assert (np.abs(_f32(got) - want64) <= 2.0**-8 * np.abs(want64) + 1e-5).all()
+        slack = (np.repeat(counts, 8)[:, None] + 1) * 2.0**-8 * (np.abs(a64) @ np.abs(d64))
+        assert (np.abs(_f32(got) - want) <= slack + 1e-5).all()
+    # and the port's plain version, in the kernel's other order, agrees (in
+    # bf16 the two fp32 sums may round to neighbours: one ulp, 2^-7)
+    plain = bsr_spmm(blocks, bsr.brows, bsr.bcols, dense, len(counts))
+    tol = 1e-5 if dtype == np.float32 else 2.0**-7
+    np.testing.assert_allclose(_f32(plain), _f32(got), rtol=tol, atol=1e-5)

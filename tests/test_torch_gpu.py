@@ -20,13 +20,14 @@ from repro_torch.kernels.bsr_spgemm import (
     build_pair_lists,
     route as k1_route,
 )
-from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local
-from repro_torch.kernels.moe_gemm import moe_gemm, route, split3_bf16
+from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local, route as k2_route
+from repro_torch.kernels.moe_gemm import launch_plan, moe_gemm, route, split3_bf16, stage16
 from repro_torch.kernels.ref import (
     bsr_spgemm_ref,
     bsr_spmm_ref,
     moe_gemm_ref,
     split3_bf16_ref,
+    stage16_ref,
 )
 from repro_torch.sparse.bsr import to_bsr
 from repro_torch.sparse.structure import from_dense, spgemm_symbolic
@@ -37,12 +38,14 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
 
 
 def _counted(counts: dict, before: dict, kernel: str) -> bool:
-    """The counters moved by exactly one launch of ``kernel`` (and, for
-    K3's ``expert_split``, the two ``split3_bf16`` launches it makes)."""
-    after = {kernel: before[kernel] + 1}
-    if kernel == "expert_split":
-        after["split3_bf16"] = before["split3_bf16"] + 2
-    return counts == {**before, **after}
+    """The counters moved by exactly one launch of ``kernel``."""
+    return counts == {**before, kernel: before[kernel] + 1}
+
+
+def _moe_counted(before: dict, x, w) -> bool:
+    """K3's counters moved by exactly the launches ``launch_plan(x, w)`` lists."""
+    moved = {k: v - before[k] for k, v in moe_gemm.launches.items() if v != before[k]}
+    return moved == launch_plan(x, w)
 
 
 @pytest.fixture
@@ -126,10 +129,13 @@ def test_spmm_kernel_matches_plain_version(cuda, bm, bk, n, dtype):
     bsr = to_bsr(a, bm, bk)
     blocks = torch.from_numpy(bsr.blocks).to(cuda, dtype)
     dense = torch.from_numpy(rng.standard_normal((7 * bk, n)).astype(np.float32)).to(cuda, dtype)
-    before = bsr_spmm_local.launches["block_rows"]
+    kernel = k2_route(bm, bk, dtype)
+    assert kernel == ("block_rows" if (bm, bk) in ((16, 8), (4, 12)) else
+                      "warp_rows" if dtype == torch.float32 else "mma_rows")
+    before = dict(bsr_spmm_local.launches)
     got = bsr_spmm(blocks, bsr.brows, bsr.bcols, dense, 10, b_n=n)
     torch.cuda.synchronize()
-    assert bsr_spmm_local.launches["block_rows"] == before + 1
+    assert _counted(bsr_spmm_local.launches, before, kernel)
     assert got.dtype == dtype and got.shape == (10 * bm, n)
     want = bsr_spmm_ref(
         blocks, torch.as_tensor(bsr.brows, device=cuda), torch.as_tensor(bsr.bcols, device=cuda),
@@ -137,6 +143,43 @@ def test_spmm_kernel_matches_plain_version(cuda, bm, bk, n, dtype):
     )
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
     assert not got[3 * bm : 4 * bm].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bk, n", [(8, 256), (8, 100), (16, 136), (24, 40)])
+@pytest.mark.parametrize("dense_off", [0, 1])
+def test_spmm_ring_routes_take_odd_rows_and_empty_rows(cuda, bk, n, dtype, dense_off):
+    """warp_rows and mma_rows (bm = 8) on rows with odd and even block
+    counts (mma_rows pairs 8-column units into k16 steps and pads an odd
+    row with a zero unit), an empty block-row in the middle and one at the
+    end, N off the 128-column tile and (n = 100, or a dense view one value
+    into its buffer) rows the 16-byte copies cannot take."""
+    rng = np.random.default_rng(bk + n + dense_off)
+    counts = [1, 3, 0, 2, 5, 4, 7, 0]  # blocks per block-row
+    k_blocks = 9
+    mask = np.zeros((len(counts), k_blocks), bool)
+    for r, c in enumerate(counts):
+        mask[r, rng.choice(k_blocks, c, replace=False)] = True
+    a = rng.standard_normal((8 * len(counts), bk * k_blocks)).astype(np.float32)
+    a *= np.kron(mask, np.ones((8, bk), np.float32))
+    bsr = to_bsr(a, 8, bk)
+    assert np.array_equal(np.bincount(bsr.brows, minlength=len(counts)), counts)
+    blocks = torch.from_numpy(bsr.blocks).to(cuda, dtype)
+    flat = torch.from_numpy(rng.standard_normal(bk * k_blocks * n + dense_off).astype(np.float32))
+    dense = flat.to(cuda, dtype)[dense_off:].view(bk * k_blocks, n)
+    kernel = k2_route(8, bk, dtype)
+    assert kernel == ("warp_rows" if dtype == torch.float32 else "mma_rows")
+    before = dict(bsr_spmm_local.launches)
+    got = bsr_spmm(blocks, bsr.brows, bsr.bcols, dense, len(counts), b_n=n)
+    torch.cuda.synchronize()
+    assert _counted(bsr_spmm_local.launches, before, kernel)
+    assert got.dtype == dtype and got.shape == (8 * len(counts), n)
+    want = bsr_spmm_ref(
+        blocks, torch.as_tensor(bsr.brows, device=cuda), torch.as_tensor(bsr.bcols, device=cuda),
+        dense, len(counts),
+    )
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert not got[16:24].any() and not got[56:].any()
 
 
 def _moe_operands(rng, shape, x_dtype, w_dtype, device):
@@ -161,10 +204,13 @@ def test_moe_gemm_kernel_matches_plain_version(cuda, shape, x_dtype, w_dtype):
     x, w = _moe_operands(np.random.default_rng(C), shape, x_dtype, w_dtype, cuda)
     kernel = route(x, w)
     assert kernel == ("expert_split" if torch.float32 in (x_dtype, w_dtype) else "expert_wgmma")
+    assert launch_plan(x, w) == (
+        {"split3_bf16": 2, kernel: 1} if kernel == "expert_split" else {kernel: 1}
+    )
     before = dict(moe_gemm.launches)
     got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
     torch.cuda.synchronize()
-    assert _counted(moe_gemm.launches, before, kernel)
+    assert _moe_counted(before, x, w)
     assert got.dtype == x_dtype and got.shape == (E, C, f)
     want = moe_gemm_ref(x, w)
     tol = TOL[x_dtype]
@@ -172,21 +218,66 @@ def test_moe_gemm_kernel_matches_plain_version(cuda, shape, x_dtype, w_dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_moe_gemm_misaligned_view_takes_expert_tiles(cuda, dtype):
+def test_moe_gemm_misaligned_view_is_staged(cuda, dtype):
     """A view one element into its buffer is 2 bytes off the 16 a tensor
-    map needs: it goes to the CUDA-core kernel, and gets the same answer."""
+    map needs: stage16 copies it to an aligned buffer, expert_wgmma takes
+    that, and the answer is the same."""
     E, C, d, f = 2, 64, 128, 96
     rng = np.random.default_rng(5)
     flat = rng.standard_normal(E * C * d + 1).astype(np.float32)
     x = torch.from_numpy(flat).to(cuda, dtype)[1:].view(E, C, d)
     w = _moe_operands(rng, (E, C, d, f), dtype, dtype, cuda)[1]
-    assert x.data_ptr() % 16 == 2 and route(x, w) == "expert_tiles"
+    assert x.data_ptr() % 16 == 2 and route(x, w) == "expert_wgmma"
+    assert launch_plan(x, w) == {"stage16": 1, "expert_wgmma": 1}
     before = dict(moe_gemm.launches)
     got = moe_gemm(x, w)
     torch.cuda.synchronize()
-    assert _counted(moe_gemm.launches, before, "expert_tiles")
+    assert _moe_counted(before, x, w)
     want = moe_gemm_ref(x, w)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize(
+    "x_dtype, w_dtype",
+    [(torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+     (torch.float32, torch.float32), (torch.bfloat16, torch.float32)],
+)
+# d off 8 (x's row pitch), f off 8 (w's and the output's), both and odd
+@pytest.mark.parametrize("shape", [(3, 200, 36, 136), (2, 256, 512, 100), (2, 130, 1001, 257)])
+def test_moe_gemm_takes_d_and_f_off_8(cuda, shape, x_dtype, w_dtype):
+    E, C, d, f = shape
+    x, w = _moe_operands(np.random.default_rng(d + f), shape, x_dtype, w_dtype, cuda)
+    kernel = route(x, w)
+    stages = (d % 8 != 0) + 2 * (f % 8 != 0)  # x; w and the output
+    assert launch_plan(x, w) == (
+        {"split3_bf16": 2, kernel: 1} if kernel == "expert_split"
+        else {"stage16": stages, kernel: 1}
+    )
+    before = dict(moe_gemm.launches)
+    got = moe_gemm(x, w, b_c=C, b_f=f, b_d=d)
+    torch.cuda.synchronize()
+    assert _moe_counted(before, x, w)
+    assert got.dtype == x_dtype and got.shape == (E, C, f) and got.is_contiguous()
+    want = moe_gemm_ref(x, w)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[x_dtype], atol=TOL[x_dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("cols, pitch", [(1000, 1000), (999, 1000), (1001, 1008), (1008, 1001)])
+def test_stage16_matches_plain_version_bit_for_bit(cuda, dtype, cols, pitch):
+    """Every start 0 to 7 values past 16-byte alignment: flat copies (same
+    pitch) at each funnel shift, padded rows (zeros at the edge) and
+    cropped ones; the copy's base is 16-byte aligned."""
+    flat = torch.randn(7 * cols + 8, device=cuda).to(dtype)
+    for off in range(8):
+        x = flat[off:off + 7 * cols].view(7, cols)
+        before = moe_gemm.launches["stage16"]
+        got = stage16(x, pitch)
+        assert moe_gemm.launches["stage16"] == before + 1
+        assert got.shape == (7, pitch) and got.data_ptr() % 16 == 0
+        assert torch.equal(got.view(torch.int16), stage16_ref(x, pitch).view(torch.int16))
+        if pitch > cols:
+            assert not got[:, cols:].any()
 
 
 def _full_mantissa(rng, shape, std, device):
@@ -208,7 +299,7 @@ def test_expert_split_is_fp32_accurate_on_full_mantissas(cuda, shape):
     before = dict(moe_gemm.launches)
     got = moe_gemm(x, w, b_c=8, b_f=8, b_d=8)
     torch.cuda.synchronize()
-    assert _counted(moe_gemm.launches, before, "expert_split")
+    assert _moe_counted(before, x, w)
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, moe_gemm_ref(x, w), rtol=1e-4, atol=1e-4)
     want64 = torch.einsum("ecd,edf->ecf", x.double(), w.double())
@@ -231,10 +322,11 @@ def test_expert_split_sums_all_six_products(cuda):
     tol = min(t.abs().max().item() for t in terms.values()) / 2
     two_piece = terms[0, 0] + terms[0, 1] + terms[1, 0]
     assert (two_piece - want).abs().max().item() > tol
+    assert launch_plan(x, w) == {"split3_bf16": 2, "expert_split": 1}
     before = dict(moe_gemm.launches)
     got = moe_gemm(x, w)
     torch.cuda.synchronize()
-    assert _counted(moe_gemm.launches, before, "expert_split")
+    assert _moe_counted(before, x, w)
     assert (got.double() - want).abs().max().item() < tol
 
 
@@ -251,6 +343,20 @@ def test_split3_kernel_matches_plain_version_bit_for_bit(cuda):
         assert torch.equal(got.double().sum(0), x.double())
 
 
+@pytest.mark.parametrize("cols, pitch", [(37, 40), (100, 104), (1001, 1008)])
+def test_split3_kernel_pads_rows_bit_for_bit(cuda, cols, pitch):
+    """Rows padded to a pitch of a multiple of 8 values (d or f off 8):
+    zeros split into zeros, and a view 4 bytes off alignment too."""
+    rng = np.random.default_rng(cols)
+    flat = torch.from_numpy(rng.standard_normal(5 * cols + 1).astype(np.float32)).to(cuda)
+    for x in (flat[:-1].view(5, cols), flat[1:].view(5, cols)):
+        got = split3_bf16(x, pitch)
+        assert got.shape == (3, 5, pitch)
+        assert torch.equal(got, split3_bf16_ref(x, pitch))
+        assert not got[..., cols:].any()
+        assert torch.equal(got.double().sum(0)[:, :cols], x.double())
+
+
 def test_expert_split_takes_a_misaligned_fp32_view(cuda):
     E, C, d, f = 2, 64, 128, 96
     rng = np.random.default_rng(6)
@@ -261,7 +367,7 @@ def test_expert_split_takes_a_misaligned_fp32_view(cuda):
     before = dict(moe_gemm.launches)
     got = moe_gemm(x, w)
     torch.cuda.synchronize()
-    assert _counted(moe_gemm.launches, before, "expert_split")
+    assert _moe_counted(before, x, w)
     torch.testing.assert_close(got, moe_gemm_ref(x, w), rtol=1e-4, atol=1e-4)
 
 
