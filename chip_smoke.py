@@ -22,13 +22,14 @@ Phases, each printing its seconds:
   6. K1 at every block shape: (bm, bk, bn) in {(8, 16, 8), (16, 8, 32),
      (64, 64, 64), (128, 128, 128)}, fp32 and bf16, against its plain
      version; then ``repro_torch.kernels.ops.spgemm`` on the block-16
-     operand retiled 32 x 32 (``block_runs``) and 64 x 64 (``mma_runs``),
+     operand retiled 32 x 32 (``tile_runs``) and 64 x 64 (``mma_runs``),
      squared, against a float64 dense product;
   7. K2 (``ops.spmm``): the AMG n=42 27-point operator tiled 8 x 8 by
      scipy, times a seeded (74,088, 256) dense block, in fp32
-     (``warp_rows``) and bf16 (``mma_rows``, tensor cores), and tiled
-     12 x 12 in fp32 (``block_rows``), against scipy in float64 and
-     against the plain version, with the bytes each gathers;
+     (``warp_rows``) and bf16 (``mma_rows``, tensor cores), tiled 12 x 12
+     in fp32 (``warp_blocks``) and bf16 (``mma_blocks``), and tiled 3 x 3
+     in fp32 (``warp_blocks``), against scipy in float64 and against the
+     plain version, with the bytes each gathers;
   8. K3 (``ops.grouped_gemm``): the up and down expert projections of
      Qwen3-MoE-235B-A22B (E = 128, C = 640, d = 4096, f = 1536) in bf16
      (``expert_wgmma``, tensor cores) and the up projection in fp32 on
@@ -42,9 +43,10 @@ Phases, each printing its seconds:
      alignment, and ``expert_split`` held to each of its six products.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
-path, ``warp_runs`` on the block-16 path, ``block_runs`` and ``mma_runs``
-on the retiled 32 and 64 products, ``warp_rows``, ``mma_rows`` and
-``block_rows`` on the fp32, bf16 and 12 x 12 AMG SpMMs, ``expert_wgmma``
+path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
+on the retiled 32 and 64 products, ``warp_rows`` and ``mma_rows`` on the
+fp32 and bf16 AMG SpMMs at 8 x 8, ``warp_blocks`` and ``mma_blocks`` on
+the fp32 and bf16 ones at 12 x 12, ``expert_wgmma``
 on the bf16 up projection, ``expert_split`` and ``split3_bf16`` on the
 fp32 one, ``stage16`` on the misaligned bf16 up projection; bounds at the
 peak of each route's arithmetic, ``PEAK_FLOPS``; a time under its bound
@@ -584,9 +586,10 @@ def spmm_amg(a_struct, device, rng):
     """K2 at the repo's AMG size: the 27-point operator of AMG n=42 with
     seeded values, tiled 8 x 8 by scipy's BSR conversion, times a seeded
     dense (n, 256) block of vectors through ``ops.spmm`` in fp32
-    (``warp_rows``) and bf16 (``mma_rows``), and tiled 12 x 12 in fp32
-    (``block_rows``, the route of every other block shape); each checked
-    against scipy in float64 on the same (rounded) inputs, then the kernel
+    (``warp_rows``) and bf16 (``mma_rows``), tiled 12 x 12 in fp32
+    (``warp_blocks``) and bf16 (``mma_blocks``), the routes of every other
+    block shape, and tiled 3 x 3 (3-D elasticity's blocks) in fp32; each
+    checked against scipy in float64 on the same (rounded) inputs, then the kernel
     against its plain version and one PyTorch sparse @ dense call.  Beside
     the bound (each input read once) each record keeps the bytes the
     kernel gathers, one dense slab of bk rows a block, and their rate."""
@@ -602,14 +605,15 @@ def spmm_amg(a_struct, device, rng):
     vals = rng.standard_normal(a_struct.nnz).astype(np.float32)
     dense = rng.standard_normal((a_struct.shape[1], n_cols)).astype(np.float32)
     tiled = {}
-    for block in (8, 12):
+    for block in (8, 12, 3):
         a_bsr = scipy_csr(a_struct, vals).astype(np.float32).tobsr(blocksize=(block, block))
         a_bsr.sort_indices()
         tiled[block] = a_bsr
     setup_s = time.perf_counter() - t0
     cases = (("float32", 8, torch.float32), ("bfloat16", 8, torch.bfloat16),
-             ("float32_12x12", 12, torch.float32))
-    records = {"instance": f"AMG n={AMG_N} 27-point A, 8x8 and 12x12 BSR, N={n_cols}",
+             ("float32_12x12", 12, torch.float32), ("bfloat16_12x12", 12, torch.bfloat16),
+             ("float32_3x3", 3, torch.float32))
+    records = {"instance": f"AMG n={AMG_N} 27-point A, 8x8, 12x12 and 3x3 BSR, N={n_cols}",
                "shape": list(a_struct.shape), "nnz": a_struct.nnz, "setup_s": setup_s}
     for name, block, dtype in cases:
         a_bsr = tiled[block]
@@ -1064,11 +1068,12 @@ def main() -> None:
     entries = [
         ("bsr_spgemm/scalar_runs", "bsr_spgemm.cu", k1, scalar),
         ("bsr_spgemm/warp_runs", "bsr_spgemm.cu", k1, k1_paths["warp_runs"]),
-        ("bsr_spgemm/block_runs", "bsr_spgemm.cu", k1, k1_paths["block_runs"]),
+        ("bsr_spgemm/tile_runs", "bsr_spgemm.cu", k1, k1_paths["tile_runs"]),
         ("bsr_spgemm/mma_runs", "bsr_spgemm.cu", k1, k1_paths["mma_runs"]),
         ("bsr_spmm/warp_rows", "bsr_spmm.cu", k2, spmm["float32"]),
         ("bsr_spmm/mma_rows", "bsr_spmm.cu", k2, spmm["bfloat16"]),
-        ("bsr_spmm/block_rows", "bsr_spmm.cu", k2, spmm["float32_12x12"]),
+        ("bsr_spmm/warp_blocks", "bsr_spmm.cu", k2, spmm["float32_12x12"]),
+        ("bsr_spmm/mma_blocks", "bsr_spmm.cu", k2, spmm["bfloat16_12x12"]),
         ("moe_gemm/expert_wgmma", "moe_gemm.cu", k3, moe["up"]),
         ("moe_gemm/expert_split", "moe_gemm.cu", k3, moe["up_fp32"]),
         ("moe_gemm/split3_bf16", "moe_gemm.cu", k3, moe["split_fp32"]),

@@ -160,7 +160,7 @@ def bsr_spgemm(
 # the __global__s of csrc/bsr_spgemm.cu, numbered as its C entry point
 # repro_bsr_spgemm(kernel, a, b, pair_a, pair_b, run_start, run_c, out, n_runs,
 # bm, bk, bn, dtype code, stream) takes them
-KERNELS = ("scalar_runs", "warp_runs", "block_runs", "mma_runs")
+KERNELS = ("scalar_runs", "warp_runs", "tile_runs", "mma_runs")
 
 
 @functools.cache
@@ -179,15 +179,17 @@ def route(bm: int, bk: int, bn: int) -> str:
     ``"scalar_runs"`` at 1 x 1 x 1; ``"warp_runs"`` (each warp walks a few
     runs' pairs as one stream, the next pair's blocks in flight) where bm,
     bn and bk are at most 16; ``"mma_runs"`` (wgmma tiles, fp32 as three bf16 pieces)
-    where bm or bn is over 32; ``"block_runs"`` (a thread block per C tile,
-    fp32 FMAs) for the rest."""
+    where bm or bn is over 32; ``"tile_runs"`` for the rest (a side of 17 to
+    32, or bk over 16): a warp keeps a run's C tile of up to 32 x 32 in
+    registers and walks its runs' pairs 128 bytes of k at a time, the next
+    two steps in flight, on fp32 FMAs or, for 16-bit, ``mma.sync``."""
     if bm == bk == bn == 1:
         return "scalar_runs"
     if max(bm, bk, bn) <= 16:
         return "warp_runs"
     if max(bm, bn) > 32:
         return "mma_runs"
-    return "block_runs"
+    return "tile_runs"
 
 
 def launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out) -> str:

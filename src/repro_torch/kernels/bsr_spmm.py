@@ -72,10 +72,10 @@ def bsr_spmm(
 # the __global__s of csrc/bsr_spmm.cu, numbered as its C entry point
 # repro_bsr_spmm(kernel, blocks, row_start, bcols, dense, out, m_blocks, bm,
 # bk, N, dtype code, stream) takes them
-KERNELS = ("block_rows", "warp_rows", "mma_rows")
+KERNELS = ("warp_rows", "mma_rows", "warp_blocks", "mma_blocks")
 
-# the types mma_rows multiplies on the tensor cores; their products are
-# exact in its fp32 accumulators, as in the reference's fp32 sum
+# the types mma_rows and mma_blocks multiply on the tensor cores; their
+# products are exact in the fp32 accumulators, as in the reference's fp32 sum
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
 
@@ -93,17 +93,19 @@ def route(bm: int, bk: int, dtype: torch.dtype) -> str:
     product is in ``dtype`` (the promoted type of blocks and dense), decided
     before the launch.
 
-    With bm = 8 and bk a multiple of 8, a warp walks 128 columns of a run of
-    block-rows 8 block columns (a k8 unit) at a time, the next three steps'
-    dense slabs in flight in its own ring in shared memory:
-    ``"mma_rows"`` for bf16 and fp16 (the transposed product on the tensor
-    cores, two units a k16 mma step), ``"warp_rows"`` for fp32 (FMAs on the
-    CUDA cores, one unit a step).  Every other block shape takes
-    ``"block_rows"`` (one program per block-row, one block between two
-    barriers)."""
+    A warp walks 128 columns of a run of block-rows 8 block columns (a k8
+    unit) at a time, the next three steps' dense slabs in flight in its own
+    ring in shared memory; bf16 and fp16 go on the tensor cores (the
+    transposed product, two units a k16 mma step), fp32 on FMAs.  With
+    bm = 8 and bk a multiple of 8: ``"mma_rows"`` (16-bit) and
+    ``"warp_rows"`` (fp32).  Every other block shape (bm other than 8, or
+    bk off a multiple of 8): ``"mma_blocks"`` and ``"warp_blocks"``, whose
+    warps own up to 16 rows of a block-row (taller blocks in groups of 16)
+    and zero-fill the k8 unit past bk."""
+    tensor_cores = dtype in TENSOR_CORE_DTYPES
     if bm != 8 or bk % 8:
-        return "block_rows"
-    return "mma_rows" if dtype in TENSOR_CORE_DTYPES else "warp_rows"
+        return "mma_blocks" if tensor_cores else "warp_blocks"
+    return "mma_rows" if tensor_cores else "warp_rows"
 
 
 def bsr_spmm_local(
@@ -124,8 +126,7 @@ def bsr_spmm_local(
     Each block reads its own bk x N slab of ``dense``, so the kernels move
     several times the bytes of their inputs from L2 (at the AMG n=42 SpMM,
     N = 256: 0.70 GB in bf16, 1.39 GB in fp32, against 0.10 and 0.20 GB read
-    once); ``mma_rows`` and ``warp_rows`` are paced by that gather, which
-    they keep in flight, and ``block_rows`` by its loads' latency."""
+    once); every route is paced by that gather, which it keeps in flight."""
     device = blocks.device
     for name, t in (("row_start", row_start), ("bcols", bcols), ("dense", dense)):
         if t.device != device:

@@ -56,11 +56,37 @@
 //     16 significant bits and fail 1e-4 on runs of 20 N(0, 1) pairs).  The
 //     bound is then the fp32-accurate tensor-core peak, 6 bf16 products at
 //     989 TFLOP/s.
-//   - block_runs, everything else (a side of 17 to 32, or bk > 16 with
-//     bm and bn at most 16): program (r, t) owns C tile t of run r, a square
-//     tile of SIDE * MT rows and columns, picked from the larger of bm and bn;
-//     each thread keeps its MT x MT fp32 accumulators over the whole run,
-//     and each pair's bk is walked in slices of SIDE staged in shared memory.
+//   - tile_runs, everything else (a side of 17 to 32, or bk > 16 with bm
+//     and bn at most 16): bound by operations in fp32 (the retiled-32
+//     product: 75,424 pairs of 32 x 32 x 32 in 16,257 runs, 4.6 pairs a run;
+//     its multiply-adds take 0.074 ms at 67 TFLOP/s, its pair reads 0.62
+//     GB from L2).  A program is one warp and owns 2 consecutive runs (run
+//     chunks in reverse, as warp_runs; one-warp programs let the block
+//     scheduler even out the runs' uneven lengths, where 4-warp programs
+//     waited on their slowest warp); the warp keeps a run's C tile,
+//     SIDE x SIDE with SIDE = 16 or 32, in fp32 registers (32 sums a lane
+//     at 32) and walks its runs' pairs as one stream of steps, a step being
+//     one pair's k-slice of 128 bytes of A row (32 fp32 or 64 16-bit
+//     values) and the matching B rows.  Its own ring of 2 stages in shared
+//     memory (8 KB a stage at SIDE 32) keeps the next step's A and B
+//     slices in flight by cp.async while it sums the current one (16 bytes
+//     a lane where the rows allow, 4 otherwise; rows past bm and bk and
+//     columns past bn zero-filled by the source size, reading nothing; a
+//     step is 1,024 multiply-adds a lane at 32 x 32 x 32, long enough to
+//     cover the copy: 3 stages, or 2 and 4 runs a warp, or 2 and 4 warps a
+//     program were slower), and the pair indices come 32 at a time
+//     a batch ahead, so no copy waits on an index; warps meet only at
+//     __syncwarp.  fp32: FMAs on the CUDA cores, a lane holding SIDE / 8
+//     rows by SIDE / 4 columns; A's 16-byte chunks are XOR-swizzled by the
+//     reading lanes' row group so their float4 reads hit distinct banks, and
+//     B rows are read as float4 broadcasts.  bf16 and fp16: mma.sync
+//     m16n8k16 with fp32 accumulators (exact products), A by ldmatrix and B
+//     by ldmatrix.trans from chunks swizzled for them.  C is written from
+//     registers, 32 bytes a lane a row in fp32.  It replaces block_runs, the
+//     port's first design (a program of 256 threads per run and C tile,
+//     each pair staged in slices of 16 between two block-wide barriers, so
+//     every pair was a dependent chain: 0.43 ms on the retiled-32 product,
+//     H100 80GB HBM3 at 700 W, per chip_smoke.py).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -76,15 +102,8 @@ namespace {
 constexpr int kScalarThreads = 256;
 constexpr int kMaxTiles = 65535;  // gridDim.y
 // the kernels, as the wrapper numbers them (repro_torch.kernels.bsr_spgemm.KERNELS)
-enum Kernel { kScalar = 0, kWarp = 1, kBlock = 2, kMma = 3 };
+enum Kernel { kScalar = 0, kWarp = 1, kTile = 2, kMma = 3 };
 constexpr unsigned kAll = 0xffffffffu;
-
-// Programs of block_runs an SM should hold at once: with one element per
-// thread the kernel waits on its block loads, so it needs every warp the SM
-// can hold (2048 threads, which caps registers at 32 a thread); 32 x 32
-// tiles (MT = 2) keep 64 registers for their accumulators.
-template <int SIDE, int MT>
-constexpr int kMinBlocks = MT == 1 ? 2048 / (SIDE * SIDE) : 4;
 
 // (1, 1, 1): thread r sums run r.
 template <typename T>
@@ -102,86 +121,6 @@ __global__ void scalar_runs(const T* __restrict__ a, const T* __restrict__ b,
     acc = fmaf(to_f32(a[pair_a[i]]), to_f32(b[pair_b[i]]), acc);
   }
   out[run_c[r]] = from_f32<T>(acc);
-}
-
-// Any other shape: program (blockIdx.x, blockIdx.y) owns C tile blockIdx.y of
-// run blockIdx.x, SIDE * MT rows and columns; thread (ty, tx) of its SIDE x
-// SIDE threads holds rows ty + SIDE i and columns tx + SIDE j of that tile,
-// i, j < MT.  A and B are staged in slices of SIDE along bk.
-template <typename T, int SIDE, int MT>
-__global__ void __launch_bounds__(SIDE* SIDE, kMinBlocks<SIDE, MT>)
-    block_runs(const T* __restrict__ a, const T* __restrict__ b,
-               const int* __restrict__ pair_a, const int* __restrict__ pair_b,
-               const int* __restrict__ run_start, const int* __restrict__ run_c,
-               T* __restrict__ out, int bm, int bk, int bn, int tiles_n) {
-  constexpr int kTile = SIDE * MT;
-  constexpr int kThreads = SIDE * SIDE;
-  __shared__ float a_s[SIDE][kTile + 1];  // A slice, transposed
-  __shared__ float b_s[SIDE][kTile];
-  const int r = blockIdx.x;
-  const int m0 = (blockIdx.y / tiles_n) * kTile;
-  const int n0 = (blockIdx.y % tiles_n) * kTile;
-  const int t = threadIdx.x;
-  const int tx = t % SIDE;
-  const int ty = t / SIDE;
-  const int64_t a_size = static_cast<int64_t>(bm) * bk;
-  const int64_t b_size = static_cast<int64_t>(bk) * bn;
-  float acc[MT][MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < MT; ++j) acc[i][j] = 0.f;
-  }
-  const int end = run_start[r + 1];
-  for (int p = run_start[r]; p < end; ++p) {
-    const T* a_blk = a + pair_a[p] * a_size;
-    const T* b_blk = b + pair_b[p] * b_size;
-    for (int k0 = 0; k0 < bk; k0 += SIDE) {
-#pragma unroll
-      for (int q = 0; q < MT; ++q) {  // kTile x SIDE elements of A, MT per thread
-        const int idx = t + q * kThreads;
-        const int m = idx / SIDE, k = idx % SIDE;
-        const int gm = m0 + m, gk = k0 + k;
-        a_s[k][m] = (gm < bm && gk < bk) ? to_f32(a_blk[static_cast<int64_t>(gm) * bk + gk])
-                                         : 0.f;
-      }
-#pragma unroll
-      for (int q = 0; q < MT; ++q) {  // SIDE x kTile elements of B
-        const int idx = t + q * kThreads;
-        const int k = idx / kTile, n = idx % kTile;
-        const int gk = k0 + k, gn = n0 + n;
-        b_s[k][n] = (gk < bk && gn < bn) ? to_f32(b_blk[static_cast<int64_t>(gk) * bn + gn])
-                                         : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < SIDE; ++k) {
-        float av[MT], bv[MT];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) av[i] = a_s[k][ty + SIDE * i];
-#pragma unroll
-        for (int j = 0; j < MT; ++j) bv[j] = b_s[k][tx + SIDE * j];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-#pragma unroll
-          for (int j = 0; j < MT; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-  T* c = out + run_c[r] * static_cast<int64_t>(bm) * bn;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int row = m0 + ty + SIDE * i;
-#pragma unroll
-    for (int j = 0; j < MT; ++j) {
-      const int col = n0 + tx + SIDE * j;
-      if (row < bm && col < bn) {
-        c[static_cast<int64_t>(row) * bn + col] = from_f32<T>(acc[i][j]);
-      }
-    }
-  }
 }
 
 // ------------------------------------------------------------------ warp_runs
@@ -360,6 +299,343 @@ __global__ void __launch_bounds__(kWarpRunsWarps * 32)
       } while (run < nr && run_end == p + 1);
     }
   }
+}
+
+// ------------------------------------------------------------------ tile_runs
+
+constexpr int kTileRuns = 2;    // consecutive runs a program (one warp) owns
+constexpr int kTileStages = 2;  // a warp's ring: 1 step in flight while 1 is summed
+// (on the retiled-32 product, 1, 2 and 4 warps a program, 1 to 8 runs a
+// warp and 2 or 3 stages were all within a fifth of each other; one warp,
+// 2 runs and 2 stages the fastest)
+
+// How tile_runs copies blocks into its ring: 16-byte cp.async (rows of bk
+// and of bn on 16 bytes), 4-byte cp.async (fp32, or 16-bit pairs with bk
+// and bn even), plain loads (16-bit with bk or bn odd).
+enum TileCopy { kT16 = 0, kT4 = 1, kTSync = 2 };
+
+// A program's (one warp's) ring for a C tile of SIDE x SIDE: 16 KB at
+// SIDE 32, under the 48 KB a launch may ask for unattributed.  A stage holds
+// a step: SIDE rows of kKs A values (128 bytes a row), then kKs rows of
+// SIDE B values.
+template <typename T, int SIDE>
+struct Tile {
+  static constexpr int kEs = static_cast<int>(sizeof(T));
+  static constexpr int kKs = 128 / kEs;      // k a step
+  static constexpr int kABytes = SIDE * 128;
+  static constexpr int kBRowBytes = SIDE * kEs;
+  static constexpr int kStageBytes = kABytes + kKs * kBRowBytes;
+  static constexpr int kSmem = kTileStages * kStageBytes;
+  static_assert(kSmem <= 48 * 1024, "the launch asks for no more shared memory");
+  static constexpr int kAcc = SIDE * SIDE / 128;  // a lane's sums, in fours
+  static constexpr int kRM = SIDE / 8, kCN = SIDE / 4;  // fp32: a lane's C rows, columns
+  static constexpr int kMT = SIDE / 16, kNT = SIDE / 8;  // 16-bit: m16 and n8 tiles
+};
+
+// Byte offset of 16-byte chunk c of A row m in a stage.  fp32 rows are read
+// as float4 by the lanes of 8 row groups (m / kRM) at one chunk, 16-bit rows
+// by ldmatrix, 8 consecutive rows at one chunk: XOR the chunk with that key
+// and those 8 reads hit 8 distinct bank groups.
+template <typename T, int SIDE>
+__device__ __forceinline__ int a_offset(int m, int c) {
+  const int key = sizeof(T) == 4 ? m / Tile<T, SIDE>::kRM : m;
+  return m * 128 + ((c ^ key) & 7) * 16;
+}
+
+// Byte offset of 16-byte chunk c of B row k in a stage.  fp32 rows are
+// read in order (float4 broadcasts); 16-bit rows by ldmatrix.trans, 8
+// consecutive rows at one chunk, so the chunk is XORed with the row's place
+// among the rows whose bytes share a 128-byte line's banks.
+template <typename T, int SIDE>
+__device__ __forceinline__ int b_offset(int k, int c) {
+  constexpr int kRB = Tile<T, SIDE>::kBRowBytes;
+  if constexpr (sizeof(T) == 2) {
+    constexpr int kLine = 128 / kRB, kChunks = kRB / 16;  // rows a line, chunks a row
+    c ^= (k / kLine) % kChunks;
+  }
+  return Tile<T, SIDE>::kABytes + k * kRB + c * 16;
+}
+
+// 4 bytes at dst: the value (fp32) or pair (16-bit) at src where `in` (and,
+// for kTSync, its second value where `in2`), else zero.
+template <typename T, int CP>
+__device__ __forceinline__ void copy_piece(uint8_t* dst, const T* src, bool in, bool in2,
+                                           const T* safe) {
+  if constexpr (CP == kT4) {
+    cp_async4(smem_u32(dst), in ? src : safe, in ? 4 : 0);
+  } else {
+    const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+    const uint32_t lo = in ? s16[0] : 0u, hi = in2 ? s16[1] : 0u;
+    *reinterpret_cast<uint32_t*>(dst) = lo | hi << 16;
+  }
+}
+
+// One step into stage st: A rows [0, SIDE) at columns [k0, k0 + kKs) and B
+// rows [k0, k0 + kKs) at columns [0, SIDE), zero past bm, bk and bn.
+template <typename T, int SIDE, int CP>
+__device__ __forceinline__ void copy_step(uint8_t* st, const T* a_blk, const T* b_blk, int k0,
+                                          int bm, int bk, int bn, int lane) {
+  using L = Tile<T, SIDE>;
+  if constexpr (CP == kT16) {
+    constexpr int kPer = 16 / L::kEs, kBChunks = L::kBRowBytes / 16;
+#pragma unroll
+    for (int i = 0; i < SIDE * 8 / 32; ++i) {  // A: SIDE rows of 8 chunks
+      const int q = lane + 32 * i, m = q / 8, c = q % 8, kk = k0 + c * kPer;
+      const bool in = m < bm && kk < bk;  // bk % kPer == 0: whole chunks
+      cp_async16(smem_u32(st + a_offset<T, SIDE>(m, c)), in ? a_blk + m * bk + kk : a_blk,
+                 in ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < L::kKs * kBChunks / 32; ++i) {  // B: kKs rows of kBChunks
+      const int q = lane + 32 * i, k = q / kBChunks, c = q % kBChunks, nn = c * kPer;
+      const bool in = k0 + k < bk && nn < bn;
+      cp_async16(smem_u32(st + b_offset<T, SIDE>(k, c)),
+                 in ? b_blk + static_cast<int64_t>(k0 + k) * bn + nn : b_blk, in ? 16 : 0);
+    }
+  } else {
+    constexpr int kEl = 4 / L::kEs, kBPieces = L::kBRowBytes / 4;  // values a piece, B row's pieces
+#pragma unroll 4
+    for (int m = 0; m < SIDE; ++m) {  // A: row m, piece `lane` (32 pieces a row)
+      const int kk = k0 + lane * kEl;
+      const bool in = m < bm && kk < bk;
+      copy_piece<T, CP>(st + a_offset<T, SIDE>(m, lane / 4) + (lane % 4) * 4, a_blk + m * bk + kk,
+                        in, in && kk + 1 < bk, a_blk);
+    }
+#pragma unroll 4
+    for (int i = 0; i < L::kKs * kBPieces / 32; ++i) {
+      const int q = lane + 32 * i, k = q / kBPieces, pp = q % kBPieces, nn = pp * kEl;
+      const bool in = k0 + k < bk && nn < bn;
+      copy_piece<T, CP>(st + b_offset<T, SIDE>(k, pp / 4) + (pp % 4) * 4,
+                        b_blk + static_cast<int64_t>(k0 + k) * bn + nn, in, in && nn + 1 < bn,
+                        b_blk);
+    }
+  }
+}
+
+// Where a warp's stream of steps stands: its next step to load is k-slice
+// c of pair p (< end); lane l holds the indices of pair base + l, and of
+// base + 32 + l in the *_next registers, loaded a batch ahead.
+struct PairWalk {
+  int p, c, end, base, pa, pb, pa_next, pb_next;
+};
+
+// Stage the next step of `w` into `st` (nothing once the pairs are done)
+// and commit it as one cp.async group, so that groups and steps stay paired.
+template <typename T, int SIDE, int CP>
+__device__ __forceinline__ void load_tile_step(PairWalk& w, uint8_t* st, const T* __restrict__ a,
+                                               const T* __restrict__ b,
+                                               const int* __restrict__ pair_a,
+                                               const int* __restrict__ pair_b, int bm, int bk,
+                                               int bn, int cks, int lane) {
+  if (w.p < w.end) {
+    if (w.p - w.base == 32) {  // the next batch, and the one after it in flight
+      w.base += 32;
+      w.pa = w.pa_next;
+      w.pb = w.pb_next;
+      const int q = w.base + 32 + lane;
+      w.pa_next = q < w.end ? pair_a[q] : 0;
+      w.pb_next = q < w.end ? pair_b[q] : 0;
+    }
+    const int ia = __shfl_sync(kAll, w.pa, w.p - w.base);
+    const int ib = __shfl_sync(kAll, w.pb, w.p - w.base);
+    copy_step<T, SIDE, CP>(st, a + static_cast<int64_t>(ia) * bm * bk,
+                           b + static_cast<int64_t>(ib) * bk * bn, w.c * Tile<T, SIDE>::kKs, bm, bk,
+                           bn, lane);
+    if (++w.c == cks) {
+      w.c = 0;
+      ++w.p;
+    }
+  }
+  cp_async_commit();
+}
+
+// Sum the first k_valid k of a step into acc.  fp32: lane (ty, tx) =
+// (l / 4, l % 4) sums rows ty kRM + i, columns tx kCN + j, in
+// acc[(i kCN + j) / 4][j % 4].  16-bit: tile (mt, nt) in acc[mt kNT + nt] as
+// mma.sync's C fragment.
+// FULL: k_valid is kKs (every step but the last of a pair whose bk is off
+// kKs), so the loop has no exit to keep loads from being hoisted.
+template <typename T, int SIDE, bool FULL>
+__device__ __forceinline__ void sum_tile_step(float (&acc)[Tile<T, SIDE>::kAcc][4],
+                                              const uint8_t* st, int k_valid, int lane) {
+  using L = Tile<T, SIDE>;
+  if constexpr (sizeof(T) == 4) {
+    constexpr int RM = L::kRM, CN = L::kCN;
+    const int ty = lane / 4, tx = lane % 4;
+#pragma unroll
+    for (int kq = 0; kq < 8; ++kq) {  // 4 k a chunk
+      if (!FULL && 4 * kq >= k_valid) break;
+      float av[RM][4];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(st + a_offset<T, SIDE>(ty * RM + i, kq));
+        av[i][0] = v.x, av[i][1] = v.y, av[i][2] = v.z, av[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow =
+            reinterpret_cast<const float*>(st + b_offset<T, SIDE>(4 * kq + kk, 0)) + tx * CN;
+        float bv[CN];
+#pragma unroll
+        for (int j = 0; j < CN; j += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(brow + j);
+          bv[j] = v.x, bv[j + 1] = v.y, bv[j + 2] = v.z, bv[j + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            float& c = acc[(i * CN + j) / 4][j % 4];
+            c = fmaf(av[i][kk], bv[j], c);
+          }
+        }
+      }
+    }
+  } else {
+    const uint32_t base = smem_u32(st);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {  // k16 steps
+      if (!FULL && 16 * ks >= k_valid) break;
+      uint32_t af[L::kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < L::kMT; ++mt) {
+        ldmatrix_x4(af[mt], base + a_offset<T, SIDE>(16 * mt + lane % 16, 2 * ks + lane / 16));
+      }
+      // lanes 8 q to 8 q + 7 address k rows 8 (q % 2) + [0, 8) at n chunk
+      // 2 np + q / 2: the B fragments of n8 tiles 2 np and 2 np + 1
+      const int krow = 16 * ks + ((lane / 8) % 2) * 8 + lane % 8;
+#pragma unroll
+      for (int np = 0; np < L::kNT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, base + b_offset<T, SIDE>(krow, 2 * np + lane / 16));
+        const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+#pragma unroll
+        for (int mt = 0; mt < L::kMT; ++mt) {
+          mma_16816<T>(acc[mt * L::kNT + 2 * np], af[mt], b0);
+          mma_16816<T>(acc[mt * L::kNT + 2 * np + 1], af[mt], b1);
+        }
+      }
+    }
+  }
+}
+
+// The run's C block (bm x bn at c) from the sums as sum_tile_step holds
+// them, rounded once.  vec: fp32 rows of bn % 4 == 0 on 16 bytes (a lane's
+// four columns go as one float4: with its neighbour, whole 32-byte
+// sectors), 16-bit rows of bn even on 4 bytes (pairs at once).
+template <typename T, int SIDE>
+__device__ __forceinline__ void store_tile(const float (&acc)[Tile<T, SIDE>::kAcc][4],
+                                           T* __restrict__ c, int bm, int bn, bool vec,
+                                           int lane) {
+  using L = Tile<T, SIDE>;
+  if constexpr (sizeof(T) == 4) {
+    const int ty = lane / 4, tx = lane % 4;
+#pragma unroll
+    for (int i = 0; i < L::kRM; ++i) {
+      const int row = ty * L::kRM + i;
+      if (row >= bm) break;
+#pragma unroll
+      for (int j = 0; j < L::kCN; j += 4) {
+        const int col = tx * L::kCN + j;
+        const float* v = acc[(i * L::kCN + j) / 4];
+        float* dst = c + static_cast<int64_t>(row) * bn + col;
+        if (vec) {
+          if (col < bn) *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (col + e < bn) dst[e] = v[e];
+          }
+        }
+      }
+    }
+  } else {
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int mt = 0; mt < L::kMT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < L::kNT; ++nt) {
+        const float* v = acc[mt * L::kNT + nt];
+        const int col = 8 * nt + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * mt + g + 8 * h;
+          if (row >= bm || col >= bn) continue;
+          T* dst = c + static_cast<int64_t>(row) * bn + col;
+          if (vec) {
+            *reinterpret_cast<uint32_t*>(dst) = pack2<T>(v[2 * h], v[2 * h + 1]);
+          } else {
+            dst[0] = from_f32<T>(v[2 * h]);
+            if (col + 1 < bn) dst[1] = from_f32<T>(v[2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Program b, one warp, owns runs [c kTileRuns, +kTileRuns), c = gridDim.x -
+// 1 - b (programs start roughly in blockIdx order, and the last C slot, a
+// padding sink, may own the longest run: the last runs go first).  Its runs' pairs
+// are consecutive, so it walks them as one stream of steps, kTileStages - 1
+// of them in flight.
+template <typename T, int SIDE, int CP>
+__global__ void __launch_bounds__(32)
+    tile_runs(const T* __restrict__ a, const T* __restrict__ b,
+              const int* __restrict__ pair_a, const int* __restrict__ pair_b,
+              const int* __restrict__ run_start, const int* __restrict__ run_c,
+              T* __restrict__ out, int n_runs, int bm, int bk, int bn, int vec_out) {
+  using L = Tile<T, SIDE>;
+  extern __shared__ uint8_t smem_raw[];
+  const int lane = threadIdx.x;
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * kTileRuns;
+  const int nr = min(kTileRuns, n_runs - r0);
+  // the warp's run offsets and C slots: one coalesced load
+  const int rs = lane <= nr ? run_start[r0 + lane] : 0;
+  const int rc = lane < nr ? run_c[r0 + lane] : 0;
+  const int p_begin = __shfl_sync(kAll, rs, 0), p_end = __shfl_sync(kAll, rs, nr);
+  const int cks = (bk + L::kKs - 1) / L::kKs;  // steps a pair
+  uint8_t* ring = smem_raw;
+  PairWalk w{p_begin, 0, p_end, p_begin, 0, 0, 0, 0};
+  {
+    const int q = p_begin + lane, q2 = q + 32;
+    w.pa = q < p_end ? pair_a[q] : 0;
+    w.pb = q < p_end ? pair_b[q] : 0;
+    w.pa_next = q2 < p_end ? pair_a[q2] : 0;
+    w.pb_next = q2 < p_end ? pair_b[q2] : 0;
+  }
+#pragma unroll
+  for (int s = 0; s < kTileStages - 1; ++s) {
+    load_tile_step<T, SIDE, CP>(w, ring + s * L::kStageBytes, a, b, pair_a, pair_b, bm, bk, bn,
+                                cks, lane);
+  }
+  int step = 0;
+  for (int run = 0; run < nr; ++run) {
+    const int steps = (__shfl_sync(kAll, rs, run + 1) - __shfl_sync(kAll, rs, run)) * cks;
+    float acc[L::kAcc][4];
+#pragma unroll
+    for (int i = 0; i < L::kAcc; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    }
+    for (int u = 0; u < steps; ++u, ++step) {
+      cp_async_wait<kTileStages - 2>();  // this lane's copies of `step` have landed
+      __syncwarp();                      // and every lane's; all are done with step - 1
+      load_tile_step<T, SIDE, CP>(w, ring + ((step + kTileStages - 1) % kTileStages) *
+                                                L::kStageBytes,
+                                  a, b, pair_a, pair_b, bm, bk, bn, cks, lane);
+      const int k_valid = min(L::kKs, bk - (u % cks) * L::kKs);
+      const uint8_t* st = ring + (step % kTileStages) * L::kStageBytes;
+      if (k_valid == L::kKs) {
+        sum_tile_step<T, SIDE, true>(acc, st, k_valid, lane);
+      } else {
+        sum_tile_step<T, SIDE, false>(acc, st, k_valid, lane);
+      }
+    }
+    T* c = out + static_cast<int64_t>(__shfl_sync(kAll, rc, run)) * bm * bn;
+    store_tile<T, SIDE>(acc, c, bm, bn, vec_out != 0, lane);
+  }
+  cp_async_wait<0>();  // the walk is done: only empty groups are left
 }
 
 // ------------------------------------------------------------------ mma_runs
@@ -599,36 +875,36 @@ void launch_warp(const Args& g) {
   }
 }
 
-// The tile of block_runs for (bm, bn) (both at most 32), as SIDE * 10 + MT:
-// one element per thread up to 16 x 16, then 2 x 2 per thread of 16 x 16.
-int tile_kind(int bm, int bn) {
-  const int side = bm > bn ? bm : bn;
-  return side <= 8 ? 81 : side <= 16 ? 161 : 162;
+template <typename T, int SIDE, int CP>
+void launch_tile_side(const Args& g) {
+  using L = Tile<T, SIDE>;
+  const uintptr_t out_align = sizeof(T) == 4 ? 16 : 4;
+  const bool vec_out = g.bn % (sizeof(T) == 4 ? 4 : 2) == 0 &&
+                       reinterpret_cast<uintptr_t>(g.out) % out_align == 0;
+  tile_runs<T, SIDE, CP><<<(g.n_runs + kTileRuns - 1) / kTileRuns, 32, L::kSmem, g.stream>>>(
+      static_cast<const T*>(g.a), static_cast<const T*>(g.b), g.pa, g.pb, g.rs, g.rc,
+      static_cast<T*>(g.out), g.n_runs, g.bm, g.bk, g.bn, vec_out);
 }
 
-template <typename T, int SIDE, int MT>
-void launch_blocks(const Args& g) {
-  constexpr int kTile = SIDE * MT;
-  const int tiles_m = (g.bm + kTile - 1) / kTile;
-  const int tiles_n = (g.bn + kTile - 1) / kTile;
-  const dim3 grid(g.n_runs, tiles_m * tiles_n);
-  block_runs<T, SIDE, MT><<<grid, SIDE * SIDE, 0, g.stream>>>(
-      static_cast<const T*>(g.a), static_cast<const T*>(g.b), g.pa, g.pb, g.rs, g.rc,
-      static_cast<T*>(g.out), g.bm, g.bk, g.bn, tiles_n);
+template <typename T, int CP>
+void launch_tile_cp(const Args& g) {
+  g.bm <= 16 && g.bn <= 16 ? launch_tile_side<T, 16, CP>(g) : launch_tile_side<T, 32, CP>(g);
 }
 
 template <typename T>
-void launch_block(const Args& g) {
-  switch (tile_kind(g.bm, g.bn)) {
-    case 81:
-      launch_blocks<T, 8, 1>(g);
-      break;
-    case 161:
-      launch_blocks<T, 16, 1>(g);
-      break;
-    default:
-      launch_blocks<T, 16, 2>(g);
-      break;
+void launch_tile(const Args& g) {
+  const auto aligned = [](const void* p, uintptr_t to) {
+    return reinterpret_cast<uintptr_t>(p) % to == 0;
+  };
+  const int es = sizeof(T);
+  if ((g.bk * es) % 16 == 0 && (g.bn * es) % 16 == 0 && aligned(g.a, 16) && aligned(g.b, 16)) {
+    launch_tile_cp<T, kT16>(g);
+  } else if constexpr (sizeof(T) == 4) {
+    launch_tile_cp<T, kT4>(g);
+  } else if (g.bk % 2 == 0 && g.bn % 2 == 0 && aligned(g.a, 4) && aligned(g.b, 4)) {
+    launch_tile_cp<T, kT4>(g);
+  } else {
+    launch_tile_cp<T, kTSync>(g);
   }
 }
 
@@ -665,8 +941,8 @@ int run(int kernel, const Args& g) {
     case kWarp:
       launch_warp<T>(g);
       break;
-    case kBlock:
-      launch_block<T>(g);
+    case kTile:
+      launch_tile<T>(g);
       break;
     default:
       launch_mma<T>(g);
@@ -678,8 +954,8 @@ int run(int kernel, const Args& g) {
 }  // namespace
 
 // Launches `kernel` on the shapes the wrapper's route gives it (0
-// scalar_runs: (1, 1, 1); 1 warp_runs: bm, bn, bk <= 16; 2 block_runs: bm,
-// bn <= 32; 3 mma_runs: bm or bn over 32).  a: A blocks
+// scalar_runs: (1, 1, 1); 1 warp_runs: bm, bn, bk <= 16; 2 tile_runs: bm,
+// bn <= 32 and some side over 16; 3 mma_runs: bm or bn over 32).  a: A blocks
 // (n, bm, bk); b: B blocks (n, bk, bn); pair_a, pair_b: int32 per pair;
 // run_start: int32, n_runs + 1 offsets into the pairs; run_c: int32 C slot
 // per run; out: C blocks (n_c, bm, bn), zeroed by the caller; dtype (a, b
@@ -694,7 +970,7 @@ extern "C" int repro_bsr_spgemm(int kernel, const void* a, const void* b, const 
   if (n_runs < 0 || bm < 1 || bk < 1 || bn < 1 || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int tile;  // the side of the square C tiles of one thread block
+  int tile;  // the side of the square C tiles of one program (or warp)
   switch (kernel) {
     case kScalar:
       if (bm != 1 || bk != 1 || bn != 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -704,12 +980,12 @@ extern "C" int repro_bsr_spgemm(int kernel, const void* a, const void* b, const 
       if (bm > 16 || bn > 16 || bk > kSmallK) return static_cast<int>(cudaErrorInvalidValue);
       tile = 16;
       break;
-    case kBlock: {
-      if (bm > 32 || bn > 32) return static_cast<int>(cudaErrorInvalidValue);
-      const int kind = tile_kind(bm, bn);
-      tile = (kind / 10) * (kind % 10);
+    case kTile:
+      if ((bm <= 16 && bn <= 16 && bk <= kSmallK) || bm > 32 || bn > 32) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      tile = 32;
       break;
-    }
     case kMma:
       if (bm <= 32 && bn <= 32) return static_cast<int>(cudaErrorInvalidValue);
       tile = kMmaTile;

@@ -29,8 +29,8 @@
 // pace: on an H100 80GB HBM3 at 700 W mma_rows gathers at 7.1 TB/s
 // (0.098 ms) and warp_rows at 6.5 TB/s (0.215 ms; its FMAs alone would take
 // about as long as its loads, and the two overlap imperfectly), per
-// chip_smoke.py.  Three kernels, picked by the wrapper before launch
-// (repro_torch.kernels.bsr_spmm.route):
+// chip_smoke.py.  Four kernels, picked by the wrapper before launch
+// (repro_torch.kernels.bsr_spmm.route), all one warp-level pipeline:
 //
 // mma_rows<T> (bf16 and fp16, bm = 8, bk a multiple of 8): the transposed
 // product on the tensor cores,
@@ -62,16 +62,32 @@
 // a view into a buffer) take the same kernels with synchronous element
 // copies into the ring.
 //
-// block_rows<T> (every other block shape: bm other than 8, or bk off a
-// multiple of 8): one program per (block-row, 256 columns, 8 rows of the
-// block); each of its 128 threads owns 2 columns and the 8 rows, so it
-// holds 16 fp32 sums; a block's slice of up to 32 columns is staged in
-// shared memory transposed, and each dense element goes from device memory
-// straight into a register and is used 8 times.  The port's first design:
-// it walks one block at a time between two barriers with nothing in
-// flight, so it follows the load latency (it took 0.41 ms in fp32 and 0.40
-// in bf16 at 8 x 8, and takes 0.74 ms for the same operator tiled 12 x 12
-// in fp32, on an H100 80GB HBM3 at 700 W, per chip_smoke.py).
+// warp_blocks (fp32) and mma_blocks<T> (bf16, fp16) take every other block
+// shape (bm other than 8, or bk off a multiple of 8: 3 x 3 elasticity,
+// 4 x 4 to 6 x 6 coupled flow and shells, 12 x 12, 32 x 32 tiles) on the
+// same ring.  A warp's work item is (block-row, a group of up to 16 of its
+// rows, 128 columns): ROWS rows a group, 4, 8, 12 or 16 for fp32 (a lane
+// holds ROWS rows of its 4 columns, so 12 x 12 does no padded FMAs) and 8
+// or 16 for 16-bit (one or two n8 tiles of the mma); rows past bm are never
+// stored (16-bit zero-fills their block values, fp32 skips them), and a
+// block with bm > 16 is gathered once a group, ceil(bm / 16) times.  bk goes in k8 units, the last one's rows
+// past bk zero-filled by cp.async's source size (they read nothing from
+// L2); fp32 sums only the first 4 rows of a unit that has 4 or fewer.
+// Block values go into the ring by 4-byte cp.async (one fp32 value, or an
+// aligned pair of 16-bit ones), so rows off 16 bytes (3 x 3 fp32, 12 x 12
+// bf16) stay asynchronous; only 16-bit blocks with odd bk take plain
+// loads.  fp32 lands them transposed, a unit's column k as ROWS values, and
+// sums k by k: each k's ROWS x 4 multiply-adds are independent (summing
+// row by row, as warp_rows does, chains 8 a sum, and ran markedly slower
+// at 12 x 12).  They replace block_rows, the port's first design (one
+// program per block-row, 256 columns and 8 rows of the block, one block
+// between two barriers with nothing in flight, and a 12 x 12 block-row's
+// slab gathered twice: 0.74 ms for the AMG operator tiled 12 x 12 in fp32
+// on an H100 80GB HBM3 at 700 W, per chip_smoke.py).  There warp_blocks
+// gathers its 1.48 GB at 3.9 TB/s (0.380 ms) and mma_blocks in bf16 at
+// 4.8 TB/s (0.155 ms): a 12 x 12 block takes two fp32 steps (its 8 + 4
+// columns) where an 8 x 8 one takes one, and issuing its 576 FMAs a lane,
+// more than the gather, sets the pace.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -85,83 +101,7 @@
 namespace {
 
 // the kernels, as the wrapper numbers them (repro_torch.kernels.bsr_spmm.KERNELS)
-enum Kernel { kBlockRows = 0, kWarpRows = 1, kMmaRows = 2 };
-
-// ---------------------------------------------------------------- block_rows
-
-constexpr int kThreads = 128;
-constexpr int kCols = 2;                     // columns per thread
-constexpr int kTileN = kThreads * kCols;     // columns per program
-constexpr int kRows = 8;                     // block rows per program
-constexpr int kSliceK = 32;                  // block columns staged per step
-constexpr int kMaxGridYZ = 65535;
-static_assert(kRows == 8, "block_rows reads a row slice as two float4");
-
-// Program (blockIdx.x, blockIdx.y, blockIdx.z) owns block-row blockIdx.x,
-// columns [blockIdx.y * kTileN, +kTileN) and rows [blockIdx.z * kRows, +kRows)
-// of that block-row.  Thread t holds columns col0 + t + kThreads * c.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    block_rows(const T* __restrict__ blocks, const int* __restrict__ row_start,
-               const int* __restrict__ bcols, const T* __restrict__ dense,
-               T* __restrict__ out, int bm, int bk, int n) {
-  __shared__ __align__(16) float a_s[kSliceK][kRows];  // block slice, transposed
-  const int row_block = blockIdx.x;
-  const int col0 = blockIdx.y * kTileN + threadIdx.x;
-  const int m0 = blockIdx.z * kRows;
-  const int64_t block_size = static_cast<int64_t>(bm) * bk;
-  float acc[kRows][kCols];
-#pragma unroll
-  for (int m = 0; m < kRows; ++m) {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
-  }
-  bool col_in[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) col_in[c] = col0 + kThreads * c < n;
-  const int end = row_start[row_block + 1];
-  for (int i = row_start[row_block]; i < end; ++i) {
-    const T* blk = blocks + i * block_size;
-    const T* d = dense + static_cast<int64_t>(bcols[i]) * bk * n + col0;
-    for (int k0 = 0; k0 < bk; k0 += kSliceK) {
-      __syncthreads();  // the previous slice has been read
-      for (int idx = threadIdx.x; idx < kRows * kSliceK; idx += kThreads) {
-        const int m = idx / kSliceK, k = idx % kSliceK;
-        const int gm = m0 + m, gk = k0 + k;
-        a_s[k][m] = (gm < bm && gk < bk) ? to_f32(blk[static_cast<int64_t>(gm) * bk + gk])
-                                         : 0.f;
-      }
-      __syncthreads();
-      const int kc = bk - k0 < kSliceK ? bk - k0 : kSliceK;
-#pragma unroll 8
-      for (int k = 0; k < kc; ++k) {
-        const T* drow = d + static_cast<int64_t>(k0 + k) * n;
-        float dv[kCols];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) dv[c] = col_in[c] ? to_f32(drow[kThreads * c]) : 0.f;
-        const float4 lo = *reinterpret_cast<const float4*>(&a_s[k][0]);
-        const float4 hi = *reinterpret_cast<const float4*>(&a_s[k][4]);
-        const float av[kRows] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-        for (int m = 0; m < kRows; ++m) {
-#pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[m][c] = fmaf(av[m], dv[c], acc[m][c]);
-        }
-      }
-    }
-  }
-  T* o = out + (static_cast<int64_t>(row_block) * bm + m0) * n + col0;
-#pragma unroll
-  for (int m = 0; m < kRows; ++m) {
-    if (m0 + m >= bm) break;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      if (col_in[c]) o[static_cast<int64_t>(m) * n + kThreads * c] = from_f32<T>(acc[m][c]);
-    }
-  }
-}
-
-// ------------------------------------------------------ warp_rows, mma_rows
+enum Kernel { kWarpRows = 0, kMmaRows = 1, kWarpBlocks = 2, kMmaBlocks = 3 };
 
 constexpr int kRingCols = 128;  // dense columns a warp
 constexpr int kStages = 4;      // a warp's ring: 3 steps in flight while 1 is summed
@@ -171,9 +111,17 @@ constexpr int kPrograms = 3;    // programs an SM: what the shared memory holds
 // warp were within a few percent or slower: the gather's rate, not the
 // bytes in flight, sets the pace)
 
+// How a unit's block values reach the ring.  kA16: 16-byte chunks (bm = 8,
+// bk a multiple of 8: warp_rows and mma_rows).  kA4: 4-byte cp.async, one
+// fp32 value or an aligned pair of 16-bit ones (warp_blocks, and
+// mma_blocks with bk even).  kASync: plain loads (mma_blocks with bk odd).
+// kA4 and kASync take any block shape.
+enum ACopy { kA16 = 0, kA4 = 1, kASync = 2 };
+
 // One warp's ring.  A step is kUnits k8 units: their dense slabs (8 rows of
-// kRingCols values each, kRowBytes apart) then their 8 x 8 block values.
-template <typename T>
+// kRingCols values each, kRowBytes apart) then their block values, ROWS
+// rows of 8.
+template <typename T, int ROWS>
 struct Ring {
   static constexpr int kUnits = sizeof(T) == 2 ? 2 : 1;  // one k16 mma, or 8 fp32 k
   static constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // values a 16-byte chunk
@@ -181,11 +129,13 @@ struct Ring {
   static constexpr int kRowChunks = kRowBytes / 16;
   static constexpr int kLaneChunks = 8 * kRowChunks / 32;  // a unit's slab, per lane
   static constexpr int kDenseBytes = kUnits * 8 * kRowBytes;
-  static constexpr int kUnitABytes = 64 * static_cast<int>(sizeof(T));
+  static constexpr int kUnitABytes = ROWS * 8 * static_cast<int>(sizeof(T));
   static constexpr int kStageBytes = kDenseBytes + kUnits * kUnitABytes;
   static constexpr int kWarpBytes = kStages * kStageBytes;
   static constexpr int kSmem = kRingWarps * kWarpBytes;
   static_assert(kPrograms * (kSmem + 1024) <= 228 * 1024, "the rings do not fit an SM");
+  static_assert(sizeof(T) == 4 ? ROWS % 4 == 0 : ROWS % 8 == 0,
+                "fp32 rows go in float4 pairs, 16-bit rows in n8 tiles");
 };
 
 // 16 bytes of shared memory at dst from the first n_in values at src, the
@@ -201,7 +151,7 @@ __device__ __forceinline__ void copy16(uint8_t* dst, const T* src, int n_in, con
     const Raw* s = reinterpret_cast<const Raw*>(src);
     Raw* d = reinterpret_cast<Raw*>(dst);
 #pragma unroll
-    for (int e = 0; e < Ring<T>::kPer; ++e) d[e] = e < n_in ? s[e] : Raw(0);
+    for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) d[e] = e < n_in ? s[e] : Raw(0);
   }
 }
 
@@ -215,56 +165,105 @@ __device__ __forceinline__ void copy16(uint8_t* dst, const T* src, int n_in, con
 template <typename T>
 __device__ __forceinline__ int slab_offset(int row, int chunk) {
   if constexpr (sizeof(T) == 2) chunk ^= row % 8;
-  return row * Ring<T>::kRowBytes + chunk * 16;
+  return row * kRingCols * static_cast<int>(sizeof(T)) + chunk * 16;
 }
 
-// Where a warp's stream of steps stands: block-row `row` of the warp's rows
-// (every `stride`-th, below `end`); its next unit to load is columns
-// [8 c, 8 c + 8) of block `blk`, and `left` units of the row remain.
+// Where a warp's stream of steps stands: work item `item` of the warp's
+// items (every `stride`-th, below `end`; item i is block-row i / groups,
+// rows [ROWS (i % groups), +ROWS) of it); its next unit to load is columns
+// [8 c, 8 c + 8) of block `blk`, and `left` units of the item remain.
 struct Walk {
-  int row, stride, end, blk, c, left;
+  int item, stride, end, blk, c, left;
+};
+
+// The block shape as the kernels take it: groups = ceil(bm / ROWS) work
+// items a block-row.
+struct Shape {
+  int bm, bk, n, groups;
 };
 
 // Stage the next step of `w` into `st` (nothing once the rows are done) and
 // commit it as one cp.async group, so that groups and steps stay paired.
-// Unit (blk, c) is columns [8 c, +8) of block blk (c < cpb = bk / 8) with
-// dense rows bcols[blk] * bk + 8 c + [0, 8) at columns [n0, n0 + 128).
-// `off` holds lane chunk i's offset from its slab's first value, j n + col.
-template <typename T, bool VEC>
+// Unit (blk, c) is columns [8 c, +8) of block blk (c < cpb = ceil(bk / 8))
+// with dense rows bcols[blk] * bk + 8 c + [0, 8) at columns [n0, n0 + 128);
+// rows past bk are zero-filled.  `off` holds lane chunk i's offset from its
+// slab's first value, j n + col.
+template <typename T, int ROWS, bool VEC, int AC>
 __device__ __forceinline__ void load_step(Walk& w, uint8_t* st, const T* __restrict__ blocks,
                                           const int* __restrict__ row_start,
                                           const int* __restrict__ bcols,
-                                          const T* __restrict__ dense, int bk, int n, int n0,
-                                          const int64_t (&off)[Ring<T>::kLaneChunks],
+                                          const T* __restrict__ dense, const Shape& sh, int n0,
+                                          const int64_t (&off)[Ring<T, ROWS>::kLaneChunks],
                                           int lane) {
-  using R = Ring<T>;
-  const int cpb = bk / 8;
-  while (w.left <= 0 && w.row + w.stride < w.end) {
-    w.row += w.stride;
-    w.blk = row_start[w.row];
-    w.left = (row_start[w.row + 1] - w.blk) * cpb;
+  using R = Ring<T, ROWS>;
+  constexpr bool kAny = AC != kA16;  // any block shape (else bm = 8, bk % 8 == 0)
+  // fp32 on any shape sums 4 rows of a unit where only 4 or fewer are below
+  // bk, and rows past bm into sums it never stores: the copies that no sum
+  // reads are skipped (the tensor cores read every row of a k16 step, and
+  // those past bk must be zeros: 0 x a stale Inf is NaN)
+  constexpr bool kSkip = kAny && sizeof(T) == 4;
+  const int bk = sh.bk, n = sh.n;
+  const int cpb = kAny ? (bk + 7) / 8 : bk / 8;
+  while (w.left <= 0 && w.item + w.stride < w.end) {
+    w.item += w.stride;
+    const int row = kAny ? w.item / sh.groups : w.item;
+    w.blk = row_start[row];
+    w.left = (row_start[row + 1] - w.blk) * cpb;
     w.c = 0;
   }
   if (w.left > 0) {
+    const int row0 = kAny ? (w.item % sh.groups) * ROWS : 0;  // the group's first block row
 #pragma unroll
     for (int v = 0; v < R::kUnits; ++v) {
       const bool valid = v < w.left;  // false: the zero half of an odd row
-      const T* slab = dense + (valid ? static_cast<int64_t>(bcols[w.blk]) * bk + 8 * w.c : 0) * n;
+      const int k0 = 8 * w.c;
+      const int k_rows = !valid ? 0 : kAny ? min(8, bk - k0) : 8;  // slab rows read
+      const int k_used = kSkip && k_rows <= 4 ? 4 : 8;  // rows the sum reads (sum_step)
+      const T* slab = dense + (valid ? static_cast<int64_t>(bcols[w.blk]) * bk + k0 : 0) * n;
 #pragma unroll
       for (int i = 0; i < R::kLaneChunks; ++i) {
         const int q = lane + 32 * i;
         const int j = q / R::kRowChunks, chunk = q % R::kRowChunks;
         const int left = n - (n0 + chunk * R::kPer);  // VEC: n % kPer == 0, whole chunks
-        const int n_in = !valid || left <= 0 ? 0 : VEC || left >= R::kPer ? R::kPer : left;
+        const int n_in = j >= k_rows || left <= 0 ? 0 : VEC || left >= R::kPer ? R::kPer : left;
+        if (j >= k_used) continue;  // read by no sum: no copy, no zeros
         copy16<T, VEC>(st + slab_offset<T>(v * 8 + j, chunk), slab + off[i], n_in, dense);
       }
-      // the unit's 8 rows of 8 values: 8 x 8 x sizeof(T) bytes in 16-byte chunks
-      constexpr int kAChunks = R::kUnitABytes / 16, kPerRow = kAChunks / 8;
-      if (lane < kAChunks) {
-        const int r = lane / kPerRow, h = lane % kPerRow;
-        copy16<T, VEC>(st + R::kDenseBytes + v * R::kUnitABytes + lane * 16,
-                       blocks + (static_cast<int64_t>(w.blk) * 8 + r) * bk + 8 * w.c + h * R::kPer,
-                       valid ? R::kPer : 0, blocks);
+      uint8_t* a_st = st + R::kDenseBytes + v * R::kUnitABytes;
+      if constexpr (AC == kA16) {
+        // the unit's 8 rows of 8 values: 8 x 8 x sizeof(T) bytes in 16-byte chunks
+        constexpr int kAChunks = R::kUnitABytes / 16, kPerRow = kAChunks / 8;
+        if (lane < kAChunks) {
+          const int r = lane / kPerRow, h = lane % kPerRow;
+          copy16<T, VEC>(a_st + lane * 16,
+                         blocks + (static_cast<int64_t>(w.blk) * 8 + r) * bk + k0 + h * R::kPer,
+                         valid ? R::kPer : 0, blocks);
+        }
+      } else {
+        // the unit's ROWS rows of 8 values in 4-byte pieces, zero past bm and bk
+        constexpr int kEl = 4 / static_cast<int>(sizeof(T));  // values a piece
+        constexpr int kPiecesRow = 8 / kEl;
+        constexpr int kPieces = ROWS * kPiecesRow;
+        static_assert(kPieces % 32 == 0, "whole pieces a lane");
+        const T* a_unit = blocks + (static_cast<int64_t>(w.blk) * sh.bm + row0) * bk + k0;
+#pragma unroll
+        for (int i = 0; i < kPieces / 32; ++i) {
+          const int p = lane + 32 * i;
+          const int r = p / kPiecesRow, kc = (p % kPiecesRow) * kEl;
+          const int gm = row0 + r, kk = k0 + kc;
+          const bool in = valid && gm < sh.bm && kk < bk;
+          const T* src = a_unit + r * bk + kc;
+          if constexpr (sizeof(T) == 4) {  // transposed: column kc, row r (sum_fp32_t)
+            if (gm >= sh.bm || kc >= k_used) continue;
+            cp_async4(smem_u32(a_st + (kc * ROWS + r) * 4), in ? src : blocks, in ? 4 : 0);
+          } else if constexpr (AC == kA4) {  // bk even: a pair is in or out whole
+            cp_async4(smem_u32(a_st + p * 4), in ? src : blocks, in ? 4 : 0);
+          } else {  // 16-bit, bk odd: a pair's second value may be past bk
+            const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+            const uint32_t lo = in ? s16[0] : 0u, hi = in && kk + 1 < bk ? s16[1] : 0u;
+            *reinterpret_cast<uint32_t*>(a_st + p * 4) = lo | hi << 16;
+          }
+        }
       }
       if (valid && ++w.c == cpb) {
         w.c = 0;
@@ -276,46 +275,25 @@ __device__ __forceinline__ void load_step(Walk& w, uint8_t* st, const T* __restr
   cp_async_commit();
 }
 
-// mma_rows: the step's two units as one k16 step of 8 column tiles; lane
-// 4 g + t sums columns g and g + 8 of each 16-column tile, block rows 2t
-// and 2t + 1.
-template <typename T>
-__device__ __forceinline__ void sum_step(float (&acc)[8][4], const uint8_t* st, int lane) {
-  using R = Ring<T>;
-  uint32_t b[2];  // B (k x block row): unit h's row lane / 4, values 2 (lane % 4) and + 1
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    b[h] = *reinterpret_cast<const uint32_t*>(st + R::kDenseBytes + h * R::kUnitABytes + lane * 4);
-  }
-  // A (dense column x k): lanes 8 q to 8 q + 7 address slab rows 0-7 of unit
-  // q / 2 at columns 8 (q % 2) + [0, 8) of the tile; .trans gives lane l
-  // column l / 4, rows 2 (l % 4) and + 1 of each, as the fragment wants
-  const uint32_t base = smem_u32(st);
-  const int row = (lane / 16) * 8 + lane % 8, half = (lane / 8) % 2;
-#pragma unroll
-  for (int mt = 0; mt < 8; ++mt) {
-    uint32_t a[4];
-    ldmatrix_x4_trans(a, base + slab_offset<T>(row, 2 * mt + half));
-    mma_16816<T>(acc[mt], a, b);
-  }
-}
-
-// warp_rows: one unit; lane l sums columns 4 l to 4 l + 3 of the 8 block rows.
-template <>
-__device__ __forceinline__ void sum_step<float>(float (&acc)[8][4], const uint8_t* st,
-                                                int lane) {
+// fp32: the first KR rows of a unit; lane l sums columns 4 l to 4 l + 3
+// of the ROWS rows, in acc[row].
+template <int ROWS, int KR>
+__device__ __forceinline__ void sum_fp32(float (&acc)[ROWS][4], const uint8_t* st, int lane) {
   const float* d = reinterpret_cast<const float*>(st);
-  const float* a = reinterpret_cast<const float*>(st + Ring<float>::kDenseBytes);
-  float4 dv[8];
+  const float* a = reinterpret_cast<const float*>(st + Ring<float, ROWS>::kDenseBytes);
+  float4 dv[KR];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) dv[k] = *reinterpret_cast<const float4*>(d + k * kRingCols + 4 * lane);
+  for (int k = 0; k < KR; ++k) {
+    dv[k] = *reinterpret_cast<const float4*>(d + k * kRingCols + 4 * lane);
+  }
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+  for (int r = 0; r < ROWS; ++r) {
     const float4 lo = *reinterpret_cast<const float4*>(a + 8 * r);  // one address: a broadcast
-    const float4 hi = *reinterpret_cast<const float4*>(a + 8 * r + 4);
+    float4 hi = lo;
+    if constexpr (KR > 4) hi = *reinterpret_cast<const float4*>(a + 8 * r + 4);
     const float av[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < KR; ++k) {
       acc[r][0] = fmaf(av[k], dv[k].x, acc[r][0]);
       acc[r][1] = fmaf(av[k], dv[k].y, acc[r][1]);
       acc[r][2] = fmaf(av[k], dv[k].z, acc[r][2]);
@@ -324,80 +302,149 @@ __device__ __forceinline__ void sum_step<float>(float (&acc)[8][4], const uint8_
   }
 }
 
-// The 8 x 128 output tile of block-row `row` at column n0, rounded once,
-// from the sums as sum_step holds them.
-template <typename T, bool VEC>
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4], T* __restrict__ out,
-                                           int row, int n, int n0, int lane) {
-  T* o = out + static_cast<int64_t>(row) * 8 * n;
-  const int g = lane / 4, t = lane % 4;
-  const int64_t r0 = static_cast<int64_t>(2 * t) * n, r1 = r0 + n;
+// warp_blocks: the first KR rows of a unit whose block values are stored
+// transposed (column k's ROWS values together), k by k: each k's ROWS x 4
+// multiply-adds are independent, and its block values are ROWS / 4
+// broadcasts.
+template <int ROWS, int KR>
+__device__ __forceinline__ void sum_fp32_t(float (&acc)[ROWS][4], const uint8_t* st, int lane) {
+  const float* d = reinterpret_cast<const float*>(st);
+  const float* a = reinterpret_cast<const float*>(st + Ring<float, ROWS>::kDenseBytes);
 #pragma unroll
-  for (int mt = 0; mt < 8; ++mt) {
-    const int col = n0 + 16 * mt + g;
-    if (col < n) {
-      o[r0 + col] = from_f32<T>(acc[mt][0]);
-      o[r1 + col] = from_f32<T>(acc[mt][1]);
-    }
-    if (col + 8 < n) {
-      o[r0 + col + 8] = from_f32<T>(acc[mt][2]);
-      o[r1 + col + 8] = from_f32<T>(acc[mt][3]);
+  for (int k = 0; k < KR; ++k) {
+    const float4 dv = *reinterpret_cast<const float4*>(d + k * kRingCols + 4 * lane);
+#pragma unroll
+    for (int q = 0; q < ROWS / 4; ++q) {
+      const float4 av = *reinterpret_cast<const float4*>(a + k * ROWS + 4 * q);  // a broadcast
+      const float v[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float(&c)[4] = acc[4 * q + i];
+        c[0] = fmaf(v[i], dv.x, c[0]);
+        c[1] = fmaf(v[i], dv.y, c[1]);
+        c[2] = fmaf(v[i], dv.z, c[2]);
+        c[3] = fmaf(v[i], dv.w, c[3]);
+      }
     }
   }
 }
 
-// warp_rows, VEC: n % 4 == 0, so a lane's 4 columns are in or out together
-// and go as one float4.
-template <>
-__device__ __forceinline__ void store_rows<float, true>(const float (&acc)[8][4],
-                                                        float* __restrict__ out, int row, int n,
-                                                        int n0, int lane) {
-  const int col = n0 + 4 * lane;
-  if (col >= n) return;
-  float* o = out + static_cast<int64_t>(row) * 8 * n + col;
+// Sum one step into acc.  16-bit (mma_rows, mma_blocks): the step's two
+// units as one k16 step of 8 column tiles times ROWS / 8 row tiles; lane
+// 4 g + t sums columns g and g + 8 of each 16-column tile, rows 2t and
+// 2t + 1 of each 8-row tile, in acc[mt * (ROWS / 8) + nt].  fp32
+// (warp_rows, warp_blocks): one unit by sum_fp32 (warp_rows) or
+// sum_fp32_t (warp_blocks), its first 4 rows only where k_rows <= 4 (the
+// last unit of a block with bk % 8 in 1..4).
+template <typename T, int ROWS, bool ANY>
+__device__ __forceinline__ void sum_step(float (&acc)[ROWS][4], const uint8_t* st, int k_rows,
+                                         int lane) {
+  using R = Ring<T, ROWS>;
+  if constexpr (sizeof(T) == 2) {
+    constexpr int NT = ROWS / 8;
+    // B (k x block row): unit h's row 8 nt + lane / 4, values 2 (lane % 4) and + 1
+    uint32_t b[NT][2];
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    *reinterpret_cast<float4*>(o + static_cast<int64_t>(r) * n) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        b[nt][h] = *reinterpret_cast<const uint32_t*>(st + R::kDenseBytes + h * R::kUnitABytes +
+                                                      nt * 128 + lane * 4);
+      }
+    }
+    // A (dense column x k): lanes 8 q to 8 q + 7 address slab rows 0-7 of unit
+    // q / 2 at columns 8 (q % 2) + [0, 8) of the tile; .trans gives lane l
+    // column l / 4, rows 2 (l % 4) and + 1 of each, as the fragment wants
+    const uint32_t base = smem_u32(st);
+    const int row = (lane / 16) * 8 + lane % 8, half = (lane / 8) % 2;
+#pragma unroll
+    for (int mt = 0; mt < 8; ++mt) {
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, base + slab_offset<T>(row, 2 * mt + half));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_16816<T>(acc[mt * NT + nt], a, b[nt]);
+    }
+  } else if constexpr (!ANY) {
+    sum_fp32<ROWS, 8>(acc, st, lane);
+  } else {
+    // the last unit of a block with bk % 8 in 1..4 sums 4 rows, those past bk zero
+    k_rows > 4 ? sum_fp32_t<ROWS, 8>(acc, st, lane) : sum_fp32_t<ROWS, 4>(acc, st, lane);
   }
 }
 
-template <>
-__device__ __forceinline__ void store_rows<float, false>(const float (&acc)[8][4],
-                                                         float* __restrict__ out, int row, int n,
-                                                         int n0, int lane) {
-  const int col = n0 + 4 * lane;
-  float* o = out + static_cast<int64_t>(row) * 8 * n + col;
+// The first `rows` (<= ROWS) rows of the ROWS x 128 output tile whose first
+// row is `out_row`, at column n0, rounded once, from the sums as sum_step
+// holds them.  fp32 with VEC (n % 4 == 0): a lane's 4 columns are in or out
+// together and go as one float4.
+template <typename T, int ROWS, bool VEC>
+__device__ __forceinline__ void store_rows(const float (&acc)[ROWS][4], T* __restrict__ out,
+                                           int64_t out_row, int rows, int n, int n0, int lane) {
+  if constexpr (sizeof(T) == 2) {
+    constexpr int NT = ROWS / 8;
+    T* o = out + out_row * n;
+    const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
+    for (int mt = 0; mt < 8; ++mt) {
+      const int col = n0 + 16 * mt + g;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (col + c < n) o[static_cast<int64_t>(r) * n + c] = acc[r][c];
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 8 * nt + 2 * t + h;
+          if (r >= rows) continue;
+          if (col < n) o[static_cast<int64_t>(r) * n + col] = from_f32<T>(acc[mt * NT + nt][h]);
+          if (col + 8 < n) {
+            o[static_cast<int64_t>(r) * n + col + 8] = from_f32<T>(acc[mt * NT + nt][2 + h]);
+          }
+        }
+      }
+    }
+  } else {
+    const int col = n0 + 4 * lane;
+    if (VEC && col >= n) return;
+    float* o = out + out_row * n + col;
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r >= rows) break;
+      if constexpr (VEC) {
+        *reinterpret_cast<float4*>(o + static_cast<int64_t>(r) * n) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (col + c < n) o[static_cast<int64_t>(r) * n + c] = acc[r][c];
+        }
+      }
     }
   }
 }
 
 // Warp w of program b is warp g = 4 b + w of the grid: it owns dense columns
-// [128 (g % n_tiles), +128) of block-rows g / n_tiles + i n_ranges.  So the
+// [128 (g % n_tiles), +128) of work items g / n_tiles + i n_ranges.  So the
 // grid's warps walk the block-rows together, front to back, and the dense
 // rows they gather at any time are a window of the operand that the L2
 // holds (each warp taking a contiguous run of rows instead spread the
 // gather over the whole operand at once; in fp32, at 76 MB, that thrashed
-// the 50 MB L2 and the slabs came from device memory).
-template <typename T, bool VEC>
+// the 50 MB L2 and the slabs came from device memory).  The groups of one
+// block-row are neighbouring items, so they gather its slabs together.
+template <typename T, int ROWS, bool VEC, int AC>
 __device__ __forceinline__ void ring_rows(const T* __restrict__ blocks,
                                           const int* __restrict__ row_start,
                                           const int* __restrict__ bcols,
                                           const T* __restrict__ dense, T* __restrict__ out,
-                                          int m_blocks, int bk, int n, int n_ranges) {
-  using R = Ring<T>;
+                                          int m_blocks, const Shape& sh, int n_ranges) {
+  using R = Ring<T, ROWS>;
+  constexpr bool kAny = AC != kA16;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int lane = threadIdx.x % 32;
   const int warp = blockIdx.x * kRingWarps + threadIdx.x / 32;
+  const int n = sh.n;
   const int n_tiles = (n + kRingCols - 1) / kRingCols;
+  const int n_items = kAny ? m_blocks * sh.groups : m_blocks;
   const int r0 = warp / n_tiles;
   if (r0 >= n_ranges) return;
   const int n0 = (warp % n_tiles) * kRingCols;
+  const int cpb = kAny ? (sh.bk + 7) / 8 : sh.bk / 8;
   uint8_t* ring = smem_raw + (threadIdx.x / 32) * R::kWarpBytes;
   int64_t off[R::kLaneChunks];  // lane chunk i: slab row j, column col
 #pragma unroll
@@ -405,48 +452,68 @@ __device__ __forceinline__ void ring_rows(const T* __restrict__ blocks,
     const int q = lane + 32 * i;
     off[i] = static_cast<int64_t>(q / R::kRowChunks) * n + n0 + (q % R::kRowChunks) * R::kPer;
   }
-  Walk w{r0 - n_ranges, n_ranges, m_blocks, 0, 0, 0};
+  Walk w{r0 - n_ranges, n_ranges, n_items, 0, 0, 0};
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    load_step<T, VEC>(w, ring + s * R::kStageBytes, blocks, row_start, bcols, dense, bk, n, n0,
-                      off, lane);
+    load_step<T, ROWS, VEC, AC>(w, ring + s * R::kStageBytes, blocks, row_start, bcols, dense,
+                                sh, n0, off, lane);
   }
   int step = 0;
-  for (int row = r0; row < m_blocks; row += n_ranges) {
-    const int units = (row_start[row + 1] - row_start[row]) * (bk / 8);
-    float acc[8][4];
+  int c = 0;  // fp32: the k8 unit of its block that `step` sums
+  for (int item = r0; item < n_items; item += n_ranges) {
+    const int row = kAny ? item / sh.groups : item;
+    const int row0 = kAny ? (item % sh.groups) * ROWS : 0;
+    const int units = (row_start[row + 1] - row_start[row]) * cpb;
+    float acc[ROWS][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < ROWS; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
     }
     for (int u = 0; u < units; u += R::kUnits, ++step) {
       cp_async_wait<kStages - 2>();  // this lane's copies of `step` have landed
       __syncwarp();                  // and every lane's; all are done with step - 1
-      load_step<T, VEC>(w, ring + ((step + kStages - 1) % kStages) * R::kStageBytes, blocks,
-                        row_start, bcols, dense, bk, n, n0, off, lane);
-      sum_step<T>(acc, ring + (step % kStages) * R::kStageBytes, lane);
+      load_step<T, ROWS, VEC, AC>(w, ring + ((step + kStages - 1) % kStages) * R::kStageBytes,
+                                  blocks, row_start, bcols, dense, sh, n0, off, lane);
+      const int k_rows = kAny ? min(8, sh.bk - 8 * c) : 8;  // fp32: kUnits = 1
+      if (kAny && ++c == cpb) c = 0;
+      sum_step<T, ROWS, kAny>(acc, ring + (step % kStages) * R::kStageBytes, k_rows, lane);
     }
-    store_rows<T, VEC>(acc, out, row, n, n0, lane);
+    const int64_t out_row = static_cast<int64_t>(row) * (kAny ? sh.bm : ROWS) + row0;
+    store_rows<T, ROWS, VEC>(acc, out, out_row, kAny ? min(ROWS, sh.bm - row0) : ROWS, n, n0,
+                             lane);
   }
   cp_async_wait<0>();  // the walk is done: only empty groups are left
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kRingWarps * 32, kPrograms)
-    warp_rows(const float* __restrict__ blocks, const int* __restrict__ row_start,
-              const int* __restrict__ bcols, const float* __restrict__ dense,
-              float* __restrict__ out, int m_blocks, int bk, int n, int n_ranges) {
-  ring_rows<float, VEC>(blocks, row_start, bcols, dense, out, m_blocks, bk, n, n_ranges);
+#define RING_PARAMS                                                                      \
+  const T *__restrict__ blocks, const int *__restrict__ row_start,                       \
+      const int *__restrict__ bcols, const T *__restrict__ dense, T *__restrict__ out,   \
+      int m_blocks, Shape sh, int n_ranges
+
+// bm = 8, bk a multiple of 8: warp_rows (fp32) and mma_rows (bf16, fp16).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kRingWarps * 32, kPrograms) warp_rows(RING_PARAMS) {
+  ring_rows<T, 8, VEC, kA16>(blocks, row_start, bcols, dense, out, m_blocks, sh, n_ranges);
 }
 
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kRingWarps * 32, kPrograms)
-    mma_rows(const T* __restrict__ blocks, const int* __restrict__ row_start,
-             const int* __restrict__ bcols, const T* __restrict__ dense, T* __restrict__ out,
-             int m_blocks, int bk, int n, int n_ranges) {
-  ring_rows<T, VEC>(blocks, row_start, bcols, dense, out, m_blocks, bk, n, n_ranges);
+__global__ void __launch_bounds__(kRingWarps * 32, kPrograms) mma_rows(RING_PARAMS) {
+  ring_rows<T, 8, VEC, kA16>(blocks, row_start, bcols, dense, out, m_blocks, sh, n_ranges);
 }
+
+// Any other block shape: warp_blocks (fp32) and mma_blocks (bf16, fp16).
+template <typename T, int ROWS, bool VEC>
+__global__ void __launch_bounds__(kRingWarps * 32, kPrograms) warp_blocks(RING_PARAMS) {
+  ring_rows<T, ROWS, VEC, kA4>(blocks, row_start, bcols, dense, out, m_blocks, sh, n_ranges);
+}
+
+template <typename T, int ROWS, bool VEC, int AC>
+__global__ void __launch_bounds__(kRingWarps * 32, kPrograms) mma_blocks(RING_PARAMS) {
+  ring_rows<T, ROWS, VEC, AC>(blocks, row_start, bcols, dense, out, m_blocks, sh, n_ranges);
+}
+
+#undef RING_PARAMS
 
 struct Args {
   const void* blocks;
@@ -458,67 +525,110 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T>
-void launch_block_rows(const Args& g) {
-  const dim3 grid(g.m_blocks, (g.n + kTileN - 1) / kTileN, (g.bm + kRows - 1) / kRows);
-  block_rows<T><<<grid, kThreads, 0, g.stream>>>(
-      static_cast<const T*>(g.blocks), g.row_start, g.bcols, static_cast<const T*>(g.dense),
-      static_cast<T*>(g.out), g.bm, g.bk, g.n);
-}
-
-// One warp per 128 columns of every n_ranges-th block-row, with n_ranges
+// One warp per 128 columns of every n_ranges-th work item, with n_ranges
 // such that every warp of the grid is resident at once (kPrograms an SM).
-template <typename T, typename Fn>
+template <typename T, int ROWS, typename Fn>
 void launch_ring(Fn kernel, const Args& g) {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           Ring<T>::kSmem) != cudaSuccess) {
+                           Ring<T, ROWS>::kSmem) != cudaSuccess) {
     return;  // the error stays in cudaGetLastError() for the caller
   }
+  const Shape sh{g.bm, g.bk, g.n, (g.bm + ROWS - 1) / ROWS};
+  const int64_t n_items = static_cast<int64_t>(g.m_blocks) * sh.groups;
   const int64_t n_tiles = (g.n + kRingCols - 1) / kRingCols;
   const int64_t resident = static_cast<int64_t>(sms) * kPrograms * kRingWarps;
-  const int64_t rows_per_warp = (g.m_blocks * n_tiles + resident - 1) / resident;
-  const int64_t n_ranges = (g.m_blocks + rows_per_warp - 1) / rows_per_warp;
+  const int64_t items_per_warp = (n_items * n_tiles + resident - 1) / resident;
+  const int64_t n_ranges = (n_items + items_per_warp - 1) / items_per_warp;
   const int64_t grid = (n_ranges * n_tiles + kRingWarps - 1) / kRingWarps;
-  kernel<<<static_cast<unsigned>(grid), kRingWarps * 32, Ring<T>::kSmem, g.stream>>>(
+  kernel<<<static_cast<unsigned>(grid), kRingWarps * 32, Ring<T, ROWS>::kSmem, g.stream>>>(
       static_cast<const T*>(g.blocks), g.row_start, g.bcols, static_cast<const T*>(g.dense),
-      static_cast<T*>(g.out), g.m_blocks, g.bk, g.n, static_cast<int>(n_ranges));
+      static_cast<T*>(g.out), g.m_blocks, sh, static_cast<int>(n_ranges));
 }
 
-// 16-byte copies need the dense rows, the block rows' 8-value pieces and the
-// bases on 16 bytes; the fp32 float4 stores need the output rows there too.
+bool aligned(const void* p, uintptr_t to) { return reinterpret_cast<uintptr_t>(p) % to == 0; }
+
+// 16-byte slab copies need the dense rows and base on 16 bytes; fp32's
+// float4 stores need the output there too.
 template <typename T>
-bool vec_ok(const Args& g) {
-  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  return (static_cast<int64_t>(g.n) * sizeof(T)) % 16 == 0 && aligned(g.blocks) &&
-         aligned(g.dense) && aligned(g.out);
+bool dense_vec(const Args& g) {
+  return (static_cast<int64_t>(g.n) * sizeof(T)) % 16 == 0 && aligned(g.dense, 16) &&
+         aligned(g.out, 16);
+}
+
+// The rows a work item holds: fp32 to a multiple of 4 up to 16, 16-bit to
+// one or two n8 tiles; taller blocks go in groups of 16.
+template <typename T>
+int group_rows(int bm) {
+  if constexpr (sizeof(T) == 4) {
+    return bm <= 4 ? 4 : bm <= 8 ? 8 : bm <= 12 ? 12 : 16;
+  } else {
+    return bm <= 8 ? 8 : 16;
+  }
+}
+
+template <typename T, int ROWS>
+void launch_blocks(const Args& g, bool vec) {
+  if constexpr (sizeof(T) == 4) {
+    vec ? launch_ring<T, ROWS>(warp_blocks<T, ROWS, true>, g)
+        : launch_ring<T, ROWS>(warp_blocks<T, ROWS, false>, g);
+  } else {
+    // 4-byte pairs need bk even and the blocks' base on 4 bytes
+    const bool a4 = g.bk % 2 == 0 && aligned(g.blocks, 4);
+    if (a4) {
+      vec ? launch_ring<T, ROWS>(mma_blocks<T, ROWS, true, kA4>, g)
+          : launch_ring<T, ROWS>(mma_blocks<T, ROWS, false, kA4>, g);
+    } else {
+      vec ? launch_ring<T, ROWS>(mma_blocks<T, ROWS, true, kASync>, g)
+          : launch_ring<T, ROWS>(mma_blocks<T, ROWS, false, kASync>, g);
+    }
+  }
 }
 
 template <typename T>
 int run(int kernel, const Args& g) {
-  if (kernel == kBlockRows) {
-    launch_block_rows<T>(g);
-  } else if constexpr (std::is_same<T, float>::value) {
-    vec_ok<T>(g) ? launch_ring<T>(warp_rows<true>, g) : launch_ring<T>(warp_rows<false>, g);
+  const bool vec = dense_vec<T>(g);
+  if (kernel == kWarpRows || kernel == kMmaRows) {
+    // block values in 16-byte chunks: the blocks' base on 16 bytes too
+    const bool v = vec && aligned(g.blocks, 16);
+    if constexpr (sizeof(T) == 4) {
+      v ? launch_ring<T, 8>(warp_rows<T, true>, g) : launch_ring<T, 8>(warp_rows<T, false>, g);
+    } else {
+      v ? launch_ring<T, 8>(mma_rows<T, true>, g) : launch_ring<T, 8>(mma_rows<T, false>, g);
+    }
   } else {
-    vec_ok<T>(g) ? launch_ring<T>(mma_rows<T, true>, g) : launch_ring<T>(mma_rows<T, false>, g);
+    switch (group_rows<T>(g.bm)) {
+      case 4:
+        if constexpr (sizeof(T) == 4) launch_blocks<T, 4>(g, vec);
+        break;
+      case 8:
+        launch_blocks<T, 8>(g, vec);
+        break;
+      case 12:
+        if constexpr (sizeof(T) == 4) launch_blocks<T, 12>(g, vec);
+        break;
+      default:
+        launch_blocks<T, 16>(g, vec);
+        break;
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches `kernel` on the shapes the wrapper's route gives it (0
-// block_rows: bm != 8 or bk off a multiple of 8; 1 warp_rows: float32 with
-// bm = 8 and bk a multiple of 8; 2 mma_rows: bfloat16 or float16 with bm = 8
-// and bk a multiple of 8).  blocks: (nb, bm, bk) sorted by block-row;
-// row_start: int32, m_blocks + 1 offsets into the blocks; bcols: int32 per
-// block; dense: (K, n); out: (m_blocks * bm, n); dtype (all three):
-// 0 = float32, 1 = bfloat16, 2 = float16.  Returns cudaErrorInvalidValue for
-// a shape or type the kernel does not take, else cudaGetLastError() after
-// the launch (0 on success); the wrapper raises on anything else.
+// Launches `kernel` on the shapes the wrapper's route gives it (0 warp_rows:
+// float32 with bm = 8 and bk a multiple of 8; 1 mma_rows: bfloat16 or
+// float16 with bm = 8 and bk a multiple of 8; 2 warp_blocks: float32, any
+// other shape; 3 mma_blocks: bfloat16 or float16, any other shape).
+// blocks: (nb, bm, bk) sorted by block-row; row_start: int32, m_blocks + 1
+// offsets into the blocks; bcols: int32 per block; dense: (K, n); out:
+// (m_blocks * bm, n); dtype (all three): 0 = float32, 1 = bfloat16,
+// 2 = float16.  Returns cudaErrorInvalidValue for a shape or type the
+// kernel does not take, else cudaGetLastError() after the launch (0 on
+// success); the wrapper raises on anything else.
 extern "C" int repro_bsr_spmm(int kernel, const void* blocks, const void* row_start,
                               const void* bcols, const void* dense, void* out, int m_blocks,
                               int bm, int bk, int n, int dtype, void* stream) {
@@ -526,21 +636,26 @@ extern "C" int repro_bsr_spmm(int kernel, const void* blocks, const void* row_st
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool ring_shape = bm == 8 && bk % 8 == 0;
+  const bool fp32 = dtype == 0;
   switch (kernel) {
-    case kBlockRows:
-      if (ring_shape || (n + kTileN - 1) / kTileN > kMaxGridYZ ||
-          (bm + kRows - 1) / kRows > kMaxGridYZ) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      break;
     case kWarpRows:
-      if (!ring_shape || dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+      if (!ring_shape || !fp32) return static_cast<int>(cudaErrorInvalidValue);
       break;
     case kMmaRows:
-      if (!ring_shape || dtype == 0) return static_cast<int>(cudaErrorInvalidValue);
+      if (!ring_shape || fp32) return static_cast<int>(cudaErrorInvalidValue);
+      break;
+    case kWarpBlocks:
+      if (ring_shape || !fp32) return static_cast<int>(cudaErrorInvalidValue);
+      break;
+    case kMmaBlocks:
+      if (ring_shape || fp32) return static_cast<int>(cudaErrorInvalidValue);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // work items (a block-row's groups of 4 or more rows) must count in an int
+  if (static_cast<int64_t>(m_blocks) * ((bm + 3) / 4) > INT32_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m_blocks == 0 || n == 0) return static_cast<int>(cudaGetLastError());
   const Args g{blocks, static_cast<const int*>(row_start), static_cast<const int*>(bcols), dense,

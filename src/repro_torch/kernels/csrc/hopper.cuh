@@ -290,6 +290,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32
                "r"(src_bytes)
                : "memory");
 }
+// 4 bytes from global to shared memory, through L1; the last 4 - src_bytes
+// bytes are written zero.  Both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }

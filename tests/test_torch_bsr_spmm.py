@@ -171,13 +171,13 @@ def test_spmm_needs_a_card_unless_told_cpu(monkeypatch):
         (8, 40, torch.float16, "mma_rows"),
         (8, 8, torch.float32, "warp_rows"),
         (8, 24, torch.float32, "warp_rows"),
-        (16, 8, torch.bfloat16, "block_rows"),  # bm other than 8
-        (4, 8, torch.float32, "block_rows"),
-        (8, 12, torch.bfloat16, "block_rows"),  # bk off a multiple of 8
-        (8, 4, torch.float32, "block_rows"),
-        (12, 12, torch.float32, "block_rows"),
-        (64, 64, torch.float32, "block_rows"),
-        (128, 128, torch.bfloat16, "block_rows"),
+        (16, 8, torch.bfloat16, "mma_blocks"),  # bm other than 8
+        (4, 8, torch.float32, "warp_blocks"),
+        (8, 12, torch.bfloat16, "mma_blocks"),  # bk off a multiple of 8
+        (8, 4, torch.float32, "warp_blocks"),
+        (12, 12, torch.float32, "warp_blocks"),
+        (64, 64, torch.float32, "warp_blocks"),
+        (128, 128, torch.bfloat16, "mma_blocks"),
     ],
 )
 def test_route_picks_the_kernel_before_launch(bm, bk, dtype, kernel):
@@ -185,21 +185,27 @@ def test_route_picks_the_kernel_before_launch(bm, bk, dtype, kernel):
 
 
 def _paired_k16(blocks, brows, bcols, dense, m_blocks):
-    """mma_rows's order of summation in plain PyTorch: a block-row's k8
-    units (8 columns of a block, with their 8 dense rows) in order, paired
-    into k16 steps, the last one of an odd row with a zero half; each step's
-    16 products summed in fp32 and added to the row's fp32 sum, which is
-    rounded once.  Rows with no blocks are zero."""
+    """The tensor-core routes' order of summation (mma_rows, mma_blocks) in
+    plain PyTorch: a block-row's k8 units (8 columns of a block, with their
+    8 dense rows; a block with bk off a multiple of 8 has ceil(bk / 8)
+    units, the last one's columns and rows past bk zero) in order, paired
+    into k16 steps, the last one of an odd row with a zero half; each
+    step's 16 products summed in fp32 and added to the row's fp32 sum,
+    which is rounded once.  Rows with no blocks are zero."""
     nb, bm, bk = blocks.shape
     N = dense.shape[1]
     out_dtype = torch.promote_types(blocks.dtype, dense.dtype)
-    a = blocks.float().reshape(nb, bm, bk // 8, 8).permute(0, 2, 1, 3)  # (nb, unit, 8, 8)
-    d = dense.float().reshape(-1, 8, N)  # k8 slabs
+    cpb = -(-bk // 8)  # k8 units a block
+    pad = 8 * cpb - bk
+    a = torch.nn.functional.pad(blocks.float(), (0, pad))  # (nb, bm, 8 cpb)
+    a = a.reshape(nb, bm, cpb, 8).permute(0, 2, 1, 3)  # (nb, unit, bm, 8)
+    tiles = torch.nn.functional.pad(dense.float().reshape(-1, bk, N), (0, 0, 0, pad))
+    d = tiles.reshape(-1, cpb, 8, N)  # (block column, unit, 8, N)
     out = torch.zeros((m_blocks, bm, N))
     brows = torch.as_tensor(brows)
     for r in range(m_blocks):
-        units = [(a[i, c], d[int(bcols[i]) * (bk // 8) + c])
-                 for i in torch.nonzero(brows == r).ravel().tolist() for c in range(bk // 8)]
+        units = [(a[i, c], d[int(bcols[i]), c])
+                 for i in torch.nonzero(brows == r).ravel().tolist() for c in range(cpb)]
         if len(units) % 2:
             units.append((torch.zeros(bm, 8), torch.zeros(8, N)))
         for (a0, d0), (a1, d1) in zip(units[::2], units[1::2]):
@@ -207,37 +213,37 @@ def _paired_k16(blocks, brows, bcols, dense, m_blocks):
     return out.reshape(m_blocks * bm, N).to(out_dtype)
 
 
-@pytest.mark.parametrize("bk", [8, 16, 24])
-@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
-def test_paired_k16_order_matches_jax(bk, dtype):
-    """The tensor-core route's order of summation, with odd block counts
-    (a zero half in the last k16 step) and empty block-rows, against the
-    JAX kernel in interpret mode (which ops.spmm pads with zero blocks) and
-    float64.  fp32: within 1e-5 of both.  bf16: the model sums the exact
-    products in fp32 and rounds once, so it is within 1e-5 of float64
-    before that rounding and half a bf16 ulp (2^-8 relative) after it; the
-    JAX kernel rounds its running sum to bf16 after each block product, so
-    it may differ from the model by up to the row's block count plus one
-    half-ulps of the largest partial sum, bounded by |A| @ |dense|."""
-    rng = np.random.default_rng(bk)
-    counts = [1, 3, 0, 2, 5, 0, 4]  # blocks per block-row: odd, even, empty
-    mask = np.zeros((len(counts), 7), bool)
+def _check_unit_order(bm, bk, dtype, counts, seed):
+    """Blocks of (bm, bk) with ``counts`` blocks per block-row (odd, even
+    and empty rows) times a (K, 24) dense block: the plain model of the
+    tensor-core order (``_paired_k16``) against the JAX kernel in interpret
+    mode (which ops.spmm pads with zero blocks) and float64, and the port's
+    plain version against both.  fp32: within 1e-5 of both.  bf16: the
+    model sums the exact products in fp32 and rounds once, so it is within
+    1e-5 of float64 before that rounding and half a bf16 ulp (2^-8
+    relative) after it; the JAX kernel rounds its running sum to bf16 after
+    each block product, so it may differ from the model by up to the row's
+    block count plus one half-ulps of the largest partial sum, bounded by
+    |A| @ |dense|."""
+    rng = np.random.default_rng(seed)
+    k_blocks = 7
+    mask = np.zeros((len(counts), k_blocks), bool)
     for r, c in enumerate(counts):
-        mask[r, rng.choice(7, c, replace=False)] = True
-    a = rng.standard_normal((8 * len(counts), 7 * bk)).astype(np.float32)
-    a *= np.kron(mask, np.ones((8, bk), np.float32))
-    b = rng.standard_normal((7 * bk, 24)).astype(dtype)
-    bsr = to_bsr(a, 8, bk)
+        mask[r, rng.choice(k_blocks, c, replace=False)] = True
+    a = rng.standard_normal((bm * len(counts), k_blocks * bk)).astype(np.float32)
+    a *= np.kron(mask, np.ones((bm, bk), np.float32))
+    b = rng.standard_normal((k_blocks * bk, 24)).astype(dtype)
+    bsr = to_bsr(a, bm, bk)
     bsr = BlockSparse(bsr.blocks.astype(dtype), bsr.brows, bsr.bcols, bsr.shape)
     assert np.array_equal(np.bincount(bsr.brows, minlength=len(counts)), counts)
     blocks, dense = ops.as_tensor(bsr.blocks, "cpu"), ops.as_tensor(b, "cpu")
     got = _paired_k16(blocks, bsr.brows, bsr.bcols, dense, len(counts))
     want = _f32(jax_ops.spmm(_both(bsr), b, interpret=True))
-    np.testing.assert_array_equal(_f32(got)[16:24], 0)
-    np.testing.assert_array_equal(_f32(got)[40:48], 0)
-    a64 = np.zeros((8 * len(counts), 7 * bk))
+    for r in np.flatnonzero(np.asarray(counts) == 0):
+        np.testing.assert_array_equal(_f32(got)[bm * r:bm * r + bm], 0)
+    a64 = np.zeros((bm * len(counts), k_blocks * bk))
     for blk, r, c in zip(np.asarray(_f32(blocks), np.float64), bsr.brows, bsr.bcols):
-        a64[8 * r:8 * r + 8, bk * c:bk * c + bk] = blk
+        a64[bm * r:bm * r + bm, bk * c:bk * c + bk] = blk
     d64 = np.asarray(_f32(dense), np.float64)
     want64 = a64 @ d64
     if dtype == np.float32:
@@ -247,10 +253,34 @@ def test_paired_k16_order_matches_jax(bk, dtype):
         unrounded = _paired_k16(blocks.float(), bsr.brows, bsr.bcols, dense.float(), len(counts))
         np.testing.assert_allclose(unrounded.numpy(), want64, rtol=1e-5, atol=1e-5)
         assert (np.abs(_f32(got) - want64) <= 2.0**-8 * np.abs(want64) + 1e-5).all()
-        slack = (np.repeat(counts, 8)[:, None] + 1) * 2.0**-8 * (np.abs(a64) @ np.abs(d64))
+        slack = (np.repeat(counts, bm)[:, None] + 1) * 2.0**-8 * (np.abs(a64) @ np.abs(d64))
         assert (np.abs(_f32(got) - want) <= slack + 1e-5).all()
     # and the port's plain version, in the kernel's other order, agrees (in
     # bf16 the two fp32 sums may round to neighbours: one ulp, 2^-7)
     plain = bsr_spmm(blocks, bsr.brows, bsr.bcols, dense, len(counts))
     tol = 1e-5 if dtype == np.float32 else 2.0**-7
     np.testing.assert_allclose(_f32(plain), _f32(got), rtol=tol, atol=1e-5)
+    # the port's entry point on the CPU runs the same plain version
+    np.testing.assert_array_equal(_f32(ops.spmm(bsr, b, device="cpu")), _f32(plain))
+
+
+@pytest.mark.parametrize("bk", [8, 16, 24])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_paired_k16_order_matches_jax(bk, dtype):
+    """mma_rows's order (bm = 8, bk a multiple of 8), with odd block counts
+    (a zero half in the last k16 step) and empty block-rows, held to JAX in
+    interpret mode and float64 (tolerances: ``_check_unit_order``)."""
+    _check_unit_order(8, bk, dtype, [1, 3, 0, 2, 5, 0, 4], seed=bk)
+
+
+# the block shapes warp_blocks and mma_blocks take on the card: 3 x 3
+# elasticity, 12 x 12, bm = 16 (two n8 tiles), bm = 24 (two groups of rows,
+# the second half empty) and bk off a multiple of 8
+@pytest.mark.parametrize("bm, bk", [(3, 3), (12, 12), (16, 8), (24, 12), (8, 20)])
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_any_block_shape_matches_jax(bm, bk, dtype):
+    """The k8 units of blocks of any shape, zero-filled past bk, in the
+    tensor-core order, and the port's plain version (what a CPU tensor
+    runs), on rows with odd and even block counts and empty rows, against
+    the JAX kernel in interpret mode and float64."""
+    _check_unit_order(bm, bk, dtype, [1, 3, 0, 2, 5, 0, 4, 7], seed=bm * 100 + bk)

@@ -79,7 +79,7 @@ def test_kernel_matches_plain_version(cuda, block, dtype):
     pc = np.r_[pc, [len(crows)] * 7]
     n_c = len(crows) + 1
     kernel = k1_route(block, block, block)
-    assert kernel == {1: "scalar_runs", 8: "warp_runs", 16: "warp_runs", 32: "block_runs"}[block]
+    assert kernel == {1: "scalar_runs", 8: "warp_runs", 16: "warp_runs", 32: "tile_runs"}[block]
     before = dict(bsr_spgemm_local.launches)
     got = bsr_spgemm(a_blocks, b_blocks, pa, pb, pc, n_c)
     torch.cuda.synchronize()
@@ -94,9 +94,13 @@ def test_kernel_matches_plain_version(cuda, block, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "bm, bk, bn", [(8, 16, 8), (16, 8, 32), (4, 8, 12), (1, 8, 1), (64, 64, 64), (128, 128, 128)]
+    "bm, bk, bn",
+    [(8, 16, 8), (16, 8, 32), (4, 8, 12), (1, 8, 1), (64, 64, 64), (128, 128, 128),
+     (32, 32, 32), (24, 20, 28), (8, 64, 8)],
 )
 def test_kernel_takes_every_block_shape(cuda, bm, bk, bn, dtype):
+    """Every route on N(0, 1) blocks with full fp32 mantissas, against the
+    plain version and, in fp32, float64."""
     rng = np.random.default_rng(bm * 1000 + bk * 10 + bn)
     grid = 12 if max(bm, bk, bn) < 64 else 4
     a_mask, b_mask = rng.random((2, grid, grid)) < 0.3
@@ -115,10 +119,24 @@ def test_kernel_takes_every_block_shape(cuda, bm, bk, bn, dtype):
     idx = [torch.as_tensor(x, device=cuda) for x in (pa, pb, pc)]
     want = bsr_spgemm_ref(a_blocks, b_blocks, *idx, len(crows))
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == torch.float32:
+        want64 = bsr_spgemm_ref(a_blocks.double(), b_blocks.double(), *idx, len(crows))
+        torch.testing.assert_close(got.double(), want64, rtol=1e-4, atol=1e-4)
+
+
+def _k2_kernel(bm, bk, dtype) -> str:
+    """The K2 route these blocks must take: the bm = 8, bk % 8 == 0 rings,
+    else the any-shape ones; 16-bit on the tensor cores."""
+    ring = bm == 8 and bk % 8 == 0
+    return ("warp_" if dtype == torch.float32 else "mma_") + ("rows" if ring else "blocks")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bm, bk, n", [(8, 8, 256), (16, 8, 48), (4, 12, 300), (8, 40, 16)])
+@pytest.mark.parametrize(
+    "bm, bk, n",
+    [(8, 8, 256), (16, 8, 48), (4, 12, 300), (8, 40, 16), (3, 3, 256), (12, 12, 256),
+     (64, 64, 64)],
+)
 def test_spmm_kernel_matches_plain_version(cuda, bm, bk, n, dtype):
     rng = np.random.default_rng(bm + bk + n)
     mask = rng.random((10, 7)) < 0.35
@@ -130,8 +148,7 @@ def test_spmm_kernel_matches_plain_version(cuda, bm, bk, n, dtype):
     blocks = torch.from_numpy(bsr.blocks).to(cuda, dtype)
     dense = torch.from_numpy(rng.standard_normal((7 * bk, n)).astype(np.float32)).to(cuda, dtype)
     kernel = k2_route(bm, bk, dtype)
-    assert kernel == ("block_rows" if (bm, bk) in ((16, 8), (4, 12)) else
-                      "warp_rows" if dtype == torch.float32 else "mma_rows")
+    assert kernel == _k2_kernel(bm, bk, dtype)
     before = dict(bsr_spmm_local.launches)
     got = bsr_spmm(blocks, bsr.brows, bsr.bcols, dense, 10, b_n=n)
     torch.cuda.synchronize()
@@ -146,40 +163,47 @@ def test_spmm_kernel_matches_plain_version(cuda, bm, bk, n, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("bk, n", [(8, 256), (8, 100), (16, 136), (24, 40)])
+@pytest.mark.parametrize(
+    "bm, bk, n",
+    [(8, 8, 256), (8, 8, 100), (8, 16, 136), (8, 24, 40),
+     (3, 3, 256), (12, 12, 100), (16, 8, 136), (24, 12, 40), (8, 20, 256), (5, 7, 136)],
+)
 @pytest.mark.parametrize("dense_off", [0, 1])
-def test_spmm_ring_routes_take_odd_rows_and_empty_rows(cuda, bk, n, dtype, dense_off):
-    """warp_rows and mma_rows (bm = 8) on rows with odd and even block
-    counts (mma_rows pairs 8-column units into k16 steps and pads an odd
+def test_spmm_ring_routes_take_odd_rows_and_empty_rows(cuda, bm, bk, n, dtype, dense_off):
+    """The ring routes on rows with odd and even block counts (the
+    tensor-core routes pair 8-column units into k16 steps and pad an odd
     row with a zero unit), an empty block-row in the middle and one at the
     end, N off the 128-column tile and (n = 100, or a dense view one value
-    into its buffer) rows the 16-byte copies cannot take."""
-    rng = np.random.default_rng(bk + n + dense_off)
+    into its buffer) rows the 16-byte copies cannot take: warp_rows and
+    mma_rows at bm = 8, and warp_blocks and mma_blocks at bm other than 8
+    (two n8 tiles at 16, two row groups at 24) and bk off 8 (block rows off
+    16 bytes, and odd in 16-bit at 3 x 3 and 5 x 7)."""
+    rng = np.random.default_rng(bk + n + dense_off + (bm * 1000 if bm != 8 else 0))
     counts = [1, 3, 0, 2, 5, 4, 7, 0]  # blocks per block-row
     k_blocks = 9
     mask = np.zeros((len(counts), k_blocks), bool)
     for r, c in enumerate(counts):
         mask[r, rng.choice(k_blocks, c, replace=False)] = True
-    a = rng.standard_normal((8 * len(counts), bk * k_blocks)).astype(np.float32)
-    a *= np.kron(mask, np.ones((8, bk), np.float32))
-    bsr = to_bsr(a, 8, bk)
+    a = rng.standard_normal((bm * len(counts), bk * k_blocks)).astype(np.float32)
+    a *= np.kron(mask, np.ones((bm, bk), np.float32))
+    bsr = to_bsr(a, bm, bk)
     assert np.array_equal(np.bincount(bsr.brows, minlength=len(counts)), counts)
     blocks = torch.from_numpy(bsr.blocks).to(cuda, dtype)
     flat = torch.from_numpy(rng.standard_normal(bk * k_blocks * n + dense_off).astype(np.float32))
     dense = flat.to(cuda, dtype)[dense_off:].view(bk * k_blocks, n)
-    kernel = k2_route(8, bk, dtype)
-    assert kernel == ("warp_rows" if dtype == torch.float32 else "mma_rows")
+    kernel = k2_route(bm, bk, dtype)
+    assert kernel == _k2_kernel(bm, bk, dtype)
     before = dict(bsr_spmm_local.launches)
     got = bsr_spmm(blocks, bsr.brows, bsr.bcols, dense, len(counts), b_n=n)
     torch.cuda.synchronize()
     assert _counted(bsr_spmm_local.launches, before, kernel)
-    assert got.dtype == dtype and got.shape == (8 * len(counts), n)
+    assert got.dtype == dtype and got.shape == (bm * len(counts), n)
     want = bsr_spmm_ref(
         blocks, torch.as_tensor(bsr.brows, device=cuda), torch.as_tensor(bsr.bcols, device=cuda),
         dense, len(counts),
     )
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
-    assert not got[16:24].any() and not got[56:].any()
+    assert not got[2 * bm:3 * bm].any() and not got[7 * bm:].any()
 
 
 def _moe_operands(rng, shape, x_dtype, w_dtype, device):
@@ -374,12 +398,15 @@ def test_expert_split_takes_a_misaligned_fp32_view(cuda):
 @pytest.mark.parametrize("run_len", [1, 2, 24])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize(
-    "bm, bk, bn", [(16, 16, 16), (8, 16, 8), (8, 8, 8), (64, 64, 64), (128, 64, 96), (64, 42, 70)]
+    "bm, bk, bn",
+    [(16, 16, 16), (8, 16, 8), (8, 8, 8), (64, 64, 64), (128, 64, 96), (64, 42, 70),
+     (32, 32, 32), (24, 20, 28), (8, 64, 8)],
 )
 def test_k1_routes_at_run_lengths(cuda, bm, bk, bn, dtype, run_len):
-    """Small blocks (warp_runs) and large ones (mma_runs) over runs of 1, 2
-    and 24 pairs on N(0, 1) data with full fp32 mantissas: 3 x 2 C blocks,
-    each summing run_len pairs, then a garbage run into a last slot."""
+    """Small blocks (warp_runs), sides of 17 to 32 and bk over 16
+    (tile_runs) and large blocks (mma_runs) over runs of 1, 2 and 24 pairs
+    on N(0, 1) data with full fp32 mantissas: 3 x 2 C blocks, each summing
+    run_len pairs, then a garbage run into a last slot."""
     rng = np.random.default_rng(bm + bk + bn + run_len)
     na, nb = 3 * run_len, run_len * 2
     a32 = _full_mantissa(rng, (na + 1, bm, bk), 1.0, cuda)
@@ -393,7 +420,8 @@ def test_k1_routes_at_run_lengths(cuda, bm, bk, bn, dtype, run_len):
     pa, pb, pc = np.r_[pa, [na] * 5], np.r_[pb, [nb] * 5], np.r_[pc, [6] * 5]
     a_blocks, b_blocks = a32.to(dtype), b32.to(dtype)
     kernel = k1_route(bm, bk, bn)
-    assert kernel == ("warp_runs" if max(bm, bk, bn) <= 16 else "mma_runs")
+    assert kernel == ("warp_runs" if max(bm, bk, bn) <= 16 else
+                      "mma_runs" if max(bm, bn) > 32 else "tile_runs")
     before = dict(bsr_spgemm_local.launches)
     got = bsr_spgemm(a_blocks, b_blocks, pa, pb, pc, 7)
     torch.cuda.synchronize()
