@@ -40,7 +40,15 @@ Phases, each printing its seconds:
      ``expert_wgmma``, beside ``torch.bmm`` on the same view, and the
      stage alone bit for bit; then every route off its tile grid, d and f
      off a multiple of 8 in bf16, fp16, fp32 and mixed, views off
-     alignment, and ``expert_split`` held to each of its six products.
+     alignment, and ``expert_split`` held to each of its six products;
+  9. every model: the other six paper models (rowwise, columnwise, outer,
+     fine, monoA, monoB) through the front door on 27-PTAP at n=42; all
+     seven and ``model="auto"`` on LP-pds100 at scale 1, where auto's
+     selection must be the seven cost reports with the minimum selected;
+     rowwise, columnwise and outer on 27-AP at n=42, with a profiler
+     breakdown of one rowwise and one outer call.  Each run: plan, compile,
+     10 calls after a warm-up, the collective's items per call against the
+     plan's, the peak memory, and the last call against scipy in float64.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -261,16 +269,49 @@ def scipy_csr(structure, values):
     )
 
 
-def main_path_block1(inst, device, rng):
-    """Plan, compile and run one AMG product through the front door; check
-    it against scipy in float64 at C's coordinates on the card."""
+def check_product(inst, c, a_np, b_np, device, what: str) -> float:
+    """``c`` (dense, on the card) against scipy in float64 at C's
+    coordinates, within 1e-4 + 1e-4 |want|, with exact zeros elsewhere;
+    returns the max abs error."""
+    import torch
+
+    a_s, b_s, c_s = inst.a, inst.b, inst.c
+    want = (scipy_csr(a_s, a_np) @ scipy_csr(b_s, b_np)).tocsr()
+    want.sum_duplicates()
+    want.sort_indices()
+    if not (np.array_equal(want.indptr, c_s.indptr) and np.array_equal(want.indices, c_s.indices)):
+        fail(f"{what}: scipy's product structure differs from the planned C")
+    crow, ccol = c_s.coo()
+    rows, cols = torch.as_tensor(crow, device=device), torch.as_tensor(ccol, device=device)
+    if tuple(c.shape) != c_s.shape or c.device.type != "cuda" or c.dtype != torch.float32:
+        fail(f"{what}: result {tuple(c.shape)} {c.dtype} on {c.device}")
+    got = c[rows, cols].double()
+    ref = torch.from_numpy(want.data).to(device)
+    err = (got - ref).abs()
+    if not bool(torch.isfinite(c).all()) or not bool((err <= 1e-4 + 1e-4 * ref.abs()).all()):
+        fail(f"{what}: wrong product, max abs err {err.max().item()}")
+    if int(torch.count_nonzero(c)) != int(torch.count_nonzero(got)):
+        fail(f"{what}: nonzeros outside C's structure")
+    return float(err.max().item())
+
+
+def front_door_run(inst, model, device, rng, handle=None):
+    """Plan (unless ``handle`` is given), compile and run one model through
+    the front door: 1 warm-up call, then ``REPS`` timed calls, each ending
+    in a synchronize; the collective's items per call must equal the
+    plan's (``moved_items``); the last call is checked against scipy in
+    float64.  Returns (compiled handle, the last call's device values,
+    record)."""
     import torch
     import repro_torch
+    from repro_torch.distributed.plan_ir import moved_items
     from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
 
-    t0 = time.perf_counter()
-    handle = repro_torch.plan(inst, p=P, model="monoC", seed=0)
-    plan_s = time.perf_counter() - t0
+    plan_s = None
+    if handle is None:
+        t0 = time.perf_counter()
+        handle = repro_torch.plan(inst, p=P, model=model, seed=0)
+        plan_s = time.perf_counter() - t0
     report = handle.cost_report()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -286,56 +327,61 @@ def main_path_block1(inst, device, rng):
     dev_values = [(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
                   for a, b in values]
     for a, b in dev_values[:WARMUP]:
-        exe(a, b)
+        c = exe(a, b)
+    del c
     torch.cuda.synchronize()
     reset_launches()
+    comm = exe.runtime.comm
+    comm.reset()
     times = []
     for a, b in dev_values[WARMUP:]:
         t0 = time.perf_counter()
         c = exe(a, b)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = bsr_spgemm_local.launches["scalar_runs"]
-    if launches < REPS:
-        fail(f"{inst.name}: {launches} kernel launches in {REPS} calls")
-    # check the last call against scipy in float64
-    a_np, b_np = values[-1]
-    want = (scipy_csr(a_s, a_np) @ scipy_csr(b_s, b_np)).tocsr()
-    want.sum_duplicates()
-    want.sort_indices()
-    if not (np.array_equal(want.indptr, c_s.indptr) and np.array_equal(want.indices, c_s.indices)):
-        fail(f"{inst.name}: scipy's product structure differs from the planned C")
-    crow, ccol = c_s.coo()
-    rows, cols = torch.as_tensor(crow, device=device), torch.as_tensor(ccol, device=device)
-    if tuple(c.shape) != c_s.shape or c.device.type != "cuda" or c.dtype != torch.float32:
-        fail(f"{inst.name}: result {tuple(c.shape)} {c.dtype} on {c.device}")
-    got = c[rows, cols].double()
-    ref = torch.from_numpy(want.data).to(device)
-    err = (got - ref).abs()
-    if not bool(torch.isfinite(c).all()) or not bool((err <= 1e-4 + 1e-4 * ref.abs()).all()):
-        fail(f"{inst.name}: wrong product, max abs err {err.max().item()}")
-    if int(torch.count_nonzero(c)) != int(torch.count_nonzero(got)):
-        fail(f"{inst.name}: nonzeros outside C's structure")
+    what = f"{inst.name} {handle.model}"
+    items = moved_items(handle.execution_plan)
+    if comm.items_moved != REPS * items:
+        fail(f"{what}: the collective moved {comm.items_moved} items in {REPS} calls, "
+             f"not {REPS} x {items}")
+    err = check_product(inst, c, *values[-1], device, what)
     stats = {
         "instance": inst.name,
+        "model": handle.model,
         "shape": list(inst.shape),
         "nnz": [a_s.nnz, b_s.nnz, c_s.nnz],
         "n_mult": inst.n_mult,
-        "plan_s": round(plan_s, 3),
+        "plan_s": None if plan_s is None else round(plan_s, 3),
         "compile_s": round(compile_s, 3),
         "call_ms_median": round(statistics.median(times), 3),
         "call_ms": [round(t, 3) for t in times],
-        "launches_per_call": launches / REPS,
-        "planned_words": report["planned_words"],
+        "kernel_launches": {k: v for k, v in bsr_spgemm_local.launches.items() if v},
         "predicted_words": report["predicted_words"],
+        "planned_words": report["planned_words"],
+        "planned_items": report.get("planned_items"),
         "padded_words": report["padded_words"],
-        "pairs": handle.execution_plan.stats["n_pairs"],
-        "pairs_padded": handle.execution_plan.stats["pairs_padded"],
-        "max_abs_err": float(err.max().item()),
+        "items_moved_per_call": comm.items_moved // REPS,
+        "max_abs_err": err,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
-    print("main path", json.dumps(stats), flush=True)
+    del c
     return exe, dev_values[-1], stats
+
+
+def main_path_block1(inst, device, rng):
+    """Plan, compile and run one AMG product through the front door; check
+    it against scipy in float64 at C's coordinates on the card."""
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+
+    exe, last, stats = front_door_run(inst, "monoC", device, rng)
+    launches = bsr_spgemm_local.launches["scalar_runs"]
+    if launches < REPS:
+        fail(f"{inst.name}: {launches} kernel launches in {REPS} calls")
+    plan = exe.planned.execution_plan
+    stats.update(launches_per_call=launches / REPS, pairs=plan.stats["n_pairs"],
+                 pairs_padded=plan.stats["pairs_padded"])
+    print("main path", json.dumps(stats), flush=True)
+    return exe, last, stats
 
 
 def kernel_record_at(exe, a, b, library_ms):
@@ -364,7 +410,7 @@ def kernel_record_at(exe, a, b, library_ms):
     }
 
 
-def profile_call(exe, a, b, call_ms: float, calls: int = 3) -> None:
+def profile_call(exe, a, b, call_ms: float, calls: int = 3, label: str = "27-AP") -> None:
     """Where one front-door call's device time goes: the CUDA kernels that
     ``torch.profiler`` saw over a few calls, per call, against the median
     unprofiled call time ``call_ms`` (the idle share is the rest)."""
@@ -384,7 +430,7 @@ def profile_call(exe, a, b, call_ms: float, calls: int = 3) -> None:
         return
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
-    print(f"profile 27-AP call: call_ms={call_ms:.4f} device_busy_ms={busy_ms:.4f} "
+    print(f"profile {label} call: call_ms={call_ms:.4f} device_busy_ms={busy_ms:.4f} "
           f"idle_share={1 - busy_ms / call_ms:.3f}", flush=True)
     for e in kernels[:8]:
         print(f"profile   {e.self_device_time_total / 1e3 / calls:.4f} ms "
@@ -965,6 +1011,74 @@ def split_products(device):
     return rec
 
 
+NEW_MODELS = ("rowwise", "columnwise", "outer", "fine", "monoA", "monoB")
+
+
+def every_model(ap, ptap, ptap_stats, device, rng):
+    """Phase 9: the other six paper models and ``model="auto"`` through the
+    front door, each checked as ``front_door_run`` does.  (a) 27-PTAP at
+    n=42, the six models (monoC's record is phase 4's); (b) LP-pds100 at
+    scale 1 (A A^T of the interior-point normal equations), all seven, then
+    ``model="auto"``, whose ``.selection`` must be the seven cost reports
+    with the minimum selected, and its executor; (c) 27-AP at n=42, the 1D
+    models, whose dense local products (30-34 TFLOP a call) are the card's
+    work, with a profile of one rowwise and one outer call."""
+    import torch
+    import repro_torch
+    from repro_torch.core.matrices import lp_instance
+
+    records = {ptap.name: {"monoC": ptap_stats}}
+
+    def run(inst, model, handle=None):
+        t0 = time.perf_counter()
+        exe, last, rec = front_door_run(inst, model, device, rng, handle)
+        rec["seconds"] = round(time.perf_counter() - t0, 3)
+        key = "auto" if handle is not None else model
+        records.setdefault(inst.name, {})[key] = rec
+        print(f"every model {inst.name} {key}", json.dumps(rec), flush=True)
+        torch.cuda.empty_cache()
+        return exe, last, rec
+
+    t0 = time.perf_counter()
+    for model in NEW_MODELS:
+        run(ptap, model)
+    phase("every model (a) 27-PTAP", t0)
+
+    t0 = time.perf_counter()
+    lp = lp_instance("pds100")
+    reports = {}
+    for model in repro_torch.MODELS:
+        exe, _, _ = run(lp, model)
+        reports[model] = exe.planned.cost_report()
+    t1 = time.perf_counter()
+    auto = repro_torch.plan(lp, p=P, model="auto", seed=0)
+    auto_plan_s = time.perf_counter() - t1
+    chosen = [r["model"] for r in auto.selection if r["selected"]]
+    best = min(reports, key=lambda m: reports[m]["predicted_words"])
+    if [{k: v for k, v in r.items() if k != "selected"} for r in auto.selection] != [
+        reports[m] for m in repro_torch.executable_models()
+    ]:
+        fail(f"{lp.name}: auto's selection differs from the seven per-model cost reports")
+    if chosen != [auto.model] or reports[auto.model]["predicted_words"] != \
+            reports[best]["predicted_words"]:
+        fail(f"{lp.name}: auto selected {chosen}, not the minimum {best}")
+    _, _, rec = run(lp, "auto", handle=auto)
+    rec.update(plan_s=round(auto_plan_s, 3), selected=auto.model,
+               predicted_words_by_model={m: r["predicted_words"] for m, r in reports.items()})
+    print(f"every model {lp.name} auto selected {auto.model} "
+          f"({reports[auto.model]['predicted_words']} words)", flush=True)
+    phase("every model (b) LP-pds100", t0)
+
+    t0 = time.perf_counter()
+    for model in ("rowwise", "columnwise", "outer"):
+        exe, (a, b), rec = run(ap, model)
+        if model in ("rowwise", "outer"):
+            profile_call(exe, a, b, rec["call_ms_median"], calls=2, label=f"27-AP {model}")
+            torch.cuda.empty_cache()
+    phase("every model (c) 27-AP, 1D", t0)
+    return records
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a repository checkout")
@@ -1055,11 +1169,16 @@ def main() -> None:
     moe["edges"] = moe_edges(device)
     phase("K3 edge sweep", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    models = every_model(ap, ptap, ptap_stats, device, rng)
+    phase("every model", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
-        "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe,
+        "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
     }, indent=1))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",

@@ -8,7 +8,7 @@ the copies to the reference's results.  The public surface is the
 
     import repro_torch
 
-    spgemm = repro_torch.plan(A, B, p=4, model="monoC")
+    spgemm = repro_torch.plan(A, B, p=4, model="auto")
     spgemm.cost_report()
     C = spgemm.compile()(a_vals, b_vals)      # dense C tensor on the card
 
@@ -24,11 +24,12 @@ __all__ = [
     "ModelSpec",
     "PlannedSpGEMM",
     "SpGEMMInstance",
+    "executable_models",
     "plan",
 ]
 
 _FROM_API = ("plan", "PlannedSpGEMM", "CompiledSpGEMM")
-_FROM_REGISTRY = ("ModelSpec", "MODEL_SPECS")
+_FROM_REGISTRY = ("ModelSpec", "MODEL_SPECS", "executable_models")
 _FROM_CORE = ("MODELS", "SpGEMMInstance")
 
 

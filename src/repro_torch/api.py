@@ -1,5 +1,5 @@
-"""One front door: ``repro_torch.plan(A, B, p=4, model="monoC")`` — partition
-to product, on the card.
+"""One front door: ``repro_torch.plan(A, B, p=4)`` — partition to product, on
+the card.
 
 The PyTorch counterpart of ``repro.api``: the same pipeline over the
 declarative ``ModelSpec`` registry, with planning copied (numpy/scipy,
@@ -7,14 +7,18 @@ bit-for-bit the reference's results) and execution in PyTorch and CUDA:
 
     import repro_torch
 
-    spgemm = repro_torch.plan(A, B, p=4, model="monoC", eps=0.10, seed=0)
+    spgemm = repro_torch.plan(A, B, p=4, model="auto", eps=0.10, seed=0)
     spgemm.cost_report()             # predicted / planned / padded words
     exe = spgemm.compile()           # on the card; device="cpu" for the CPU
     C = exe(a_vals, b_vals)          # dense C tensor on the card, == A @ B
 
 ``A`` / ``B`` are structures (dense array, scipy sparse, or
-``SparseStructure``); values are 1-D nonzero vectors in canonical CSR order.
-Only monoC is ported so far: other models and ``model="auto"`` raise.
+``SparseStructure``); values are 1-D nonzero vectors in canonical CSR order
+for every model — the registry's ``pack_values`` hides monoC's block layout.
+``model`` is any of the paper's seven (``repro_torch.MODELS``) or ``"auto"``:
+partition every executable model and keep the communication-minimal one
+(the reference's rule: fewest predicted words among the plans that lower).
+The reference's Sparse SUMMA baseline (``"summa2d"``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from repro_torch.distributed.plan_ir import (
     measured_route_words,
     route_messages,
 )
-from repro_torch.distributed.registry import ModelSpec, get_spec
+from repro_torch.distributed.registry import ModelSpec, executable_models, get_spec
 
 __all__ = ["CompiledSpGEMM", "PlannedSpGEMM", "plan"]
 
@@ -105,6 +109,7 @@ class PlannedSpGEMM:
     execution_plan: ExecutionPlan | None
     eps: float = 0.10
     seed: int = 0
+    selection: list[dict] | None = None  # model="auto" sweep records
 
     @property
     def spec(self) -> ModelSpec:
@@ -131,6 +136,8 @@ class PlannedSpGEMM:
         - ``planned_words``: the words the lowered plan's routing tables
           actually schedule (transfer enumeration — an independent code
           path), item-weighted per the model's convention;
+        - ``planned_items``: for models whose items carry several words
+          (rowwise's B rows, columnwise's A columns), the items shipped;
         - ``padded_words``: what the padded all_to_all slots move;
         - ``planned_messages``: non-empty (src, dst) route cells;
         - ``bounds``: the classical eq. (1) lower bounds (local memory taken
@@ -171,7 +178,11 @@ class PlannedSpGEMM:
             plan_obj = build_volume_plan(self.hypergraph, self.partition.parts, p)
             report["planned_words"] = plan_obj.comm_words_ideal
         else:
-            report["planned_words"] = measured_route_words(plan_obj)
+            item_words = self.spec.item_words(inst)
+            report["planned_words"] = measured_route_words(plan_obj, item_words)
+            if item_words is not None:
+                # the unit count: item transfers (e.g. B-row shipments)
+                report["planned_items"] = measured_route_words(plan_obj)
         report["padded_words"] = plan_obj.comm_words_padded
         report["planned_messages"] = route_messages(plan_obj)
         return report
@@ -214,6 +225,34 @@ class PlannedSpGEMM:
 # ---------------------------------------------------------------------------
 # the front door
 # ---------------------------------------------------------------------------
+def _plan_one(
+    inst: SpGEMMInstance,
+    model: str,
+    p: int,
+    eps: float,
+    seed: int,
+    include_nz: bool,
+    engine: str,
+) -> PlannedSpGEMM:
+    spec = get_spec(model)
+    hg = spec.build(inst, include_nz=include_nz)
+    res = _partition(hg, p, eps=eps, seed=seed, engine=engine)
+    # a V^nz partition lowers only where the model's lowerer accepts one
+    # (fine); elsewhere the handle stays analysis-only
+    plan_obj = None
+    if not include_nz or spec.lower_include_nz:
+        plan_obj = spec.lower(inst, res.parts, p)
+    return PlannedSpGEMM(
+        instance=inst,
+        model=model,
+        hypergraph=hg,
+        partition=res,
+        execution_plan=plan_obj,
+        eps=eps,
+        seed=seed,
+    )
+
+
 def plan(
     A,
     B=None,
@@ -230,12 +269,15 @@ def plan(
     ``A`` / ``B`` give the nonzero structures (dense array, scipy sparse
     matrix, or ``SparseStructure`` — values never enter the inspector);
     alternatively ``A`` may be an existing ``SpGEMMInstance`` (``B``
-    omitted).  ``model`` must be a ported model (``"monoC"``); the
-    reference's other models and ``"auto"`` raise until their slices land.
-    ``engine`` is ``"flat"`` (default) or ``"loop"``; the results equal
-    ``repro.plan`` with the same arguments.
+    omitted).  ``model`` is one of the paper's seven (``MODELS``) or
+    ``"auto"``: partition every ``executable_models()`` candidate and keep
+    the one with the fewest predicted words, among those whose plans lower
+    when any does; the per-model cost reports land on ``.selection``.
+    ``include_nz`` keeps the V^nz nonzero vertices; only fine's lowerer
+    accepts such partitions, the other handles stay cost-only.  ``engine``
+    is ``"flat"`` (default) or ``"loop"``; the results equal ``repro.plan``
+    with the same arguments.
     """
-    spec = get_spec(model)
     if isinstance(A, SpGEMMInstance):
         if B is not None:
             raise ValueError("B must be omitted when A is an SpGEMMInstance")
@@ -244,16 +286,21 @@ def plan(
         if B is None:
             raise ValueError("B is required unless A is an SpGEMMInstance")
         inst = SpGEMMInstance.from_operands(A, B, name=name)
-    hg = spec.build(inst, include_nz=include_nz)
-    res = _partition(hg, p, eps=eps, seed=seed, engine=engine)
-    # monoC's lowerer takes no V^nz partition: such plans stay analysis-only
-    plan_obj = None if include_nz else spec.lower(inst, res.parts, p)
-    return PlannedSpGEMM(
-        instance=inst,
-        model=model,
-        hypergraph=hg,
-        partition=res,
-        execution_plan=plan_obj,
-        eps=eps,
-        seed=seed,
-    )
+    if model != "auto":
+        return _plan_one(inst, model, p, eps, seed, include_nz, engine)
+    candidates = [
+        _plan_one(inst, m, p, eps, seed, include_nz, engine)
+        for m in executable_models()
+    ]
+    records = []
+    for cand in candidates:
+        rec = cand.cost_report()
+        rec["selected"] = False
+        records.append(rec)
+    viable = [i for i, c in enumerate(candidates) if c.execution_plan is not None]
+    pool = viable or range(len(candidates))
+    best = min(pool, key=lambda i: records[i]["predicted_words"])
+    records[best]["selected"] = True
+    chosen = candidates[best]
+    chosen.selection = records
+    return chosen

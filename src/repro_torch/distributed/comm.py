@@ -33,5 +33,20 @@ class Loopback:
         self.items_moved += n_items
         return buf.transpose(0, 1)
 
+    def psum_scatter(self, buf: torch.Tensor) -> torch.Tensor:
+        """Reduce-scatter of a ``(p_src, p, rows, ...)`` stack of partial
+        sums: returns the ``(p, rows, ...)`` stack whose rank d holds the sum
+        over sources of chunk d — ``jax.lax.psum_scatter(..., tiled=False)``
+        on each rank's ``(p, rows, ...)`` buffer.  Every source ships its
+        chunks for the other p - 1 ranks whole, so the ``(p - 1) / p`` of the
+        stack that leaves its rank is counted, padding rows included.
+        """
+        if buf.shape[:2] != (self.p, self.p):
+            raise ValueError(
+                f"expected a ({self.p}, {self.p}, rows, ...) buffer; got {tuple(buf.shape)}"
+            )
+        self.items_moved += buf.numel() // self.p * (self.p - 1)
+        return buf.sum(0)
+
     def reset(self) -> None:
         self.items_moved = 0

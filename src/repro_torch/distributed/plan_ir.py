@@ -1,13 +1,13 @@
 """Plan IR: one model-agnostic description of a lowered SpGEMM execution.
 
-A copy of ``repro.distributed.plan_ir`` restricted to the monoC builders and
-the generic volume plan (the other builders arrive with their executors),
-plus ``plan_from_reference``, which rebuilds a plan lowered elsewhere.
+A copy of ``repro.distributed.plan_ir`` (every model's builders and the
+generic volume plan), plus ``plan_from_reference``, which rebuilds a plan
+lowered elsewhere, and ``moved_items``, what the executors' collectives move.
 
 The paper's central claim is that a hypergraph partition *is* an SpGEMM
 algorithm: the cut prescribes exactly the data movement.  ``ExecutionPlan``
 is that prescription made concrete — the inspector output every executor in
-``spgemm_exec`` consumes:
+``spgemm_exec`` consumes, whichever of the seven models produced it:
 
 - **ownership**: global-id -> part maps, one per object family the model
   distributes ("a_nz", "b_nz", "c_nz", ...).
@@ -19,7 +19,8 @@ is that prescription made concrete — the inspector output every executor in
   padding to the per-pair maximum so every rank's buffer has one shape.
 - **compute**: per-rank local work lists (the (pair_a, pair_b, pair_c)
   block multiplication lists the BSR kernel streams through).
-- **stats**: scalar accounting that is not a routing table (pair counts).
+- **stats**: scalar accounting that is not a routing table (fold volumes,
+  pair counts).
 
 Ideal (connectivity-metric) vs padded volume is tracked per route so the
 executor's overhead can be set against the combinatorial cost the
@@ -271,6 +272,131 @@ def derive_owner_from_pins(
 
 
 # ---------------------------------------------------------------------------
+# 1D row-wise (Ex. 5.1)
+# ---------------------------------------------------------------------------
+class RowwisePlan(ExecutionPlan):
+    """Row-wise plan: device d owns A/C row set R_d and B row set S_d; one
+    expand route ships each cut B-net (B row) to every part whose A-columns
+    touch it.  Legacy field names are accessors into the IR."""
+
+    @property
+    def row_part(self) -> np.ndarray:
+        return self.ownership["a_row"]
+
+    @property
+    def b_part(self) -> np.ndarray:
+        return self.ownership["b_row"]
+
+    @property
+    def local_rows(self) -> np.ndarray:
+        return self.local_ids["a_row"]
+
+    @property
+    def local_b_rows(self) -> np.ndarray:
+        return self.local_ids["b_row"]
+
+    @property
+    def send_idx(self) -> np.ndarray:
+        return self.routes["expand"].send_idx
+
+    @property
+    def recv_key(self) -> np.ndarray:
+        return self.routes["expand"].recv_key
+
+
+def build_rowwise_plan(
+    inst: SpGEMMInstance,
+    row_part: np.ndarray,
+    p: int,
+    b_part: np.ndarray | None = None,
+) -> RowwisePlan:
+    """Vectorized inspector for the row-wise model (CSC index arithmetic;
+    the reference keeps a loop-based executable specification)."""
+    I, K, J = inst.shape
+    row_part = np.asarray(row_part, dtype=np.int64)
+    if b_part is None:
+        # default B distribution: round-robin rows (paper Sec. 6: V^nz omitted)
+        b_part = np.arange(K, dtype=np.int64) % p
+    else:
+        b_part = np.asarray(b_part, dtype=np.int64)
+
+    # B row k is needed wherever A column k has a nonzero: one incidence per
+    # A nonzero, deduplicated to (k, part) pairs
+    acsc = inst.a_csc
+    ks = np.repeat(np.arange(K, dtype=np.int64), np.diff(acsc.indptr))
+    src, dst, items = _expand_transfers(
+        ks, row_part[acsc.indices.astype(np.int64)], b_part, p
+    )
+    local_b_rows, local_of_b = padded_id_lists(b_part, p)
+    route = build_route(src, dst, items, local_of_b, p, payload="B")
+    local_rows, _ = padded_id_lists(row_part, p)
+    return RowwisePlan(
+        model="rowwise",
+        p=p,
+        ownership={"a_row": row_part, "b_row": b_part},
+        local_ids={"a_row": local_rows, "b_row": local_b_rows},
+        routes={"expand": route},
+    )
+
+
+# ---------------------------------------------------------------------------
+# 1D outer-product (Ex. 5.2)
+# ---------------------------------------------------------------------------
+class OuterPlan(ExecutionPlan):
+    """Outer-product plan: device d owns A-column/B-row set K_d; the fold
+    phase (psum_scatter over C row blocks) carries the C-net volume."""
+
+    @property
+    def k_part(self) -> np.ndarray:
+        return self.ownership["k"]
+
+    @property
+    def c_part(self) -> np.ndarray:
+        return self.ownership["c_row"]
+
+    @property
+    def local_ks(self) -> np.ndarray:
+        return self.local_ids["k"]
+
+
+def build_outer_plan(
+    inst: SpGEMMInstance,
+    k_part: np.ndarray,
+    p: int,
+    c_part: np.ndarray | None = None,
+) -> OuterPlan:
+    I, K, J = inst.shape
+    k_part = np.asarray(k_part, dtype=np.int64)
+    if c_part is None:
+        c_part = np.arange(I, dtype=np.int64) % p
+    else:
+        c_part = np.asarray(c_part, dtype=np.int64)
+    local_ks, _ = padded_id_lists(k_part, p)
+    # ideal fold volume: per C nonzero, (#distinct contributing k-parts - 1)
+    cpos = inst.mult_i * J + inst.mult_j
+    pair = np.unique(cpos * p + k_part[inst.mult_k])
+    lam = np.bincount(pair // p)
+    ideal = int(np.maximum(lam[lam > 0] - 1, 0).sum())
+    # realized fold: the executor's psum_scatter reduces dense padded C row
+    # blocks regardless of sparsity — every device ships (p-1)/p of I_pad * J
+    I_pad = (I + p - 1) // p * p
+    padded = I_pad * (p - 1) * J if p > 1 else 0
+    return OuterPlan(
+        model="outer",
+        p=p,
+        ownership={"k": k_part, "c_row": c_part},
+        local_ids={"k": local_ks},
+        stats={
+            "fold_words_ideal": ideal,
+            "fold_words_padded": padded,
+            # the psum_scatter is all-pairs: every device sends one C-row
+            # chunk to each of the other p - 1
+            "fold_messages": p * (p - 1) if p > 1 else 0,
+        },
+    )
+
+
+# ---------------------------------------------------------------------------
 # 2D monochrome-C (Ex. 5.4)
 # ---------------------------------------------------------------------------
 class MonoCPlan(ExecutionPlan):
@@ -435,6 +561,240 @@ def plan_monoC_from_dense(
 
 
 # ---------------------------------------------------------------------------
+# 3D fine-grained (Def. 3.1)
+# ---------------------------------------------------------------------------
+class FinePlan(ExecutionPlan):
+    """Fine-grained plan: an arbitrary flop-level partition made executable.
+
+    Vertices of the fine hypergraph are scalar multiplications a_ik * b_kj;
+    the partition assigns each to a device.  Ownership maps distribute the
+    A, B and C nonzeros (derived from the pins when not given, so a cut net
+    of connectivity lambda costs exactly lambda - 1 transfers — predicted
+    connectivity == planned words).  Three routes realize the three net
+    families: ``expand_a`` / ``expand_b`` ship cut A-/B-nets before local
+    compute, ``reduce_c`` ships partial C contributions to each C nonzero's
+    owner afterwards — the paper's expand-expand-reduce schedule.
+
+    Per-device state the executor mirrors:
+
+    - operand slot tables ``[owned | received | zero]`` (as monoC);
+    - a *produced-C* table: slot r on device d accumulates d's partial sum
+      for the r-th distinct C nonzero d's multiplications contribute to
+      (``local_ids["c_prod"]``), plus a trailing garbage slot for padding;
+    - ``compute["pair_*"]``: padded (p, P_max) multiplication lists in slot
+      coordinates — pair_a/pair_b index the operand tables, pair_c the
+      produced table;
+    - ``compute["reduce_recv_slot"]``: (p, p, T_r) owned-C slot each arriving
+      reduce item folds into (-1 padding);
+    - ``compute["prod_to_owned"]``: (p, R_max) owned-C slot of each produced
+      slot when the producer already owns that C nonzero (-1 otherwise).
+    """
+
+    @property
+    def mult_part(self) -> np.ndarray:
+        return self.ownership["mult"]
+
+    @property
+    def a_part(self) -> np.ndarray:
+        return self.ownership["a_nz"]
+
+    @property
+    def b_part(self) -> np.ndarray:
+        return self.ownership["b_nz"]
+
+    @property
+    def c_part(self) -> np.ndarray:
+        return self.ownership["c_nz"]
+
+    @property
+    def a_table_slots(self) -> int:
+        return self.local_ids["a_nz"].shape[1] + self.p * self.routes["expand_a"].T + 1
+
+    @property
+    def b_table_slots(self) -> int:
+        return self.local_ids["b_nz"].shape[1] + self.p * self.routes["expand_b"].T + 1
+
+    @property
+    def n_prod_slots(self) -> int:
+        """Produced-C slots incl. the trailing garbage slot padding pairs hit."""
+        return self.local_ids["c_prod"].shape[1] + 1
+
+    @property
+    def n_c_slots(self) -> int:
+        """Owned-C slots incl. the trailing garbage slot padded arrivals hit."""
+        return self.local_ids["c_nz"].shape[1] + 1
+
+
+def build_fine_plan(
+    inst: SpGEMMInstance,
+    mult_part: np.ndarray,
+    p: int,
+    a_part: np.ndarray | None = None,
+    b_part: np.ndarray | None = None,
+    c_part: np.ndarray | None = None,
+    word_size: int = 1,
+) -> FinePlan:
+    """Lower a fine-grained (flop-level) partition to an executable plan.
+
+    ``mult_part`` is either a partition of the M multiplication vertices
+    (the include_nz=False fine hypergraph) or of the full include_nz vertex
+    set — in the latter case the nonzero-vertex assignments become the
+    ownership maps.  Ownership not provided either way is derived from the
+    pins (``derive_owner_from_pins``), which makes ``comm_words_ideal``
+    equal the fine hypergraph's connectivity cost exactly.
+    """
+    M = inst.n_mult
+    nA, nB, nC = inst.a.nnz, inst.b.nnz, inst.c.nnz
+    mult_part = np.asarray(mult_part, dtype=np.int64)
+    if len(mult_part) == M + nA + nB + nC and nA + nB + nC:
+        if a_part is None:
+            a_part = mult_part[M : M + nA]
+        if b_part is None:
+            b_part = mult_part[M + nA : M + nA + nB]
+        if c_part is None:
+            c_part = mult_part[M + nA + nB :]
+        mult_part = mult_part[:M]
+    elif len(mult_part) != M:
+        raise ValueError(
+            f"mult_part has {len(mult_part)} entries; expected {M} "
+            f"(multiplications) or {M + nA + nB + nC} (include_nz vertices)"
+        )
+    mult_dev = mult_part
+    a_pos, b_pos, c_pos = inst.mult_a_pos, inst.mult_b_pos, inst.mult_c_pos
+    if a_part is None:
+        a_part = derive_owner_from_pins(a_pos, mult_dev, nA, p)
+    else:
+        a_part = np.asarray(a_part, dtype=np.int64)
+    if b_part is None:
+        b_part = derive_owner_from_pins(b_pos, mult_dev, nB, p)
+    else:
+        b_part = np.asarray(b_part, dtype=np.int64)
+    if c_part is None:
+        c_part = derive_owner_from_pins(c_pos, mult_dev, nC, p)
+    else:
+        c_part = np.asarray(c_part, dtype=np.int64)
+
+    # expand routes: exactly the cut A-/B-net traffic of the fine partition
+    local_a, local_of_a = padded_id_lists(a_part, p)
+    src, dst, items = _expand_transfers(a_pos, mult_dev, a_part, p)
+    route_a = build_route(src, dst, items, local_of_a, p, "A", word_size)
+    local_b, local_of_b = padded_id_lists(b_part, p)
+    src, dst, items = _expand_transfers(b_pos, mult_dev, b_part, p)
+    route_b = build_route(src, dst, items, local_of_b, p, "B", word_size)
+    local_c, local_of_c = padded_id_lists(c_part, p)
+
+    # produced-C table: the distinct C nonzeros each device contributes to,
+    # device-major with ascending C ids (one partial-sum slot per entry)
+    prod_pairs = np.unique(mult_dev * max(nC, 1) + c_pos)
+    prod_dev, prod_c = prod_pairs // max(nC, 1), prod_pairs % max(nC, 1)
+    prod_counts = np.bincount(prod_dev, minlength=p)
+    R_max = max(int(prod_counts.max(initial=0)), 1)
+    starts = np.cumsum(prod_counts) - prod_counts
+    rank = np.arange(len(prod_dev), dtype=np.int64) - np.repeat(starts, prod_counts)
+    prod_ids = np.full((p, R_max), -1, dtype=np.int64)
+    prod_ids[prod_dev, rank] = prod_c
+    prod_slot = np.full((p, nC), -1, dtype=np.int64)
+    prod_slot[prod_dev, prod_c] = rank
+
+    # per-device multiplication lists in slot coordinates (one lexsort)
+    a_slots = _table_slots(a_part, local_of_a, route_a, nA, p)
+    b_slots = _table_slots(b_part, local_of_b, route_b, nB, p)
+    pa = a_slots[mult_dev, a_pos]
+    pb = b_slots[mult_dev, b_pos]
+    pc = prod_slot[mult_dev, c_pos]
+    assert (pa >= 0).all() and (pb >= 0).all() and (pc >= 0).all(), (
+        "routing missed a needed nonzero"
+    )
+    order = np.lexsort((pb, pa, pc, mult_dev))
+    pa, pb, pc, dev = pa[order], pb[order], pc[order], mult_dev[order]
+    counts = np.bincount(dev, minlength=p)
+    P_max = max(int(counts.max(initial=0)), 1)
+    starts = np.cumsum(counts) - counts
+    rank = np.arange(len(dev), dtype=np.int64) - np.repeat(starts, counts)
+    A_max, B_max = local_a.shape[1], local_b.shape[1]
+    pair_a = np.full((p, P_max), A_max + p * route_a.T, dtype=np.int64)
+    pair_b = np.full((p, P_max), B_max + p * route_b.T, dtype=np.int64)
+    pair_c = np.full((p, P_max), R_max, dtype=np.int64)
+    pair_a[dev, rank] = pa
+    pair_b[dev, rank] = pb
+    pair_c[dev, rank] = pc
+
+    # reduce route: every (C net, producing part) pair with a foreign owner —
+    # the cut C-net traffic.  Sender slots index the produced-C table.
+    red_pairs = np.unique(c_pos * p + mult_dev)  # item-major (c, part)
+    r_item, r_src = red_pairs // p, red_pairs % p
+    r_dst = c_part[r_item]
+    keep = r_src != r_dst
+    route_r = build_route(
+        r_src[keep],
+        r_dst[keep],
+        r_item[keep],
+        local_of_c,
+        p,
+        "C",
+        word_size,
+        send_slot=prod_slot[r_src[keep], r_item[keep]],
+    )
+    recv_slot = np.where(
+        route_r.recv_key >= 0, local_of_c[np.maximum(route_r.recv_key, 0)], -1
+    )
+    # produced slots the device itself owns fold straight into owned C slots
+    prod_owned = np.full((p, R_max), -1, dtype=np.int64)
+    d_ids, s_ids = np.nonzero(prod_ids >= 0)
+    gids = prod_ids[d_ids, s_ids]
+    own = c_part[gids] == d_ids
+    prod_owned[d_ids[own], s_ids[own]] = local_of_c[gids[own]]
+
+    return FinePlan(
+        model="fine",
+        p=p,
+        ownership={"mult": mult_dev, "a_nz": a_part, "b_nz": b_part, "c_nz": c_part},
+        local_ids={"a_nz": local_a, "b_nz": local_b, "c_nz": local_c, "c_prod": prod_ids},
+        routes={"expand_a": route_a, "expand_b": route_b, "reduce_c": route_r},
+        compute={
+            "pair_a": pair_a,
+            "pair_b": pair_b,
+            "pair_c": pair_c,
+            "reduce_recv_slot": recv_slot,
+            "prod_to_owned": prod_owned,
+        },
+        stats={"n_mult": int(M), "pairs_padded": int(p * P_max)},
+    )
+
+
+def plan_fine_from_dense(
+    a_dense,
+    b_dense,
+    p: int,
+    eps: float = 0.10,
+    seed: int = 0,
+    include_nz: bool = False,
+) -> tuple[FinePlan, SpGEMMInstance]:
+    """Model, partition, plan — the full fine-grained inspector pipeline.
+
+    Builds the fine hypergraph of the scalar nonzero structures, partitions
+    its multiplication vertices, and lowers the result to a ``FinePlan``.
+    With ``include_nz`` the partitioner also places the nonzero vertices and
+    those placements become the plan's ownership maps.
+
+    The operands may each be a dense array, a scipy sparse matrix, or a
+    ``SparseStructure`` — callers that already hold sparse structures never
+    round-trip through dense.
+    """
+    from repro_torch.core.partition import partition
+    from repro_torch.core.spgemm_models import build_model
+    from repro_torch.sparse.structure import as_structure
+
+    a_s = as_structure(a_dense)
+    b_s = as_structure(b_dense)
+    inst = SpGEMMInstance(a_s, b_s, name="fine")
+    hg = build_model(inst, "fine", include_nz=include_nz)
+    res = partition(hg, p, eps=eps, seed=seed)
+    plan = build_fine_plan(inst, res.parts, p)
+    return plan, inst
+
+
+# ---------------------------------------------------------------------------
 # Generic predicted-volume plan (any model)
 # ---------------------------------------------------------------------------
 def build_volume_plan(hg, parts: np.ndarray, p: int) -> ExecutionPlan:
@@ -494,7 +854,9 @@ def plan_from_reference(obj) -> ExecutionPlan:
     ``words_*_override`` fields), ``compute`` and ``stats``.  Only numpy
     arrays and ints are read, so a plan lowered by another implementation of
     this IR hands the *same* plan to this package's executors.  Every array
-    is copied.  A monoC plan comes back as a ``MonoCPlan``.
+    is copied, and the plan comes back as its model's class: ``RowwisePlan``
+    for rowwise and columnwise, ``OuterPlan`` for outer, ``FinePlan`` for
+    fine, monoA and monoB, ``MonoCPlan`` for monoC.
     """
 
     def arrays(group) -> dict[str, np.ndarray]:
@@ -516,7 +878,7 @@ def plan_from_reference(obj) -> ExecutionPlan:
         )
         for name, r in obj.routes.items()
     }
-    cls = MonoCPlan if obj.model == "monoC" else ExecutionPlan
+    cls = _PLAN_CLASSES.get(str(obj.model), ExecutionPlan)
     return cls(
         model=str(obj.model),
         p=int(obj.p),
@@ -526,3 +888,23 @@ def plan_from_reference(obj) -> ExecutionPlan:
         compute=arrays(obj.compute),
         stats=dict(obj.stats),
     )
+
+
+_PLAN_CLASSES = {
+    "rowwise": RowwisePlan,
+    "columnwise": RowwisePlan,
+    "outer": OuterPlan,
+    "fine": FinePlan,
+    "monoA": FinePlan,
+    "monoB": FinePlan,
+    "monoC": MonoCPlan,
+}
+
+
+def moved_items(plan: ExecutionPlan) -> int:
+    """Items one call of the plan's executor hands its collective: every
+    valid slot of every route (a B row, a block, a scalar — one item each),
+    plus the fold's padded words, since the outer plan's ``psum_scatter``
+    reduces dense padded C row blocks whatever their sparsity."""
+    items = sum(int((r.recv_key >= 0).sum()) for r in plan.routes.values())
+    return items + int(plan.stats.get("fold_words_padded", 0))

@@ -13,10 +13,17 @@ compile step; capturing the call as a CUDA graph is later work.
 ``compile_spgemm`` memoizes executors in a bounded LRU keyed like the
 reference's, with its mesh replaced by ``(p, device)``.
 
-Value conventions (``__call__`` inputs): monoC takes (nnz, b, b) block-value
-stacks in the *block* structure's CSR order (``to_bsr(...).blocks`` order);
-the ``repro_torch.api`` front door hides this behind
-``ModelSpec.pack_values``.
+Which packing, step and unpacking a plan gets is decided by its model's
+``registry.ModelSpec``; this module holds no per-model branch.
+
+Value conventions (``__call__`` inputs):
+
+- rowwise, columnwise, outer, fine, monoA, monoB: 1-D (nnz,) value vectors
+  in the operands' canonical CSR order (``SparseStructure`` order — what
+  ``structure_and_values`` returns);
+- monoC: (nnz, b, b) block-value stacks in the *block* structure's CSR order
+  (``to_bsr(...).blocks`` order).  The ``repro_torch.api`` front door hides
+  this behind ``ModelSpec.pack_values``.
 """
 from __future__ import annotations
 
@@ -132,11 +139,12 @@ class CompiledSpGEMM:
         self._a_shape, self._b_shape = setup.a_shape, setup.b_shape
         self.c_structure = None
         self._unpack = None
-        if c_structure is not None:
+        if c_structure is not None or not spec.needs_c_structure:
             self.set_c_structure(c_structure)
 
-    def set_c_structure(self, c_structure: SparseStructure) -> None:
-        """Upload the unpack indices for C's (block) structure."""
+    def set_c_structure(self, c_structure: SparseStructure | None) -> None:
+        """Upload the unpack indices (for C's (block) structure, where the
+        model's unpacking needs it)."""
         self.c_structure = c_structure
         self._unpack = self.spec.make_unpack(
             self.plan, c_structure, (self._I, self._J), self.device
@@ -165,7 +173,7 @@ class CompiledSpGEMM:
         return self.step(*self.pack(a, b))
 
     def unpack(self, c_local: torch.Tensor) -> torch.Tensor:
-        """Scatter rank-major C shards back to a dense (I, J) tensor (padded
+        """Turn rank-major C shards into the dense (I, J) tensor (padded
         block-grid shape for monoC) on the executor's device."""
         if self._unpack is None:
             raise ValueError(f"unpacking a {self.model} result needs c_structure")

@@ -1,16 +1,31 @@
-"""Executor phase: the monochrome-C SpGEMM (Ex. 5.4) in PyTorch.
+"""Executor phase: the paper's SpGEMM algorithms in PyTorch.
 
-Every C (block-)nonzero lives on one rank; the cut A-nets and B-nets lower
-to two padded all_to_all expand phases, and local compute streams the
-plan's pair lists through the BSR SpGEMM kernel, so the executor's
-arithmetic is exactly the coarsened multiplication vertices the model
-counts.  This mirrors ``repro.distributed.spgemm_exec``'s monoC executor
-with the p ranks stacked on one device (``comm.Loopback``).
+This mirrors ``repro.distributed.spgemm_exec`` with the p ranks stacked on
+one device (``comm.Loopback``):
 
-Structure-time vs value-time split (DESIGN.md §8): ``MonoCStep`` uploads
-the route tables, the flattened pair lists and their run offsets once; its
-call takes rank-major packed operand tables.  The dense entry point
-``monoC_spgemm`` is a thin wrapper over ``runtime.compile_spgemm``.
+- ``RowwiseStep``: 1D row-wise (Ex. 5.1) — one padded all_to_all of dense
+  B rows (exactly the cut B-nets of the partition, plus padding), then each
+  rank's dense ``A rows @ (K, J) table`` product.  Columnwise runs it on
+  ``C^T = B^T A^T``.
+- ``OuterStep``: 1D outer-product (Ex. 5.2) — each rank's dense partial C,
+  then a fold phase realized as a reduce-scatter over C row blocks.
+- ``MonoCStep``: 2D monochrome-C (Ex. 5.4) — every C (block-)nonzero lives
+  on one rank; the cut A-nets and B-nets lower to two padded all_to_all
+  expand phases, and local compute streams the plan's pair lists through
+  the BSR SpGEMM kernel, so the executor's arithmetic is exactly the
+  coarsened multiplication vertices the model counts.
+- ``FineStep``: 3D fine-grained (Def. 3.1), and monoA / monoB, whose plans
+  are fine plans — two expands, each rank's gather–multiply–segment-add into
+  its produced-partial-C table, and a reduce all_to_all of the cut C-nets
+  into each C nonzero's owner.
+
+Structure-time vs value-time split (DESIGN.md §8): each step uploads its
+route tables, work lists and scatter indices once, with the -1 padding of
+the plan's tables dropped there; its call takes rank-major packed operand
+tables.  The dense entry points are thin wrappers over
+``runtime.compile_spgemm``.  The local dense products and the segment-add
+are the reference's jitted XLA (not Pallas) and stay ``torch.matmul`` and
+``index_add_``; only monoC's local compute is a hand-written kernel.
 """
 from __future__ import annotations
 
@@ -18,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.comm import Loopback
-from repro_torch.distributed.plan_ir import MonoCPlan
+from repro_torch.distributed.plan_ir import FinePlan, MonoCPlan, OuterPlan, RowwisePlan
 from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, pair_runs
 
 
@@ -36,6 +51,201 @@ def _int32(x: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(x.astype(np.int32), device=device)
 
 
+def _send_route(route, n_own: int, device):
+    """A route's sends as flat indices into the rank-major stack of owned
+    tables (``(p * n_own, ...)``; -1 padding kept, so the send buffer has the
+    padded all_to_all's shape), with the number of real items and T."""
+    send = route.send_idx  # (p, p, T) local slots
+    src = np.arange(send.shape[0], dtype=np.int64)[:, None, None]
+    flat = np.where(send >= 0, src * n_own + send, -1)
+    return (
+        torch.as_tensor(flat.reshape(-1), device=device),
+        int((send >= 0).sum()),
+        send.shape[2],
+    )
+
+
+def _expand(comm: Loopback, own: torch.Tensor, route) -> torch.Tensor:
+    """``[owned | received | zero]`` slot tables of all ranks, flattened
+    rank-major to ``(p * table_slots, ...)``: one all_to_all of the owned
+    items each rank ships — THE cut-net traffic of this operand."""
+    flat_idx, n_items, T = route
+    p, n_own, item = own.shape[0], own.shape[1], own.shape[2:]
+    buf = _take0(own.reshape(p * n_own, *item), flat_idx).reshape(p, p, T, *item)
+    recv = comm.all_to_all(buf, n_items)
+    zero = own.new_zeros((p, 1, *item))
+    return torch.cat([own, recv.reshape(p, p * T, *item), zero], 1).reshape(-1, *item)
+
+
+def _flat(x: np.ndarray, device) -> torch.Tensor:
+    """An int64 index tensor: the dense tables of the 1D executors reach
+    past 2^31 elements at the AMG sizes."""
+    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device)
+
+
+# ---------------------------------------------------------------------------
+# 1D row-wise (Ex. 5.1)
+# ---------------------------------------------------------------------------
+class RowwiseStep:
+    """The row-wise executor core for one plan on one device.
+
+    ``step(a_local, b_local)`` takes rank-major packed dense row tables
+    (``a_local``: (p, I_max, K), rank d's A rows; ``b_local``:
+    (p, K_max, J), its B rows) and returns rank-major C rows (p, I_max, J)
+    in plan order (``unpack_rowwise_result``).  The expand is ONE all_to_all
+    of dense B rows.  Each rank's (K, J) table of the B rows it reads is
+    built, multiplied and dropped before the next rank's, so memory holds
+    one table at a time, not p.
+    """
+
+    def __init__(self, plan: RowwisePlan, K: int, J: int, device):
+        self.p, self.K, self.J = plan.p, K, J
+        self.comm = Loopback(plan.p)
+        route = plan.routes["expand"]
+        local_b = plan.local_b_rows
+        self._route = _send_route(route, local_b.shape[1], device)
+        # the send buffer is filled by one gather; its padding slots are
+        # zeroed after it
+        flat_idx = self._route[0]
+        self._send_rows = flat_idx.clamp(min=0)
+        self._send_pad = torch.nonzero(flat_idx < 0).reshape(-1)
+        # per destination rank: which (source, slot) arrivals land on which
+        # table rows, and its own rows (a prefix of its owned list)
+        self._tables = []
+        for d in range(plan.p):
+            s_ids, t_ids = np.nonzero(route.recv_key[:, d] >= 0)
+            n_own = int((local_b[d] >= 0).sum())
+            self._tables.append(
+                (
+                    _flat(s_ids, device),
+                    _flat(t_ids, device),
+                    _flat(route.recv_key[s_ids, d, t_ids], device),
+                    n_own,
+                    _flat(local_b[d, :n_own], device),
+                )
+            )
+
+    def _send_buffer(self, b_local: torch.Tensor) -> torch.Tensor:
+        p, K_max, J = b_local.shape
+        T = self._route[2]
+        buf = b_local.new_empty((p * p * T, J))
+        torch.index_select(b_local.reshape(p * K_max, J), 0, self._send_rows, out=buf)
+        buf.index_fill_(0, self._send_pad, 0)
+        return buf.reshape(p, p, T, J)
+
+    def __call__(self, a_local: torch.Tensor, b_local: torch.Tensor) -> torch.Tensor:
+        # THE cut-B-net traffic: (p_dst, p_src, T, J) rows from each source
+        recv = self.comm.all_to_all(self._send_buffer(b_local), self._route[1])
+        c = a_local.new_empty((self.p, a_local.shape[1], self.J))
+        for d, (s_ids, t_ids, keys, n_own, own_keys) in enumerate(self._tables):
+            table = b_local.new_zeros((self.K, self.J))
+            table.index_copy_(0, keys, recv[d, s_ids, t_ids])
+            table.index_copy_(0, own_keys, b_local[d, :n_own])
+            torch.matmul(a_local[d], table, out=c[d])
+            del table  # freed before the next rank's is allocated
+        return c
+
+
+def make_rowwise_step(plan: RowwisePlan, K: int, J: int, device) -> RowwiseStep:
+    """The row-wise executor core (``repro``'s ``make_rowwise_step``), with
+    the plan's tables uploaded to ``device`` once."""
+    return RowwiseStep(plan, K, J, device)
+
+
+def _dense_call_1d(plan, a_dense, b_dense, device) -> torch.Tensor:
+    """Shared dense entry for the 1D executors: derive structures, hit the
+    runtime cache, and feed the nonzero values through the executor."""
+    from repro_torch.distributed.runtime import compile_spgemm, torch_dtype
+    from repro_torch.sparse.structure import from_dense
+
+    a_dense = np.asarray(a_dense)
+    b_dense = np.asarray(b_dense)
+    a_s, b_s = from_dense(a_dense), from_dense(b_dense)
+    exe = compile_spgemm(
+        plan,
+        a_s,
+        b_s,
+        device=device,
+        dtype=torch_dtype(np.promote_types(a_dense.dtype, b_dense.dtype)),
+    )
+    return exe(a_dense[a_s.coo()], b_dense[b_s.coo()])
+
+
+def rowwise_spgemm(a_dense, b_dense, plan: RowwisePlan, device=None) -> torch.Tensor:
+    """Sparsity-dependent 1D row-wise SpGEMM.  Returns C rows in plan order
+    (rank-major: C[d, r] = row ``plan.local_rows[d, r]``); use
+    ``unpack_rowwise_result``.  Runs on the card unless ``device`` names
+    another; same-structure calls hit the runtime's cache."""
+    return _dense_call_1d(plan, a_dense, b_dense, device)
+
+
+def make_rowwise_unpack(plan: RowwisePlan, n_rows: int, device):
+    """``unpack(c_local) -> dense (n_rows, J)`` with its scatter indices
+    uploaded once: rank d's slot r goes to row ``plan.local_rows[d, r]``."""
+    local_rows = plan.local_rows
+    dev, slot = np.nonzero(local_rows >= 0)
+    rows = _flat(local_rows[dev, slot], device)
+    src = _flat(dev * local_rows.shape[1] + slot, device)
+
+    def unpack(c_local: torch.Tensor) -> torch.Tensor:
+        J = c_local.shape[-1]
+        out = c_local.new_zeros((n_rows, J))
+        out[rows] = c_local.reshape(-1, J)[src]
+        return out
+
+    return unpack
+
+
+def unpack_rowwise_result(c_local: torch.Tensor, plan: RowwisePlan, I: int) -> torch.Tensor:
+    """Rank-major C rows back to a dense (I, J) tensor on ``c_local``'s
+    device."""
+    return make_rowwise_unpack(plan, I, c_local.device)(c_local)
+
+
+# ---------------------------------------------------------------------------
+# 1D outer-product (Ex. 5.2)
+# ---------------------------------------------------------------------------
+class OuterStep:
+    """The outer-product executor core for one plan on one device.
+
+    ``step(a_cols, b_rows)`` takes rank-major packed operand tables
+    (``a_cols``: (p, I, K_max), rank d's A columns; ``b_rows``:
+    (p, K_max, J), its B rows) and returns C by row blocks of ceil(I / p),
+    rank-major (p, ceil(I / p), J): each rank's dense partial C, zero-padded
+    to p row blocks, folded by one reduce-scatter.
+    """
+
+    def __init__(self, plan: OuterPlan, I: int, J: int):
+        self.p, self.J = plan.p, J
+        self.I_pad = (I + plan.p - 1) // plan.p * plan.p
+        self.comm = Loopback(plan.p)
+
+    def __call__(self, a_cols: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
+        p, I = self.p, a_cols.shape[1]
+        partial = a_cols.new_zeros((p, self.I_pad, self.J))
+        for d in range(p):
+            torch.matmul(a_cols[d], b_rows[d], out=partial[d, :I])
+        # fold phase: reduce-scatter C row blocks
+        return self.comm.psum_scatter(partial.reshape(p, p, self.I_pad // p, self.J))
+
+
+def make_outer_step(plan: OuterPlan, I: int, J: int) -> OuterStep:
+    """The outer-product executor core (``repro``'s ``make_outer_step``); it
+    uploads nothing."""
+    return OuterStep(plan, I, J)
+
+
+def outer_product_spgemm(a_dense, b_dense, plan: OuterPlan, device=None) -> torch.Tensor:
+    """1D outer-product SpGEMM: rank d computes sum_{k in K_d} a_:k b_k:, and
+    the fold phase reduces partial C over ranks, scattering C row blocks.
+    Returns C by row blocks of ceil(I / p), rank-major; ``.reshape(-1, J)[:I]``
+    is C.  Runs on the card unless ``device`` names another."""
+    return _dense_call_1d(plan, a_dense, b_dense, device)
+
+
+# ---------------------------------------------------------------------------
+# 2D monochrome-C (Ex. 5.4)
+# ---------------------------------------------------------------------------
 class MonoCStep:
     """The monochrome-C executor core for one plan on one device.
 
@@ -53,19 +263,11 @@ class MonoCStep:
         self.p, self.block, self.device = p, block, torch.device(device)
         self.comm = Loopback(p)
         self.n_c_slots = plan.n_c_slots
-        self._routes = []
-        for op in ("a", "b"):
-            send = plan.routes[f"expand_{op}"].send_idx  # (p, p, T) local slots
-            n_own = plan.local_ids[f"{op}_nz"].shape[1]
-            src = np.arange(p, dtype=np.int64)[:, None, None]
-            flat = np.where(send >= 0, src * n_own + send, -1)
-            self._routes.append(
-                (
-                    torch.as_tensor(flat.reshape(-1), device=self.device),
-                    int((send >= 0).sum()),
-                    send.shape[2],
-                )
-            )
+        self._routes = [
+            _send_route(plan.routes[f"expand_{op}"], plan.local_ids[f"{op}_nz"].shape[1],
+                        self.device)
+            for op in ("a", "b")
+        ]
         # one pair list over the stacked tables, without the padding pairs
         rank = np.arange(p, dtype=np.int64)[:, None]
         pc_local = plan.compute["pair_c"]
@@ -81,22 +283,11 @@ class MonoCStep:
         self.run_c = _int32(run_c, self.device)
         self.n_c_blocks = p * plan.n_c_slots
 
-    def _expand(self, own: torch.Tensor, route) -> torch.Tensor:
-        """``[owned | received | zero]`` slot tables of all ranks, flattened
-        rank-major to (p * table_slots, b, b)."""
-        flat_idx, n_items, T = route
-        p, n_own, b = own.shape[0], own.shape[1], self.block
-        buf = _take0(own.reshape(p * n_own, b, b), flat_idx).reshape(p, p, T, b, b)
-        # THE cut-net traffic of this operand
-        recv = self.comm.all_to_all(buf, n_items)
-        zero = own.new_zeros((p, 1, b, b))
-        return torch.cat([own, recv.reshape(p, p * T, b, b), zero], 1).reshape(-1, b, b)
-
     def kernel_inputs(self, a_own: torch.Tensor, b_own: torch.Tensor) -> tuple:
         """The arguments of the step's one ``bsr_spgemm_local`` launch."""
         return (
-            self._expand(a_own, self._routes[0]),
-            self._expand(b_own, self._routes[1]),
+            _expand(self.comm, a_own, self._routes[0]),
+            _expand(self.comm, b_own, self._routes[1]),
             self.pair_a,
             self.pair_b,
             self.pair_c,
@@ -182,3 +373,131 @@ def unpack_monoC_result(
     (``inst.c`` of the plan instance); ``shape`` the padded dense shape
     (block-grid * block)."""
     return make_monoC_unpack(plan, c_structure, shape, c_local.device)(c_local)
+
+
+# ---------------------------------------------------------------------------
+# 3D fine-grained (Def. 3.1); monoA and monoB lower to the same plans
+# ---------------------------------------------------------------------------
+class FineStep:
+    """The fine-grained executor core (expand-expand-reduce) for one plan on
+    one device.
+
+    ``step(a_own, b_own)`` takes rank-major packed scalar tables
+    ((p, N_max)) and returns rank-major owned-C slot values (p, C_max + 1);
+    the trailing slot per rank is the padding sink and stays zero.  Local
+    compute is two gathers, a product and ONE ``index_add_`` over all p
+    ranks' multiplications into their produced-partial-C tables (rank d's
+    slots offset by d times the per-rank table size, the padding pairs
+    dropped); the reduce all_to_all then folds foreign partials into each C
+    nonzero's owner, and the partials a rank both produced and owns fold
+    locally (``prod_to_owned``).
+    """
+
+    def __init__(self, plan: FinePlan, device):
+        p = plan.p
+        self.p = p
+        self.comm = Loopback(p)
+        self.n_prod = plan.n_prod_slots
+        self.n_c = plan.n_c_slots
+        self._routes = [
+            _send_route(plan.routes[f"expand_{op}"], plan.local_ids[f"{op}_nz"].shape[1],
+                        device)
+            for op in ("a", "b")
+        ]
+        self._reduce = _send_route(plan.routes["reduce_c"], self.n_prod, device)
+        rank = np.arange(p, dtype=np.int64)[:, None]
+        pc = plan.compute["pair_c"]
+        keep = (pc != self.n_prod - 1).ravel()
+        pairs = (
+            (plan.compute["pair_a"] + rank * plan.a_table_slots).ravel()[keep],
+            (plan.compute["pair_b"] + rank * plan.b_table_slots).ravel()[keep],
+            (pc + rank * self.n_prod).ravel()[keep],
+        )
+        self.pair_a, self.pair_b, self.pair_c = (_flat(x, device) for x in pairs)
+        # arrivals of the reduce: slot [s, d, t] folds into d's owned C slot
+        recv_slot = plan.compute["reduce_recv_slot"]
+        s_ids, d_ids, t_ids = np.nonzero(recv_slot >= 0)
+        self._arrivals = tuple(_flat(x, device) for x in (d_ids, s_ids, t_ids))
+        self._arrival_dst = _flat(d_ids * self.n_c + recv_slot[s_ids, d_ids, t_ids], device)
+        own = plan.compute["prod_to_owned"]
+        d_ids, r_ids = np.nonzero(own >= 0)
+        self._own_src = _flat(d_ids * self.n_prod + r_ids, device)
+        self._own_dst = _flat(d_ids * self.n_c + own[d_ids, r_ids], device)
+
+    def __call__(self, a_own: torch.Tensor, b_own: torch.Tensor) -> torch.Tensor:
+        p = self.p
+        a_tab = _expand(self.comm, a_own, self._routes[0])
+        b_tab = _expand(self.comm, b_own, self._routes[1])
+        # local compute: exactly this rank's multiplication vertices
+        prods = a_tab[self.pair_a] * b_tab[self.pair_b]
+        partial = prods.new_zeros(p * self.n_prod).index_add_(0, self.pair_c, prods)
+        # reduce phase: ship foreign partials to their C owners
+        flat_idx, n_items, T = self._reduce
+        recv = self.comm.all_to_all(_take0(partial, flat_idx).reshape(p, p, T), n_items)
+        c = partial.new_zeros(p * self.n_c)
+        c.index_add_(0, self._arrival_dst, recv[self._arrivals])
+        c.index_add_(0, self._own_dst, partial[self._own_src])
+        return c.reshape(p, self.n_c)
+
+
+def make_fine_step(plan: FinePlan, device) -> FineStep:
+    """The fine-grained executor core (``repro``'s ``make_fine_step``), with
+    the plan's tables uploaded to ``device`` once."""
+    return FineStep(plan, device)
+
+
+def fine_spgemm(a, b, plan: FinePlan, device=None) -> torch.Tensor:
+    """3D fine-grained SpGEMM (Def. 3.1): expand-expand-reduce.
+
+    ``plan`` is a ``FinePlan`` over the scalar nonzero structures of the
+    operands (``plan_ir.plan_fine_from_dense`` builds both).  ``a`` / ``b``
+    may each be a dense array, a scipy sparse matrix, or an
+    ``(SparseStructure, values)`` pair — sparse callers never densify.
+    Returns rank-major owned-C slot values (p, C_max + 1); use
+    ``unpack_fine_result``.  Runs on the card unless ``device`` names
+    another; same-structure calls hit the runtime's cache.
+    """
+    from repro_torch.distributed.runtime import compile_spgemm, torch_dtype
+    from repro_torch.sparse.structure import structure_and_values
+
+    a_s, a_vals = structure_and_values(a)
+    b_s, b_vals = structure_and_values(b)
+    if a_s.nnz != len(plan.a_part) or b_s.nnz != len(plan.b_part):
+        raise ValueError("plan was built for a different nonzero structure")
+    exe = compile_spgemm(
+        plan,
+        a_s,
+        b_s,
+        device=device,
+        dtype=torch_dtype(np.promote_types(a_vals.dtype, b_vals.dtype)),
+    )
+    return exe(a_vals, b_vals)
+
+
+def make_fine_unpack(plan: FinePlan, c_structure, shape: tuple[int, int], device):
+    """``unpack(c_local) -> dense (shape)`` with its scatter indices
+    uploaded once: owned C slots go to their coordinates."""
+    local_c = plan.local_ids["c_nz"]
+    dev, slot = np.nonzero(local_c >= 0)
+    gids = local_c[dev, slot]
+    crow, ccol = c_structure.coo()
+    src = _flat(dev * plan.n_c_slots + slot, device)
+    rows, cols = _flat(crow[gids], device), _flat(ccol[gids], device)
+
+    def unpack(c_local: torch.Tensor) -> torch.Tensor:
+        out = c_local.new_zeros(shape)
+        out[rows, cols] = c_local.reshape(-1)[src]
+        return out
+
+    return unpack
+
+
+def unpack_fine_result(
+    c_local: torch.Tensor,
+    plan: FinePlan,
+    c_structure,
+    shape: tuple[int, int],
+) -> torch.Tensor:
+    """Scatter rank-major owned-C slot values back to a dense tensor on
+    ``c_local``'s device."""
+    return make_fine_unpack(plan, c_structure, shape, c_local.device)(c_local)

@@ -1,6 +1,7 @@
 """The port on a CUDA card: the BSR SpGEMM, BSR SpMM and grouped GEMM
 kernels against their plain versions, the ``ops`` entry point against its
-CPU path, and the monoC front door and tiled path against dense ``A @ B``.
+CPU path, the monoC front door and tiled path against dense ``A @ B``, and
+the other six models and ``model="auto"`` against their CPU path and scipy.
 
 Marked ``gpu``; every test skips where no CUDA device exists (decided in
 the ``cuda`` fixture, never at import).  On a card:
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 import repro_torch
-from repro_torch.distributed.plan_ir import plan_monoC_from_dense
+from repro_torch.distributed.plan_ir import moved_items, plan_monoC_from_dense
 from repro_torch.distributed.spgemm_exec import monoC_spgemm, unpack_monoC_result
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsr_spgemm import (
@@ -495,3 +496,67 @@ def test_tiled_path_on_the_card(cuda, block):
     np.testing.assert_allclose(
         c[: a.shape[0], : b.shape[1]].cpu().numpy(), a @ b, rtol=1e-4, atol=1e-4
     )
+
+
+def _scipy_product(a_s, av, b_s, bv) -> np.ndarray:
+    """A @ B in float64 by scipy, from canonical CSR values."""
+    import scipy.sparse as sp
+
+    a = sp.csr_matrix((av.astype(np.float64), a_s.indices, a_s.indptr), shape=a_s.shape)
+    b = sp.csr_matrix((bv.astype(np.float64), b_s.indices, b_s.indptr), shape=b_s.shape)
+    return (a @ b).toarray()
+
+
+@pytest.mark.parametrize(
+    "model", ["rowwise", "columnwise", "outer", "fine", "monoA", "monoB", "auto"]
+)
+def test_every_model_on_the_card(cuda, model):
+    rng = np.random.default_rng(3)
+    a = (rng.standard_normal((70, 55)) * (rng.random((70, 55)) < 0.1)).astype(np.float32)
+    b = (rng.standard_normal((55, 48)) * (rng.random((55, 48)) < 0.12)).astype(np.float32)
+    a_s, b_s = from_dense(a), from_dense(b)
+    av, bv = a[a_s.coo()], b[b_s.coo()]
+    handle = repro_torch.plan(a_s, b_s, p=4, model=model)
+    exe = handle.compile()
+    assert exe.device.type == "cuda"
+    exe.runtime.comm.reset()
+    c = exe(av, bv)
+    assert c.device.type == "cuda" and c.dtype == torch.float32
+    assert exe.runtime.comm.items_moved == moved_items(handle.execution_plan)
+    on_cpu = handle.compile(device="cpu")(av, bv)
+    np.testing.assert_allclose(c.cpu().numpy(), on_cpu.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(c.cpu().numpy(), _scipy_product(a_s, av, b_s, bv),
+                               rtol=1e-4, atol=1e-4)
+
+
+def stacked_rowwise(plan, a_local, b_local, K: int, J: int) -> torch.Tensor:
+    """The row-wise step with all p ranks' (K, J) tables stacked at once
+    (as the reference's shard_map holds them): each rank's own B rows and
+    the rows it receives, looked up at their owners, then one batched
+    product."""
+    p = plan.p
+    tables = b_local.new_zeros((p, K, J))
+    local = plan.local_b_rows
+    for d in range(p):
+        n_own = int((local[d] >= 0).sum())
+        tables[d, torch.as_tensor(local[d, :n_own])] = b_local[d, :n_own]
+        for s, t in zip(*np.nonzero(plan.recv_key[:, d] >= 0)):
+            k = plan.recv_key[s, d, t]
+            owner, slot = np.argwhere(local == k)[0]
+            tables[d, k] = b_local[owner, slot]
+    return torch.bmm(a_local, tables)
+
+
+def test_columnwise_rank_by_rank_equals_stacked_tables(cuda):
+    rng = np.random.default_rng(4)
+    a = (rng.standard_normal((96, 80)) * (rng.random((96, 80)) < 0.08)).astype(np.float32)
+    b = (rng.standard_normal((80, 64)) * (rng.random((80, 64)) < 0.1)).astype(np.float32)
+    a_s, b_s = from_dense(a), from_dense(b)
+    handle = repro_torch.plan(a_s, b_s, p=4, model="columnwise")
+    exe = handle.compile()
+    av, bv = (torch.from_numpy(v).to(cuda) for v in (a[a_s.coo()], b[b_s.coo()]))
+    a_local, b_local = exe.runtime.pack(*exe.pack(av, bv))
+    # the inner row-wise step multiplies B^T by a table of A^T rows: (K, I)
+    got = exe.runtime.step(a_local, b_local)
+    want = stacked_rowwise(handle.execution_plan, a_local, b_local, a.shape[1], a.shape[0])
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)

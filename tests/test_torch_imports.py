@@ -13,7 +13,7 @@ import repro_torch
 import repro_torch.api, repro_torch.core, repro_torch.sparse
 import repro_torch.distributed.comm, repro_torch.distributed.plan_ir
 import repro_torch.distributed.registry, repro_torch.distributed.runtime
-import repro_torch.distributed.spgemm_exec
+import repro_torch.distributed.select, repro_torch.distributed.spgemm_exec
 import repro_torch.kernels.bsr_spgemm, repro_torch.kernels.ref
 import repro_torch.kernels.bsr_spmm, repro_torch.kernels.moe_gemm
 import repro_torch.kernels.ops, repro_torch.kernels._build
@@ -27,10 +27,11 @@ a_s = random_structure(12, 9, 0.3, rng)
 b_s = random_structure(9, 10, 0.3, rng)
 av = rng.standard_normal(a_s.nnz).astype(np.float32)
 bv = rng.standard_normal(b_s.nnz).astype(np.float32)
-c = repro_torch.plan(a_s, b_s, p=2, model="monoC").compile(device="cpu")(av, bv)
 a = np.zeros(a_s.shape, np.float32); a[a_s.coo()] = av
 b = np.zeros(b_s.shape, np.float32); b[b_s.coo()] = bv
-np.testing.assert_allclose(c.numpy(), a @ b, rtol=1e-5, atol=1e-5)
+for model in ("monoC", "rowwise", "fine"):
+    c = repro_torch.plan(a_s, b_s, p=2, model=model).compile(device="cpu")(av, bv)
+    np.testing.assert_allclose(c.numpy(), a @ b, rtol=1e-5, atol=1e-5)
 a8 = np.kron(rng.random((3, 2)) < 0.7, np.ones((8, 8))).astype(np.float32)
 b8 = rng.standard_normal((16, 8)).astype(np.float32)
 np.testing.assert_allclose(ops.spmm(to_bsr(a8, 8, 8), b8, device="cpu").numpy(), a8 @ b8,
