@@ -48,7 +48,14 @@ Phases, each printing its seconds:
      rowwise, columnwise and outer on 27-AP at n=42, with a profiler
      breakdown of one rowwise and one outer call.  Each run: plan, compile,
      10 calls after a warm-up, the collective's items per call against the
-     plan's, the peak memory, and the last call against scipy in float64.
+     plan's, the peak memory, and the last call against scipy in float64;
+ 10. serving: monoC at p = 4 on LP-pds100 A A^T — 64 multiplies looped and
+     as 8 dispatches of ``compile(batch=8)`` (one K1 launch each), then a
+     ``SpGEMMServer`` with a plan store draining 48 interleaved requests
+     (pool hits, a cold structure, a drifted one warm-replanned), a restart
+     that restores from the store, and a scripted transient fault; every
+     product against scipy in float64, no unscripted downgrade, fallback,
+     retry or failure.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -59,7 +66,7 @@ on the bf16 up projection, ``expert_split`` and ``split3_bf16`` on the
 fp32 one, ``stage16`` on the misaligned bf16 up projection; bounds at the
 peak of each route's arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
-``chip_smoke.json`` under ``OUT``.
+``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -410,10 +417,12 @@ def kernel_record_at(exe, a, b, library_ms):
     }
 
 
-def profile_call(exe, a, b, call_ms: float, calls: int = 3, label: str = "27-AP") -> None:
+def profile_call(exe, a, b, call_ms: float, calls: int = 3, label: str = "27-AP") -> dict:
     """Where one front-door call's device time goes: the CUDA kernels that
     ``torch.profiler`` saw over a few calls, per call, against the median
-    unprofiled call time ``call_ms`` (the idle share is the rest)."""
+    unprofiled call time ``call_ms`` (the idle share is the rest).  Printed,
+    and returned for the phase's record (empty if the profiler saw no
+    device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -427,14 +436,17 @@ def profile_call(exe, a, b, call_ms: float, calls: int = 3, label: str = "27-AP"
     ]
     if not kernels:
         print("profile: the profiler saw no device time (not measured)", flush=True)
-        return
+        return {}
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / calls
     print(f"profile {label} call: call_ms={call_ms:.4f} device_busy_ms={busy_ms:.4f} "
           f"idle_share={1 - busy_ms / call_ms:.3f}", flush=True)
-    for e in kernels[:8]:
-        print(f"profile   {e.self_device_time_total / 1e3 / calls:.4f} ms "
-              f"x{e.count / calls:g} {e.key[:90]}", flush=True)
+    top = [{"ms": e.self_device_time_total / 1e3 / calls, "count": e.count / calls,
+            "kernel": e.key[:90]} for e in kernels[:8]]
+    for k in top:
+        print(f"profile   {k['ms']:.4f} ms x{k['count']:g} {k['kernel']}", flush=True)
+    return {"call_ms": call_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / call_ms, "kernels": top}
 
 
 def csr_on_card(structure, values, device):
@@ -1073,10 +1085,214 @@ def every_model(ap, ptap, ptap_stats, device, rng):
     for model in ("rowwise", "columnwise", "outer"):
         exe, (a, b), rec = run(ap, model)
         if model in ("rowwise", "outer"):
-            profile_call(exe, a, b, rec["call_ms_median"], calls=2, label=f"27-AP {model}")
+            rec["profile"] = profile_call(exe, a, b, rec["call_ms_median"], calls=2,
+                                          label=f"27-AP {model}")
             torch.cuda.empty_cache()
     phase("every model (c) 27-AP, 1D", t0)
     return records
+
+
+def drifted(structure, frac: float, rng):
+    """``structure`` with ``frac`` of its nonzeros dropped and as many added at
+    seeded positions in the same rows (columns the row does not hold)."""
+    from repro_torch.sparse.structure import from_coo
+
+    rows, cols = structure.coo()
+    n_cols = structure.shape[1]
+    drop = rng.choice(len(rows), int(frac * len(rows)), replace=False)
+    keep = np.ones(len(rows), bool)
+    keep[drop] = False
+    taken = set((rows * n_cols + cols).tolist())
+    new_cols = []
+    for r in rows[drop].tolist():
+        while (c := int(rng.integers(n_cols))) in taken:
+            pass
+        taken.add(r * n_cols + c)
+        new_cols.append(c)
+    return from_coo(np.r_[rows[keep], rows[drop]], np.r_[cols[keep], new_cols],
+                    structure.shape)
+
+
+def serving(device, rng):
+    """Phase 10: the serving tier at p = 4, fp32, ``model="monoC"`` (K1
+    ``scalar_runs`` at block 1), on LP-pds100 A A^T (the interior-point
+    normal equations).  (a) A stream of 64 multiplies with fresh values:
+    64 unbatched calls, then 8 dispatches of ``compile(batch=8)``, with
+    multiplies/s and K1 launches (64 and 8) of each; every batched result
+    against its unbatched twin, 4 of them against scipy in float64.  (b) A
+    ``SpGEMMServer`` (max_batch 8, window 16, 4 pool entries, a plan store in
+    a temporary directory) drains 48 interleaved requests in windows of 16:
+    24 pds100 (pool hits after the first), 16 pds80 (cold, then hits) and 8
+    of pds100 with 2% of A's nonzeros moved within their rows, times its
+    transpose (a warm replan); each result against scipy in float64, then
+    released.  Any downgrade, fallback, retry, store error or failed
+    request fails the phase, as do K1 launches other than one a dispatch.
+    (c) A second server on the same store replays 8 requests: every
+    structure restored, no ``"partition"`` call.  (d) A fault scripted at
+    ``"execute"`` once: one retry, results still right."""
+    import tempfile
+
+    import torch
+    import repro_torch
+    from repro_torch.core.matrices import lp_instance
+    from repro_torch.core.spgemm_models import SpGEMMInstance
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+    from repro_torch.launch.serve import SpGEMMServer
+    from repro_torch.testing import faults
+
+    torch.cuda.reset_peak_memory_stats()
+    pds100, pds80 = lp_instance("pds100"), lp_instance("pds80")
+    drift_a = drifted(pds100.a, 0.02, rng)
+    drift = SpGEMMInstance(drift_a, drift_a.transpose(), name="LP-pds100-drift2%")
+    record = {}
+
+    def fresh(inst):
+        return (rng.standard_normal(inst.a.nnz).astype(np.float32),
+                rng.standard_normal(inst.b.nnz).astype(np.float32))
+
+    def k1_launches():
+        return bsr_spgemm_local.launches["scalar_runs"]
+
+    # (a) the stream: looped against batched, on one structure
+    t0 = time.perf_counter()
+    handle = repro_torch.plan(pds100, p=P, model="monoC", seed=0)
+    plan_s = time.perf_counter() - t0
+    one, batched = handle.compile(device=device), handle.compile(device=device, batch=8)
+    values = [fresh(pds100) for _ in range(64)]
+    stacks = [tuple(np.stack(v) for v in zip(*values[i:i + 8])) for i in range(0, 64, 8)]
+    one(*values[0]), batched(*stacks[0])  # warm
+    torch.cuda.synchronize()
+    rates = {}
+    for name, exe, args in (("looped", one, values), ("batched", batched, stacks)):
+        reset_launches()
+        t0 = time.perf_counter()
+        for a, b in args:
+            c = exe(a, b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        del c
+        rates[name] = {"seconds": seconds, "multiplies_per_s": 64 / seconds,
+                       "k1_launches": k1_launches(), "calls": len(args)}
+        if rates[name]["k1_launches"] != len(args):
+            fail(f"serving (a) {name}: {k1_launches()} K1 launches in {len(args)} calls")
+        rates[name]["profile"] = profile_call(exe, *args[0], seconds / len(args) * 1e3,
+                                              calls=2, label=f"LP-pds100 monoC {name}")
+    bit_equal, max_twin_diff, scipy_err = 0, 0.0, []
+    for i, (a, b) in enumerate(stacks):
+        c_batch = batched(a, b)
+        for j in range(8):
+            c_one = one(a[j], b[j])
+            bit_equal += int(torch.equal(c_batch[j], c_one))
+            max_twin_diff = max(max_twin_diff, max_err_within(
+                c_batch[j], c_one, 1e-5, f"serving (a): batched result {8 * i + j} "
+                                         "differs from its unbatched twin"))
+            if j == 0 and i % 2 == 0:
+                scipy_err.append(check_product(pds100, c_batch[j], a[j], b[j], device,
+                                               f"serving (a) batched {8 * i}"))
+            del c_one
+        del c_batch
+    record["stream"] = {
+        "instance": pds100.name, "plan_s": plan_s, **rates,
+        "batched_over_looped": rates["batched"]["multiplies_per_s"]
+        / rates["looped"]["multiplies_per_s"],
+        "bit_equal_twins": bit_equal, "max_twin_diff": max_twin_diff,
+        "max_abs_err_vs_scipy": max(scipy_err),
+    }
+    print("serving (a) stream", json.dumps(record["stream"]), flush=True)
+    del one, batched, handle
+    torch.cuda.empty_cache()
+
+    def check_and_release(requests, inst_of):
+        errs = []
+        for req in requests:
+            if req.error is not None or req.result is None:
+                fail(f"serving: request {req.rid} failed: {req.error!r}")
+            inst = inst_of[id(req.a_s)]
+            errs.append(check_product(inst, req.result, req.a_vals, req.b_vals, device,
+                                      f"serving request {req.rid} ({inst.name})"))
+            req.result = None
+        return errs
+
+    inst_of = {id(i.a): i for i in (pds100, pds80, drift)}
+    cycle = (pds100, pds80, pds100, pds100, pds80, drift)  # 24 : 16 : 8 over 48
+    with tempfile.TemporaryDirectory(prefix="plan_store_") as store:
+        config = dict(p=P, model="monoC", max_batch=8, batch_window=16, pool_entries=4,
+                      store_dir=store, device=str(device))
+        # (b) the loop: 48 requests in three windows of 16
+        server = SpGEMMServer(**config)
+        planning = []  # (the session's events, seconds) of each group's entry_for
+        entry_for = server.session.entry_for
+
+        def timed_entry_for(a_s, b_s):
+            n0, t0 = len(server.session.events), time.perf_counter()
+            entry = entry_for(a_s, b_s)
+            planning.append(([e.kind for e in server.session.events[n0:]],
+                             time.perf_counter() - t0))
+            return entry
+
+        server.session.entry_for = timed_entry_for
+        traffic = [(inst, fresh(inst)) for inst in cycle * 8]
+        reset_launches()
+        errs, step_s = [], 0.0
+        for w in range(3):
+            window = [server.submit((inst.a, va), (inst.b, vb))
+                      for inst, (va, vb) in traffic[16 * w:16 * w + 16]]
+            t0 = time.perf_counter()
+            server.step()
+            step_s += time.perf_counter() - t0
+            errs += check_and_release(window, inst_of)
+        report = server.report()
+        events = server.session.stats()["events"]
+        launches = k1_launches()
+        record["loop"] = {
+            "report": report, "events": events, "steps_s": step_s,
+            "qps_in_steps": report["completed"] / step_s, "k1_launches": launches,
+            "entry_for_s": planning,
+            "dispatch_s": step_s - sum(seconds for _, seconds in planning),
+            "max_abs_err_vs_scipy": max(errs),
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        }
+        print("serving (b) loop", json.dumps(record["loop"]), flush=True)
+        unscripted = {k: events.get(k, 0) for k in
+                      ("model_downgrade", "engine_fallback", "retry", "store_error")}
+        if any(unscripted.values()) or report["failed"] or report["completed"] != 48:
+            fail(f"serving (b): unscripted events {unscripted}, report {report}")
+        if events.get("cold_replan") != 2 or not events.get("warm_replan"):
+            fail(f"serving (b): expected 2 cold replans and a warm one, got {events}")
+        if launches != report["dispatches"]:
+            fail(f"serving (b): {launches} K1 launches for {report['dispatches']} dispatches")
+
+        # (c) restart: a second server on the same store
+        server = SpGEMMServer(**config)
+        faults.reset_counts()
+        replay = [(inst, fresh(inst)) for inst in cycle + (pds80, drift)]
+        replay = [server.submit((inst.a, va), (inst.b, vb)) for inst, (va, vb) in replay]
+        server.drain()
+        errs = check_and_release(replay, inst_of)
+        events = server.session.stats()["events"]
+        record["restart"] = {"events": events, "calls": faults.call_counts(),
+                             "report": server.report(), "max_abs_err_vs_scipy": max(errs)}
+        print("serving (c) restart", json.dumps(record["restart"]), flush=True)
+        if events.get("restored") != 3 or faults.call_counts().get("partition", 0):
+            fail(f"serving (c): the restart replanned: {record['restart']}")
+        if events.get("retry") or server.stats.failed:
+            fail(f"serving (c): unscripted retry or failure: {record['restart']}")
+
+        # (d) a transient fault scripted at "execute", once
+        requests = [fresh(pds100) for _ in range(4)]
+        requests = [server.submit((pds100.a, va), (pds100.b, vb)) for va, vb in requests]
+        with faults.inject("execute", times=1) as script:
+            server.drain()
+        errs = check_and_release(requests, inst_of)
+        retries = [e.detail for e in server.session.events if e.kind == "retry"]
+        record["fault"] = {"fired": script.fired, "retries": retries,
+                           "report": server.report(), "max_abs_err_vs_scipy": max(errs)}
+        print("serving (d) fault", json.dumps(record["fault"], default=str), flush=True)
+        if script.fired != 1 or len(retries) != 1 or retries[0]["stage"] != "execute":
+            fail(f"serving (d): expected one retry at execute, got {retries}")
+        if server.stats.failed:
+            fail(f"serving (d): {server.stats.failed} requests failed")
+    return record
 
 
 def main() -> None:
@@ -1145,7 +1361,7 @@ def main() -> None:
     scalar = kernel_record_at(exe_ap, a_last, b_last, library_ms)
     scalar["launches"] = scalar_launches
     print("K1 at 27-AP", json.dumps(scalar), flush=True)
-    profile_call(exe_ap, a_last, b_last, ap_stats["call_ms_median"])
+    ap_stats["profile"] = profile_call(exe_ap, a_last, b_last, ap_stats["call_ms_median"])
     phase("K1 at the main path's shapes", t0)
 
     t0 = time.perf_counter()
@@ -1174,12 +1390,18 @@ def main() -> None:
     models = every_model(ap, ptap, ptap_stats, device, rng)
     phase("every model", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    served = serving(device, rng)
+    phase("serving", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
-    }, indent=1))
+        "serving": served,
+    }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",
                   "src/repro/kernels/moe_gemm.py:61")

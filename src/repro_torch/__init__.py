@@ -11,6 +11,8 @@ the copies to the reference's results.  The public surface is the
     spgemm = repro_torch.plan(A, B, p=4, model="auto")
     spgemm.cost_report()
     C = spgemm.compile()(a_vals, b_vals)      # dense C tensor on the card
+    sess = repro_torch.session(p=4)           # warm pool, replans on drift
+    C = sess.multiply(A, B)
 
 Attributes resolve lazily (PEP 562), so ``import repro_torch`` loads
 nothing heavy until a name is used.
@@ -26,9 +28,10 @@ __all__ = [
     "SpGEMMInstance",
     "executable_models",
     "plan",
+    "session",
 ]
 
-_FROM_API = ("plan", "PlannedSpGEMM", "CompiledSpGEMM")
+_FROM_API = ("plan", "session", "PlannedSpGEMM", "CompiledSpGEMM")
 _FROM_REGISTRY = ("ModelSpec", "MODEL_SPECS", "executable_models")
 _FROM_CORE = ("MODELS", "SpGEMMInstance")
 

@@ -19,11 +19,16 @@ for every model — the registry's ``pack_values`` hides monoC's block layout.
 partition every executable model and keep the communication-minimal one
 (the reference's rule: fewest predicted words among the plans that lower).
 The reference's Sparse SUMMA baseline (``"summa2d"``) is not ported yet.
+
+``compile(batch=n)`` streams batches of same-structure values through one
+executor per capacity bucket, and ``session(...)`` is the long-lived handle
+for loops whose structure drifts (``distributed/session.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.comm import (
@@ -43,7 +48,7 @@ from repro_torch.distributed.plan_ir import (
 )
 from repro_torch.distributed.registry import ModelSpec, executable_models, get_spec
 
-__all__ = ["CompiledSpGEMM", "PlannedSpGEMM", "plan"]
+__all__ = ["CompiledSpGEMM", "PlannedSpGEMM", "plan", "session"]
 
 
 # ---------------------------------------------------------------------------
@@ -57,6 +62,12 @@ class CompiledSpGEMM:
     CSR order of the planned structures, as tensors or numpy arrays) and
     gets the dense (I, J) product as a tensor on the handle's device.  The
     raw rank-major interface stays available as ``.runtime``.
+
+    A handle compiled with ``batch=n`` streams value *batches*: inputs are
+    (m, nnz) stacks with ``1 <= m <= batch_capacity`` (the bucketed
+    capacity), the output is (m, I, J).  Ragged batches are zero-padded up
+    to the capacity on the way in and trimmed on the way out, so every
+    batch size within one bucket runs the same executor.
     """
 
     def __init__(self, planned: "PlannedSpGEMM", runtime_exe, spec: ModelSpec):
@@ -74,18 +85,55 @@ class CompiledSpGEMM:
     def dtype(self) -> torch.dtype:
         return self.runtime.dtype
 
+    @property
+    def batch_capacity(self) -> int | None:
+        """Batch slots the executor was built for (None: unbatched)."""
+        return self.runtime.batch
+
     def pack(self, a_values, b_values) -> tuple[torch.Tensor, torch.Tensor]:
-        """Canonical 1-D nonzero vectors -> the executor's value layout."""
+        """Canonical 1-D nonzero vectors -> the executor's value layout.
+
+        For a batched handle the inputs are (m, nnz) stacks, packed as one
+        and zero-padded to the compiled batch capacity (padding rows cost
+        device work, never correctness — their products are dropped by
+        ``__call__``).
+        """
         block = self.runtime.block
-        return (
-            self.spec.pack_values(torch.as_tensor(a_values), block),
-            self.spec.pack_values(torch.as_tensor(b_values), block),
-        )
+        if self.batch_capacity is None:
+            return (
+                self.spec.pack_values(torch.as_tensor(a_values), block),
+                self.spec.pack_values(torch.as_tensor(b_values), block),
+            )
+        cap = self.batch_capacity
+
+        def pack_stack(values, name):
+            values = torch.atleast_2d(torch.as_tensor(values))
+            m = values.shape[0]
+            if not 1 <= m <= cap:
+                raise ValueError(
+                    f"{name} batch of {m} exceeds the compiled capacity {cap}; "
+                    f"recompile with batch={m} (bucketed) or split the batch"
+                )
+            packed = self.spec.pack_values(values, block)
+            if m < cap:
+                padded = packed.new_zeros((cap, *packed.shape[1:]))
+                padded[:m] = packed
+                packed = padded
+            return packed, m
+
+        a, m_a = pack_stack(a_values, "A")
+        b, m_b = pack_stack(b_values, "B")
+        if m_a != m_b:
+            raise ValueError(f"A batch ({m_a}) and B batch ({m_b}) disagree")
+        return a, b
 
     def __call__(self, a_values, b_values) -> torch.Tensor:
         I, J = self._out
         a, b = self.pack(a_values, b_values)
-        return self.runtime.unpack(self.runtime(a, b))[:I, :J]
+        if self.batch_capacity is None:
+            return self.runtime.unpack(self.runtime(a, b))[:I, :J]
+        m = torch.atleast_2d(torch.as_tensor(a_values)).shape[0]
+        return self.runtime.unpack(self.runtime(a, b)[:m])[:, :I, :J]
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +152,8 @@ class PlannedSpGEMM:
 
     instance: SpGEMMInstance
     model: str
-    hypergraph: Hypergraph
+    # None on a handle restored from the plan store: no hypergraph was built
+    hypergraph: Hypergraph | None
     partition: PartitionResult
     execution_plan: ExecutionPlan | None
     eps: float = 0.10
@@ -125,6 +174,11 @@ class PlannedSpGEMM:
 
     def costs(self) -> CommCosts:
         """The partition's communication metrics (Lemma 4.2 machinery)."""
+        if self.hypergraph is None:
+            raise ValueError(
+                "this handle was restored from the plan store without its "
+                "hypergraph; replan for cost analysis"
+            )
         return evaluate(self.hypergraph, self.partition.parts, self.p)
 
     def cost_report(self) -> dict:
@@ -187,12 +241,18 @@ class PlannedSpGEMM:
         report["planned_messages"] = route_messages(plan_obj)
         return report
 
-    def compile(self, device=None, dtype=torch.float32) -> CompiledSpGEMM:
+    def compile(self, device=None, dtype=torch.float32, batch: int | None = None) -> CompiledSpGEMM:
         """Build the pipeline's executor on ``device``.
 
         ``device=None`` means the card (CUDA) and raises when there is none;
         ``device="cpu"`` runs the kernels' plain PyTorch versions.  The
         route tables, pair lists and scatter indices are uploaded here, once.
+
+        ``batch=n`` builds the *batched* executor: up to ``n`` same-structure
+        multiplies stream through one dispatch (multi-RHS, MCL/AMG iterated
+        chains).  ``n`` is rounded up to a geometric capacity bucket
+        (``runtime.batch_bucket``) so ragged request batches share one
+        executor; the handle pads and trims transparently.
         """
         if self.execution_plan is None:
             raise ValueError(
@@ -200,7 +260,7 @@ class PlannedSpGEMM:
                 f"but its lowerer does not accept V^nz partitions; "
                 f"replan with include_nz=False to execute"
             )
-        from repro_torch.distributed.runtime import compile_spgemm
+        from repro_torch.distributed.runtime import batch_bucket, compile_spgemm
 
         inst = self.instance
         runtime_exe = compile_spgemm(
@@ -211,6 +271,7 @@ class PlannedSpGEMM:
             dtype=dtype,
             block=1,
             c_structure=inst.c,
+            batch=None if batch is None else batch_bucket(batch),
         )
         return CompiledSpGEMM(self, runtime_exe, self.spec)
 
@@ -233,10 +294,20 @@ def _plan_one(
     seed: int,
     include_nz: bool,
     engine: str,
+    warm_start: np.ndarray | None = None,
+    warm_drift_limit: float = 0.5,
 ) -> PlannedSpGEMM:
     spec = get_spec(model)
     hg = spec.build(inst, include_nz=include_nz)
-    res = _partition(hg, p, eps=eps, seed=seed, engine=engine)
+    res = _partition(
+        hg,
+        p,
+        eps=eps,
+        seed=seed,
+        engine=engine,
+        warm_start=warm_start,
+        warm_drift_limit=warm_drift_limit,
+    )
     # a V^nz partition lowers only where the model's lowerer accepts one
     # (fine); elsewhere the handle stays analysis-only
     plan_obj = None
@@ -304,3 +375,39 @@ def plan(
     chosen = candidates[best]
     chosen.selection = records
     return chosen
+
+
+def session(
+    p: int = 8,
+    model: str = "auto",
+    eps: float = 0.10,
+    seed: int = 0,
+    engine: str = "flat",
+    store_dir: str | None = None,
+    policy=None,
+    **kwargs,
+):
+    """A resilient handle for iterated, structure-drifting SpGEMM.
+
+    ``repro_torch.session(p=4)`` returns a ``SpGEMMSession``: call it like
+    ``plan(...)`` would be called per structure, but across a loop —
+    ``sess.multiply(A, B)`` fingerprints the operands, reuses the warm
+    executor when the structure is unchanged, warm-start-replans on drift,
+    persists plans under ``store_dir`` (a restarted session rebuilds its
+    pool from there), and retries/downgrades through ``policy`` (a
+    ``resilience.FaultPolicy``) on stage failures.  ``device`` (a keyword,
+    default the card) is where its executors run.  See
+    ``repro_torch.distributed.session`` for the full contract.
+    """
+    from repro_torch.distributed.session import SpGEMMSession
+
+    return SpGEMMSession(
+        p=p,
+        model=model,
+        eps=eps,
+        seed=seed,
+        engine=engine,
+        store_dir=store_dir,
+        policy=policy,
+        **kwargs,
+    )

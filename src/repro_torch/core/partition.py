@@ -24,7 +24,10 @@ equal partitions:
   ``_match_vertices_loop``).
 
 The reference's ``engine="device"`` (a batched label-propagation V-cycle on
-the accelerator) is not ported yet; asking for it raises.
+the accelerator) is not ported yet; asking for it raises.  The warm start
+(``partition(..., warm_start=labels)``, ``_warm_partition``) is the
+reference's: a previous partition's labels carried onto a drifted
+structure, polished by one K-way pass.
 
 Engineering notes (documented, standard heuristics):
 - nets larger than ``BIG_NET`` pins are ignored during clustering and their
@@ -62,6 +65,7 @@ class PartitionResult:
     parts: np.ndarray  # (n_vertices,) int64 part ids
     p: int
     connectivity: int  # final objective value
+    warm: bool = False  # produced by the warm-start path (label reuse)
 
 
 # ---------------------------------------------------------------------------
@@ -591,12 +595,50 @@ def _global_vcycle(
     return levels, cur
 
 
+def _warm_partition(
+    hg: Hypergraph, p: int, part_cap: float, labels: np.ndarray, drift_limit: float
+) -> np.ndarray | None:
+    """Warm-start K-way partition from a previous run's labels.
+
+    ``labels`` is aligned to this hypergraph's vertices; entries outside
+    ``[0, p)`` mark vertices the caller could not map from the old structure
+    (new rows/mults after drift).  Unmapped vertices are placed
+    heaviest-first onto the lightest part, then one ``kway_refine`` polish
+    repairs the boundary the drift disturbed.  Returns ``None`` — caller
+    falls back to cold partitioning — when drift exceeds ``drift_limit`` or
+    the polished result is balance-infeasible (reusing labels would then
+    cost more than it saves)."""
+    labels = np.asarray(labels, dtype=np.int64).ravel()
+    if labels.shape != (hg.n_vertices,):
+        return None
+    invalid = (labels < 0) | (labels >= p)
+    if float(invalid.mean()) > drift_limit:
+        return None
+    parts = labels.copy()
+    miss = np.flatnonzero(invalid)
+    w = hg.w_comp.astype(np.float64)
+    if len(miss):
+        part_w = np.bincount(parts[~invalid], weights=w[~invalid], minlength=p)
+        order = miss[np.argsort(-w[miss], kind="stable")]
+        for v in order.tolist():
+            t = int(np.argmin(part_w))
+            parts[v] = t
+            part_w[t] += w[v]
+    parts = kway_refine(hg, parts, p, part_cap)
+    part_w = np.bincount(parts, weights=w, minlength=p)
+    if part_w.max() > part_cap + 1e-9:
+        return None
+    return parts
+
+
 def partition(
     hg: Hypergraph,
     p: int,
     eps: float = 0.03,
     seed: int = 0,
     engine: str = "flat",
+    warm_start: np.ndarray | None = None,
+    warm_drift_limit: float = 0.5,
 ) -> PartitionResult:
     """K-way partition via recursive bisection (+ a direct K-way pass).
 
@@ -611,9 +653,18 @@ def partition(
     ``engine="loop"`` is the retained per-move reference implementation:
     recursive bisection directly on the fine hypergraph, re-coarsening each
     subproblem with pairwise matching.
+
+    ``warm_start``: previous labels aligned to this hypergraph's vertices
+    (entries outside ``[0, p)`` = unmapped after drift).  When reuse is
+    viable (drift under ``warm_drift_limit`` and the polished result
+    feasible) the returned result has ``warm=True`` and skipped the full
+    multilevel search; otherwise cold partitioning runs with the requested
+    engine.
     """
     from repro_torch.core.comm import evaluate
+    from repro_torch.testing import faults
 
+    faults.fire("partition")
     if engine == "device":
         raise ValueError(
             "engine='device' is not ported yet (ROADMAP.md, Queue 1: the "
@@ -621,6 +672,17 @@ def partition(
         )
     if engine not in ("flat", "loop"):
         raise ValueError(f"unknown partition engine {engine!r}")
+    if warm_start is not None and hg.n_vertices:
+        if p == 1:
+            parts = np.zeros(hg.n_vertices, dtype=np.int64)
+            conn = evaluate(hg, parts, p).connectivity
+            return PartitionResult(parts=parts, p=p, connectivity=conn, warm=True)
+        total = float(hg.w_comp.sum())
+        part_cap = max((1 + eps) * total / p, float(hg.w_comp.max()))
+        parts = _warm_partition(hg, p, part_cap, warm_start, warm_drift_limit)
+        if parts is not None:
+            conn = evaluate(hg, parts, p).connectivity
+            return PartitionResult(parts=parts, p=p, connectivity=conn, warm=True)
     rng = np.random.default_rng(seed)
     parts = np.zeros(hg.n_vertices, dtype=np.int64)
     if p > 1 and hg.n_vertices:

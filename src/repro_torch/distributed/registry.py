@@ -6,6 +6,8 @@ Mirrors ``repro.distributed.registry``.  A ``ModelSpec`` bundles:
 - ``lower``: partition -> ``ExecutionPlan`` (pin-derived ownership so the
   planned words equal the model's connectivity prediction);
 - ``make_runner``: the value-time executor core (value packing + step);
+  with ``batch=m``, m value sets a dispatch (the reference lifts its step
+  with ``jax.vmap``; here each step takes a leading set axis of its own);
 - ``make_unpack`` / ``pack_values``: rank-major shards <-> caller layout;
 - ``item_words`` / ``measured``: how the plan's routed words relate to the
   model's predicted words.
@@ -43,7 +45,8 @@ class RunnerSetup:
     """What the runtime needs to run one executor: ``pack`` scatters 1-D
     value stacks into rank-major owned tables (its indices uploaded once),
     ``step`` runs the plan on those tables, and the value shapes and dense
-    shape it was built for."""
+    shape it was built for (the value shapes lead with the batch capacity
+    for a batched runner)."""
 
     pack: Callable
     step: Callable
@@ -127,31 +130,46 @@ def _lower_monoB(inst: SpGEMMInstance, parts: np.ndarray, p: int) -> ExecutionPl
 
 
 # ---------------------------------------------------------------------------
-# runner factories
+# runner factories (``batch=None``: one value set a call; ``batch=m``: m)
 # ---------------------------------------------------------------------------
-def _flat_index(coords, dims, device) -> torch.Tensor:
+def _setup(pack, step, a_shape, b_shape, out_shape, batch) -> RunnerSetup:
+    lead = () if batch is None else (batch,)
+    return RunnerSetup(pack, step, (*lead, *a_shape), (*lead, *b_shape), out_shape)
+
+
+def _flat_index(coords, dims) -> np.ndarray:
     """Row-major flat int64 index of coordinate arrays into a table of shape
     ``dims`` (the 1D models' dense tables pass 2^31 elements at the AMG
     sizes, so never int32)."""
-    return torch.as_tensor(np.ravel_multi_index(coords, dims).astype(np.int64), device=device)
+    return np.ravel_multi_index(coords, dims).astype(np.int64)
 
 
-def _dense_pack(a_idx, b_idx, a_dims, b_dims, dtype, device, item=()):
-    """``pack(a_values, b_values)`` scattering value stacks ((nnz, *item))
-    into zeroed rank-major tables (``*dims, *item``) at the flat positions
-    ``a_idx`` / ``b_idx`` of ``dims`` (uploaded once)."""
+def _dense_pack(a_idx, b_idx, a_dims, b_dims, dtype, device, item=(), batch=None):
+    """``pack(a_values, b_values)`` scattering value stacks ((nnz, *item),
+    or (batch, nnz, *item)) into zeroed rank-major tables
+    (``[batch,] *dims, *item``) at the flat positions ``a_idx`` / ``b_idx``
+    of ``dims`` (numpy, uploaded once, repeated per value set)."""
+    lead = () if batch is None else (batch,)
+    sizes = (int(np.prod(a_dims)), int(np.prod(b_dims)))
+    a_idx, b_idx = (
+        torch.as_tensor(_exec.per_set(idx, n, batch), device=device)
+        for idx, n in zip((a_idx, b_idx), sizes)
+    )
+    a_rows, b_rows = (n * (batch or 1) for n in sizes)
+
+    def scatter(values, idx, rows, dims):
+        out = torch.zeros((rows, *item), dtype=dtype, device=device)
+        out[idx] = values.reshape(-1, *item)
+        return out.view(*lead, *dims, *item)
 
     def pack(a_values, b_values):
-        a = torch.zeros((int(np.prod(a_dims)), *item), dtype=dtype, device=device)
-        b = torch.zeros((int(np.prod(b_dims)), *item), dtype=dtype, device=device)
-        a[a_idx] = a_values
-        b[b_idx] = b_values
-        return a.view(*a_dims, *item), b.view(*b_dims, *item)
+        return (scatter(a_values, a_idx, a_rows, a_dims),
+                scatter(b_values, b_idx, b_rows, b_dims))
 
     return pack
 
 
-def _rowwise_runner(plan, a_structure, b_structure, *, device, dtype, block):
+def _rowwise_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
     p = plan.p
     I, K = a_structure.shape
     _, J = b_structure.shape
@@ -165,15 +183,15 @@ def _rowwise_runner(plan, a_structure, b_structure, *, device, dtype, block):
     K_max = plan.local_ids["b_row"].shape[1]
     a_dims, b_dims = (p, I_max, K), (p, K_max, J)
     pack = _dense_pack(
-        _flat_index((rdev[ar], rslot[ar], ac), a_dims, device),
-        _flat_index((bdev[br], bslot[br], bc), b_dims, device),
-        a_dims, b_dims, dtype, device,
+        _flat_index((rdev[ar], rslot[ar], ac), a_dims),
+        _flat_index((bdev[br], bslot[br], bc), b_dims),
+        a_dims, b_dims, dtype, device, batch=batch,
     )
-    step = _exec.make_rowwise_step(plan, K, J, device)
-    return RunnerSetup(pack, step, (a_structure.nnz,), (b_structure.nnz,), (I, J))
+    step = _exec.make_rowwise_step(plan, K, J, device, batch)
+    return _setup(pack, step, (a_structure.nnz,), (b_structure.nnz,), (I, J), batch)
 
 
-def _outer_runner(plan, a_structure, b_structure, *, device, dtype, block):
+def _outer_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
     p = plan.p
     I, K = a_structure.shape
     _, J = b_structure.shape
@@ -185,18 +203,19 @@ def _outer_runner(plan, a_structure, b_structure, *, device, dtype, block):
     K_max = plan.local_ids["k"].shape[1]
     a_dims, b_dims = (p, I, K_max), (p, K_max, J)
     pack = _dense_pack(
-        _flat_index((kdev[ac], ar, kslot[ac]), a_dims, device),
-        _flat_index((kdev[br], kslot[br], bc), b_dims, device),
-        a_dims, b_dims, dtype, device,
+        _flat_index((kdev[ac], ar, kslot[ac]), a_dims),
+        _flat_index((kdev[br], kslot[br], bc), b_dims),
+        a_dims, b_dims, dtype, device, batch=batch,
     )
-    step = _exec.make_outer_step(plan, I, J)
-    return RunnerSetup(pack, step, (a_structure.nnz,), (b_structure.nnz,), (I, J))
+    step = _exec.make_outer_step(plan, I, J, batch)
+    return _setup(pack, step, (a_structure.nnz,), (b_structure.nnz,), (I, J), batch)
 
 
-def _owned_pack(plan, nA: int, nB: int, item: tuple[int, ...], dtype, device):
+def _owned_pack(plan, nA: int, nB: int, item: tuple[int, ...], dtype, device, batch=None):
     """``pack(a_values, b_values)`` scattering value stacks (``(nnz, *item)``)
     into rank-major owned tables (p, N_max, *item) by the plan's
-    ``a_nz`` / ``b_nz`` ownership."""
+    ``a_nz`` / ``b_nz`` ownership (a leading batch axis on both when
+    batched)."""
     if nA != len(plan.a_part) or nB != len(plan.b_part):
         raise ValueError("plan was built for a different nonzero structure")
     p = plan.p
@@ -205,28 +224,29 @@ def _owned_pack(plan, nA: int, nB: int, item: tuple[int, ...], dtype, device):
     N_a = plan.local_ids["a_nz"].shape[1]
     N_b = plan.local_ids["b_nz"].shape[1]
     return _dense_pack(
-        _flat_index((adev, aslot), (p, N_a), device),
-        _flat_index((bdev, bslot), (p, N_b), device),
-        (p, N_a), (p, N_b), dtype, device, item,
+        _flat_index((adev, aslot), (p, N_a)),
+        _flat_index((bdev, bslot), (p, N_b)),
+        (p, N_a), (p, N_b), dtype, device, item, batch,
     )
 
 
-def _fine_runner(plan, a_structure, b_structure, *, device, dtype, block):
+def _fine_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
     I, _ = a_structure.shape
     _, J = b_structure.shape
     nA, nB = a_structure.nnz, b_structure.nnz
-    pack = _owned_pack(plan, nA, nB, (), dtype, device)
-    return RunnerSetup(pack, _exec.make_fine_step(plan, device), (nA,), (nB,), (I, J))
+    pack = _owned_pack(plan, nA, nB, (), dtype, device, batch)
+    step = _exec.make_fine_step(plan, device, batch)
+    return _setup(pack, step, (nA,), (nB,), (I, J), batch)
 
 
-def _columnwise_runner(plan, a_structure, b_structure, *, device, dtype, block):
+def _columnwise_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
     # run rowwise on the transposed operands: the plan was lowered from the
     # C^T = B^T A^T instance, so the inner runner sees A' = B^T, B' = A^T
     # and produces C^T shards; values arrive in the *original* CSR orders
     # and are permuted into the transposed (col-major) orders on the device
     inner = _rowwise_runner(
         plan, b_structure.transpose(), a_structure.transpose(),
-        device=device, dtype=dtype, block=block,
+        device=device, dtype=dtype, block=block, batch=batch,
     )
     ar, ac = a_structure.coo()
     br, bc = b_structure.coo()
@@ -235,28 +255,29 @@ def _columnwise_runner(plan, a_structure, b_structure, *, device, dtype, block):
     perm_b = torch.as_tensor(np.lexsort((br, bc)), device=device)
 
     def pack(a_values, b_values):
-        return inner.pack(b_values[perm_b], a_values[perm_a])
+        return inner.pack(b_values[..., perm_b], a_values[..., perm_a])
 
     I, _ = a_structure.shape
     _, J = b_structure.shape
-    return RunnerSetup(pack, inner.step, (a_structure.nnz,), (b_structure.nnz,), (I, J))
+    return _setup(pack, inner.step, (a_structure.nnz,), (b_structure.nnz,), (I, J), batch)
 
 
-def _monoC_runner(plan, a_structure, b_structure, *, device, dtype, block):
+def _monoC_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
     # a_structure / b_structure are the BLOCK structures here; values are
     # (nnz, block, block) stacks in block CSR (= to_bsr) order
     I, _ = a_structure.shape
     _, J = b_structure.shape
     nA, nB = a_structure.nnz, b_structure.nnz
-    pack = _owned_pack(plan, nA, nB, (block, block), dtype, device)
-    step = _exec.make_monoC_step(plan, device, block=block)
-    return RunnerSetup(
-        pack, step, (nA, block, block), (nB, block, block), (I * block, J * block)
+    pack = _owned_pack(plan, nA, nB, (block, block), dtype, device, batch)
+    step = _exec.make_monoC_step(plan, device, block=block, batch=batch)
+    return _setup(
+        pack, step, (nA, block, block), (nB, block, block), (I * block, J * block), batch
     )
 
 
 # ---------------------------------------------------------------------------
-# unpackers (uniform signature: (plan, c_structure, shape, device) -> fn)
+# unpackers (uniform signature: (plan, c_structure, shape, device) -> fn;
+# fn takes rank-major shards with a leading set axis or without one)
 # ---------------------------------------------------------------------------
 def _unpack_rowwise(plan, c_structure, shape, device):
     return _exec.make_rowwise_unpack(plan, shape[0], device)
@@ -265,11 +286,12 @@ def _unpack_rowwise(plan, c_structure, shape, device):
 def _unpack_columnwise(plan, c_structure, shape, device):
     # the inner rowwise step computed C^T over J rows; transpose back
     unpack_t = _exec.make_rowwise_unpack(plan, shape[1], device)
-    return lambda c_local: unpack_t(c_local).T
+    return lambda c_local: unpack_t(c_local).transpose(-1, -2)
 
 
 def _unpack_outer(plan, c_structure, shape, device):
-    return lambda c_local: c_local.reshape(-1, shape[1])[: shape[0]]
+    # (.., p, ceil(I / p), J) row blocks, a leading set axis or none
+    return lambda c_local: c_local.reshape(*c_local.shape[:-3], -1, shape[1])[..., : shape[0], :]
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +302,7 @@ def _values_flat(vals, block: int):
 
 
 def _values_blocked(vals, block: int):
-    return vals.reshape(-1, block, block)
+    return vals.reshape(*vals.shape[:-1], -1, block, block)
 
 
 # ---------------------------------------------------------------------------
@@ -301,9 +323,11 @@ class ModelSpec:
     family: str  # "1D" | "2D" | "3D" (paper Sec. 5 classification)
     build: Callable  # (inst, include_nz=False) -> Hypergraph
     lower: Callable  # (inst, parts, p) -> ExecutionPlan
-    make_runner: Callable  # (plan, a_s, b_s, *, device, dtype, block) -> RunnerSetup
+    # (plan, a_s, b_s, *, device, dtype, block, batch=None) -> RunnerSetup
+    make_runner: Callable
     make_unpack: Callable  # (plan, c_structure, shape, device) -> unpack fn
-    pack_values: Callable = _values_flat  # (vals, block) -> executor layout
+    # (vals, block) -> executor layout, vals (nnz,) or a (sets, nnz) stack
+    pack_values: Callable = _values_flat
     item_words: Callable = lambda inst: None  # (inst) -> {route: words-per-item}
     needs_c_structure: bool = False  # unpack requires inst.c
     lower_include_nz: bool = False  # lowerer accepts include_nz partitions

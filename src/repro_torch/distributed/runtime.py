@@ -11,7 +11,14 @@ no host structure work.  PyTorch runs eagerly, so there is no trace or
 compile step; capturing the call as a CUDA graph is later work.
 
 ``compile_spgemm`` memoizes executors in a bounded LRU keyed like the
-reference's, with its mesh replaced by ``(p, device)``.
+reference's, with its mesh replaced by ``(p, device)``.  ``batch=n`` builds
+the batched executor for a fixed capacity of n value sets a dispatch (one
+more key dimension); callers bucket n through ``batch_bucket`` so ragged
+request batches share one executor — the LRU's ``misses`` (``cache_info``)
+is the port's counterpart of the reference's ``trace_count()``.
+
+The fault-injection patch points of the reference fire here too:
+``"compile"`` when an executor is built, ``"execute"`` on every call.
 
 Which packing, step and unpacking a plan gets is decided by its model's
 ``registry.ModelSpec``; this module holds no per-model branch.
@@ -35,9 +42,11 @@ import torch
 
 from repro_torch.distributed.registry import get_spec
 from repro_torch.sparse.structure import SparseStructure, structure_fingerprint
+from repro_torch.testing import faults
 
 __all__ = [
     "CompiledSpGEMM",
+    "batch_bucket",
     "cache_info",
     "compile_spgemm",
     "plan_fingerprint",
@@ -68,6 +77,23 @@ def torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return torch.from_numpy(np.zeros(0, dtype=np.dtype(dtype))).dtype
+
+
+# -- batch-size bucketing ----------------------------------------------------
+#: geometric batch-capacity buckets (x2 from 1).  A batched executor is
+#: built for a bucket CAPACITY, not a request count: ragged request batches
+#: pad up to the same capacity and hit the same executor.
+BATCH_GROWTH = 2
+
+
+def batch_bucket(n: int) -> int:
+    """Smallest batch-capacity bucket holding ``n`` items (1, 2, 4, 8, ...)."""
+    if n < 1:
+        raise ValueError(f"batch size must be >= 1, got {n}")
+    b = 1
+    while b < n:
+        b *= BATCH_GROWTH
+    return b
 
 
 # -- fingerprints ------------------------------------------------------------
@@ -101,7 +127,8 @@ class CompiledSpGEMM:
 
     ``__call__`` takes the value stacks (tensors or numpy arrays, never
     written to) and returns the executor's rank-major C shards on the
-    executor's device; ``unpack`` turns them into the dense product.
+    executor's device; ``unpack`` turns them into the dense product.  Built
+    with ``batch=n``, both carry a leading axis of n value sets.
     """
 
     def __init__(
@@ -114,7 +141,11 @@ class CompiledSpGEMM:
         dtype=torch.float32,
         block: int = 1,
         c_structure: SparseStructure | None = None,
+        batch: int | None = None,
     ):
+        faults.fire("compile")
+        if batch is not None and batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
         if a_structure.shape[1] != b_structure.shape[0]:
             raise ValueError(
                 f"inner dimensions disagree: {a_structure.shape} @ {b_structure.shape}"
@@ -124,6 +155,7 @@ class CompiledSpGEMM:
         self.device = resolve_device(device)
         self.dtype = torch_dtype(dtype)
         self.block = block
+        self.batch = batch
         spec = get_spec(plan.model)
         self.spec = spec
         setup = spec.make_runner(
@@ -133,6 +165,7 @@ class CompiledSpGEMM:
             device=self.device,
             dtype=self.dtype,
             block=block,
+            batch=batch,
         )
         self.pack, self.step = setup.pack, setup.step
         self._I, self._J = setup.out_shape
@@ -167,14 +200,18 @@ class CompiledSpGEMM:
         return x
 
     def __call__(self, a_values, b_values) -> torch.Tensor:
-        """Value-only update: returns rank-major C shards."""
+        """Value-only update: returns rank-major C shards (with a leading
+        batch axis when built with ``batch=n``)."""
+        faults.fire("execute")
         a = self._coerce(a_values, self._a_shape, "A")
         b = self._coerce(b_values, self._b_shape, "B")
         return self.step(*self.pack(a, b))
 
     def unpack(self, c_local: torch.Tensor) -> torch.Tensor:
         """Turn rank-major C shards into the dense (I, J) tensor (padded
-        block-grid shape for monoC) on the executor's device."""
+        block-grid shape for monoC) on the executor's device.  A batched
+        executor's shards (or a leading slice of them) unpack to
+        (sets, I, J) in one index pass."""
         if self._unpack is None:
             raise ValueError(f"unpacking a {self.model} result needs c_structure")
         return self._unpack(c_local)
@@ -186,7 +223,7 @@ _CACHE: OrderedDict[tuple, CompiledSpGEMM] = OrderedDict()
 _STATS = {"hits": 0, "misses": 0}
 
 
-def _cache_key(plan, a_structure, b_structure, device, dtype, block):
+def _cache_key(plan, a_structure, b_structure, device, dtype, block, batch):
     return (
         plan_fingerprint(plan),
         structure_fingerprint(a_structure),
@@ -194,6 +231,7 @@ def _cache_key(plan, a_structure, b_structure, device, dtype, block):
         (plan.p, str(device)),
         str(dtype),
         block,
+        batch,
     )
 
 
@@ -206,12 +244,14 @@ def compile_spgemm(
     dtype=torch.float32,
     block: int = 1,
     c_structure: SparseStructure | None = None,
+    batch: int | None = None,
 ) -> CompiledSpGEMM:
-    """Get (or build) the executor for a plan + structures + device + dtype.
-    Cache hits return the *same* ``CompiledSpGEMM`` object."""
+    """Get (or build) the executor for a plan + structures + device + dtype
+    (+ batch capacity).  Cache hits return the *same* ``CompiledSpGEMM``
+    object."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
-    key = _cache_key(plan, a_structure, b_structure, device, dtype, block)
+    key = _cache_key(plan, a_structure, b_structure, device, dtype, block, batch)
     exe = _CACHE.get(key)
     if exe is not None:
         _CACHE.move_to_end(key)
@@ -222,7 +262,7 @@ def compile_spgemm(
     _STATS["misses"] += 1
     exe = CompiledSpGEMM(
         plan, a_structure, b_structure, device=device, dtype=dtype,
-        block=block, c_structure=c_structure,
+        block=block, c_structure=c_structure, batch=batch,
     )
     _CACHE[key] = exe
     while len(_CACHE) > CACHE_SIZE:

@@ -22,7 +22,20 @@ one device (``comm.Loopback``):
 Structure-time vs value-time split (DESIGN.md §8): each step uploads its
 route tables, work lists and scatter indices once, with the -1 padding of
 the plan's tables dropped there; its call takes rank-major packed operand
-tables.  The dense entry points are thin wrappers over
+tables.
+
+Batched steps (``batch=m``, the counterpart of the reference's ``jax.vmap``
+over a step): every table carries one more leading axis, the m value sets
+of one dispatch, and each step still makes one pass over them.  The flat
+index lists a step uploads (route sends, pair lists, scatters) are repeated
+once per set, set i's copy offset by i times one set's table size
+(``per_set``), so monoC's one K1 launch and fine's gathers and one
+``index_add_`` run over all m sets; the 1D models' ``torch.matmul``s take
+the set axis as a batch.  An unbatched monoC or fine step has no set axis
+at all (its host-paced call dispatches nothing more); the 1D steps, paced
+by their dense products, run an unbatched call as a batch of one.
+
+The dense entry points are thin wrappers over
 ``runtime.compile_spgemm``.  The local dense products and the segment-add
 are the reference's jitted XLA (not Pallas) and stay ``torch.matmul`` and
 ``index_add_``; only monoC's local compute is a hand-written kernel.
@@ -44,6 +57,39 @@ def _take0(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, rows, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def per_set(idx, size: int, batch: int | None) -> np.ndarray:
+    """A flat index list into one value set's table, repeated for each set
+    of a batch, set i's copy offset by ``i * size``; -1 padding stays -1."""
+    idx = np.asarray(idx, dtype=np.int64).ravel()
+    if batch is None:
+        return idx
+    sets = np.arange(batch, dtype=np.int64)[:, None] * size
+    return np.where(idx >= 0, idx + sets, -1).ravel()
+
+
+def _sets(x: torch.Tensor, batch: int | None) -> torch.Tensor:
+    """A step's input with its leading value-set axis (one set unbatched)."""
+    return x.unsqueeze(0) if batch is None else x
+
+
+def _unsets(x: torch.Tensor, batch: int | None) -> torch.Tensor:
+    """A step's result without the set axis when the step is unbatched."""
+    return x[0] if batch is None else x
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, batch: int | None) -> None:
+    """``out = a @ b`` over the value-set axis; an unbatched step's one set
+    is a 2-D product, so the library picks its kernel as it would unbatched."""
+    if batch is None:
+        a, b, out = a[0], b[0], out[0]
+    torch.matmul(a, b, out=out)
+
+
+def _exchange(comm: Loopback, buf: torch.Tensor, n_items: int) -> torch.Tensor:
+    """``comm.all_to_all`` of a ``(sets, p, p, T, ...)`` stack."""
+    return _sets(comm.all_to_all(_unsets(buf, comm.batch), n_items), comm.batch)
+
+
 def _int32(x: np.ndarray, device) -> torch.Tensor:
     x = np.asarray(x)
     if len(x) and x.max() > np.iinfo(np.int32).max:
@@ -51,30 +97,35 @@ def _int32(x: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(x.astype(np.int32), device=device)
 
 
-def _send_route(route, n_own: int, device):
+def _send_route(route, n_own: int, device, batch: int | None = None):
     """A route's sends as flat indices into the rank-major stack of owned
-    tables (``(p * n_own, ...)``; -1 padding kept, so the send buffer has the
-    padded all_to_all's shape), with the number of real items and T."""
+    tables (``(p * n_own, ...)`` a value set; -1 padding kept, so the send
+    buffer has the padded all_to_all's shape), with the number of real
+    items of one set and T."""
     send = route.send_idx  # (p, p, T) local slots
-    src = np.arange(send.shape[0], dtype=np.int64)[:, None, None]
+    p = send.shape[0]
+    src = np.arange(p, dtype=np.int64)[:, None, None]
     flat = np.where(send >= 0, src * n_own + send, -1)
     return (
-        torch.as_tensor(flat.reshape(-1), device=device),
+        torch.as_tensor(per_set(flat, p * n_own, batch), device=device),
         int((send >= 0).sum()),
         send.shape[2],
     )
 
 
-def _expand(comm: Loopback, own: torch.Tensor, route) -> torch.Tensor:
-    """``[owned | received | zero]`` slot tables of all ranks, flattened
-    rank-major to ``(p * table_slots, ...)``: one all_to_all of the owned
-    items each rank ships — THE cut-net traffic of this operand."""
+def _expand(comm: Loopback, own: torch.Tensor, route, lead: tuple) -> torch.Tensor:
+    """``[owned | received | zero]`` slot tables of all ranks (of all value
+    sets: ``own`` is (*lead, p, n_own, ...), ``lead`` () or (sets,)),
+    flattened set- then rank-major to ``(sets * p * table_slots, ...)``: one
+    all_to_all of the owned items each rank ships — THE cut-net traffic of
+    this operand."""
     flat_idx, n_items, T = route
-    p, n_own, item = own.shape[0], own.shape[1], own.shape[2:]
-    buf = _take0(own.reshape(p * n_own, *item), flat_idx).reshape(p, p, T, *item)
+    p, item = own.shape[len(lead)], own.shape[len(lead) + 2:]
+    buf = _take0(own.reshape(-1, *item), flat_idx).reshape(*lead, p, p, T, *item)
     recv = comm.all_to_all(buf, n_items)
-    zero = own.new_zeros((p, 1, *item))
-    return torch.cat([own, recv.reshape(p, p * T, *item), zero], 1).reshape(-1, *item)
+    zero = own.new_zeros((*lead, p, 1, *item))
+    tables = torch.cat([own, recv.reshape(*lead, p, p * T, *item), zero], len(lead) + 1)
+    return tables.reshape(-1, *item)
 
 
 def _flat(x: np.ndarray, device) -> torch.Tensor:
@@ -92,18 +143,20 @@ class RowwiseStep:
     ``step(a_local, b_local)`` takes rank-major packed dense row tables
     (``a_local``: (p, I_max, K), rank d's A rows; ``b_local``:
     (p, K_max, J), its B rows) and returns rank-major C rows (p, I_max, J)
-    in plan order (``unpack_rowwise_result``).  The expand is ONE all_to_all
-    of dense B rows.  Each rank's (K, J) table of the B rows it reads is
+    in plan order (``unpack_rowwise_result``); with ``batch=m`` each of
+    them has a leading axis of m value sets.  The expand is ONE all_to_all
+    of dense B rows.  Each rank's (K, J) tables of the B rows it reads are
     built, multiplied and dropped before the next rank's, so memory holds
-    one table at a time, not p.
+    one rank's tables at a time, not p.
     """
 
-    def __init__(self, plan: RowwisePlan, K: int, J: int, device):
+    def __init__(self, plan: RowwisePlan, K: int, J: int, device, batch: int | None = None):
         self.p, self.K, self.J = plan.p, K, J
-        self.comm = Loopback(plan.p)
+        self.batch = batch
+        self.comm = Loopback(plan.p, batch)
         route = plan.routes["expand"]
         local_b = plan.local_b_rows
-        self._route = _send_route(route, local_b.shape[1], device)
+        self._route = _send_route(route, local_b.shape[1], device, batch)
         # the send buffer is filled by one gather; its padding slots are
         # zeroed after it
         flat_idx = self._route[0]
@@ -126,30 +179,34 @@ class RowwiseStep:
             )
 
     def _send_buffer(self, b_local: torch.Tensor) -> torch.Tensor:
-        p, K_max, J = b_local.shape
+        m, p, _, J = b_local.shape
         T = self._route[2]
-        buf = b_local.new_empty((p * p * T, J))
-        torch.index_select(b_local.reshape(p * K_max, J), 0, self._send_rows, out=buf)
+        buf = b_local.new_empty((m * p * p * T, J))
+        torch.index_select(b_local.reshape(-1, J), 0, self._send_rows, out=buf)
         buf.index_fill_(0, self._send_pad, 0)
-        return buf.reshape(p, p, T, J)
+        return buf.reshape(m, p, p, T, J)
 
     def __call__(self, a_local: torch.Tensor, b_local: torch.Tensor) -> torch.Tensor:
-        # THE cut-B-net traffic: (p_dst, p_src, T, J) rows from each source
-        recv = self.comm.all_to_all(self._send_buffer(b_local), self._route[1])
-        c = a_local.new_empty((self.p, a_local.shape[1], self.J))
+        a_local, b_local = _sets(a_local, self.batch), _sets(b_local, self.batch)
+        m = a_local.shape[0]
+        # THE cut-B-net traffic: (sets, p_dst, p_src, T, J) rows from each source
+        recv = _exchange(self.comm, self._send_buffer(b_local), self._route[1])
+        c = a_local.new_empty((m, self.p, a_local.shape[2], self.J))
         for d, (s_ids, t_ids, keys, n_own, own_keys) in enumerate(self._tables):
-            table = b_local.new_zeros((self.K, self.J))
-            table.index_copy_(0, keys, recv[d, s_ids, t_ids])
-            table.index_copy_(0, own_keys, b_local[d, :n_own])
-            torch.matmul(a_local[d], table, out=c[d])
+            table = b_local.new_zeros((m, self.K, self.J))
+            table.index_copy_(1, keys, recv[:, d, s_ids, t_ids])
+            table.index_copy_(1, own_keys, b_local[:, d, :n_own])
+            _matmul(a_local[:, d], table, c[:, d], self.batch)
             del table  # freed before the next rank's is allocated
-        return c
+        return _unsets(c, self.batch)
 
 
-def make_rowwise_step(plan: RowwisePlan, K: int, J: int, device) -> RowwiseStep:
+def make_rowwise_step(
+    plan: RowwisePlan, K: int, J: int, device, batch: int | None = None
+) -> RowwiseStep:
     """The row-wise executor core (``repro``'s ``make_rowwise_step``), with
     the plan's tables uploaded to ``device`` once."""
-    return RowwiseStep(plan, K, J, device)
+    return RowwiseStep(plan, K, J, device, batch)
 
 
 def _dense_call_1d(plan, a_dense, b_dense, device) -> torch.Tensor:
@@ -181,16 +238,17 @@ def rowwise_spgemm(a_dense, b_dense, plan: RowwisePlan, device=None) -> torch.Te
 
 def make_rowwise_unpack(plan: RowwisePlan, n_rows: int, device):
     """``unpack(c_local) -> dense (n_rows, J)`` with its scatter indices
-    uploaded once: rank d's slot r goes to row ``plan.local_rows[d, r]``."""
+    uploaded once: rank d's slot r goes to row ``plan.local_rows[d, r]``.
+    A leading set axis on ``c_local`` unpacks every set in the same pass."""
     local_rows = plan.local_rows
     dev, slot = np.nonzero(local_rows >= 0)
     rows = _flat(local_rows[dev, slot], device)
     src = _flat(dev * local_rows.shape[1] + slot, device)
 
     def unpack(c_local: torch.Tensor) -> torch.Tensor:
-        J = c_local.shape[-1]
-        out = c_local.new_zeros((n_rows, J))
-        out[rows] = c_local.reshape(-1, J)[src]
+        J, lead = c_local.shape[-1], c_local.shape[:-3]
+        out = c_local.new_zeros((*lead, n_rows, J))
+        out[..., rows, :] = c_local.reshape(*lead, -1, J)[..., src, :]
         return out
 
     return unpack
@@ -212,27 +270,31 @@ class OuterStep:
     (``a_cols``: (p, I, K_max), rank d's A columns; ``b_rows``:
     (p, K_max, J), its B rows) and returns C by row blocks of ceil(I / p),
     rank-major (p, ceil(I / p), J): each rank's dense partial C, zero-padded
-    to p row blocks, folded by one reduce-scatter.
+    to p row blocks, folded by one reduce-scatter.  With ``batch=m`` each
+    has a leading axis of m value sets.
     """
 
-    def __init__(self, plan: OuterPlan, I: int, J: int):
+    def __init__(self, plan: OuterPlan, I: int, J: int, batch: int | None = None):
         self.p, self.J = plan.p, J
         self.I_pad = (I + plan.p - 1) // plan.p * plan.p
-        self.comm = Loopback(plan.p)
+        self.batch = batch
+        self.comm = Loopback(plan.p, batch)
 
     def __call__(self, a_cols: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
-        p, I = self.p, a_cols.shape[1]
-        partial = a_cols.new_zeros((p, self.I_pad, self.J))
+        a_cols, b_rows = _sets(a_cols, self.batch), _sets(b_rows, self.batch)
+        m, p, I = a_cols.shape[0], self.p, a_cols.shape[2]
+        partial = a_cols.new_zeros((m, p, self.I_pad, self.J))
         for d in range(p):
-            torch.matmul(a_cols[d], b_rows[d], out=partial[d, :I])
+            _matmul(a_cols[:, d], b_rows[:, d], partial[:, d, :I], self.batch)
         # fold phase: reduce-scatter C row blocks
-        return self.comm.psum_scatter(partial.reshape(p, p, self.I_pad // p, self.J))
+        blocks = partial.reshape(m, p, p, self.I_pad // p, self.J)
+        return self.comm.psum_scatter(_unsets(blocks, self.batch))
 
 
-def make_outer_step(plan: OuterPlan, I: int, J: int) -> OuterStep:
+def make_outer_step(plan: OuterPlan, I: int, J: int, batch: int | None = None) -> OuterStep:
     """The outer-product executor core (``repro``'s ``make_outer_step``); it
     uploads nothing."""
-    return OuterStep(plan, I, J)
+    return OuterStep(plan, I, J, batch)
 
 
 def outer_product_spgemm(a_dense, b_dense, plan: OuterPlan, device=None) -> torch.Tensor:
@@ -256,16 +318,24 @@ class MonoCStep:
     pairs: rank d's table slots are offset by d times the per-rank table
     size, and the padding pairs (which only ever hit the all-zero operand
     slots and the garbage C slot) are dropped.
+
+    With ``batch=m`` the tables and the result have a leading axis of m
+    value sets, and the one launch runs m copies of the pair lists, the
+    copy of set i offset by i times the p ranks' table size.  Every C slot
+    sums its pairs in the same order in every copy, so set i's result is
+    bit for bit the unbatched step's on the same values.
     """
 
-    def __init__(self, plan: MonoCPlan, block: int, device):
+    def __init__(self, plan: MonoCPlan, block: int, device, batch: int | None = None):
         p = plan.p
         self.p, self.block, self.device = p, block, torch.device(device)
-        self.comm = Loopback(p)
+        self.batch = batch
+        self._lead = () if batch is None else (batch,)
+        self.comm = Loopback(p, batch)
         self.n_c_slots = plan.n_c_slots
         self._routes = [
             _send_route(plan.routes[f"expand_{op}"], plan.local_ids[f"{op}_nz"].shape[1],
-                        self.device)
+                        self.device, batch)
             for op in ("a", "b")
         ]
         # one pair list over the stacked tables, without the padding pairs
@@ -275,19 +345,28 @@ class MonoCStep:
         pa = (plan.compute["pair_a"] + rank * plan.a_table_slots).ravel()[keep]
         pb = (plan.compute["pair_b"] + rank * plan.b_table_slots).ravel()[keep]
         pc = (pc_local + rank * plan.n_c_slots).ravel()[keep]
+        # one copy of the lists per value set, offset by the p ranks' tables
+        m = batch or 1
+        slots = [p * n for n in (plan.a_table_slots, plan.b_table_slots, plan.n_c_slots)]
+        if m * max(slots) > np.iinfo(np.int32).max:
+            raise ValueError(
+                f"a batch of {m} puts {m} x {max(slots)} table slots past the "
+                f"kernel's int32 indices; split the batch"
+            )
+        pa, pb, pc = (per_set(x, n, batch) for x, n in zip((pa, pb, pc), slots))
         run_start, run_c = pair_runs(pc)
         self.pair_a, self.pair_b, self.pair_c = (
             _int32(x, self.device) for x in (pa, pb, pc)
         )
         self.run_start = _int32(run_start, self.device)
         self.run_c = _int32(run_c, self.device)
-        self.n_c_blocks = p * plan.n_c_slots
+        self.n_c_blocks = m * p * plan.n_c_slots
 
     def kernel_inputs(self, a_own: torch.Tensor, b_own: torch.Tensor) -> tuple:
         """The arguments of the step's one ``bsr_spgemm_local`` launch."""
         return (
-            _expand(self.comm, a_own, self._routes[0]),
-            _expand(self.comm, b_own, self._routes[1]),
+            _expand(self.comm, a_own, self._routes[0], self._lead),
+            _expand(self.comm, b_own, self._routes[1], self._lead),
             self.pair_a,
             self.pair_b,
             self.pair_c,
@@ -298,13 +377,15 @@ class MonoCStep:
 
     def __call__(self, a_own: torch.Tensor, b_own: torch.Tensor) -> torch.Tensor:
         c = bsr_spgemm_local(*self.kernel_inputs(a_own, b_own))
-        return c.reshape(self.p, self.n_c_slots, self.block, self.block)
+        return c.reshape(*self._lead, self.p, self.n_c_slots, self.block, self.block)
 
 
-def make_monoC_step(plan: MonoCPlan, device, block: int = 8) -> MonoCStep:
+def make_monoC_step(
+    plan: MonoCPlan, device, block: int = 8, batch: int | None = None
+) -> MonoCStep:
     """The monoC executor core (``repro``'s ``make_monoC_step``), with the
     plan's tables uploaded to ``device`` once."""
-    return MonoCStep(plan, block, device)
+    return MonoCStep(plan, block, device, batch)
 
 
 def monoC_spgemm(
@@ -343,7 +424,8 @@ def monoC_spgemm(
 
 def make_monoC_unpack(plan: MonoCPlan, c_structure, shape: tuple[int, int], device):
     """``unpack(c_local) -> dense (shape)`` with its scatter indices
-    uploaded once: C block slots go to their block-grid coordinates."""
+    uploaded once: C block slots go to their block-grid coordinates.  A
+    leading set axis on ``c_local`` unpacks every set in the same pass."""
     local_c = plan.local_ids["c_nz"]
     dev, slot = np.nonzero(local_c >= 0)
     gids = local_c[dev, slot]
@@ -354,10 +436,10 @@ def make_monoC_unpack(plan: MonoCPlan, c_structure, shape: tuple[int, int], devi
     cols = torch.as_tensor(ccol[gids], device=device)
 
     def unpack(c_local: torch.Tensor) -> torch.Tensor:
-        b = c_local.shape[-1]
-        out = c_local.new_zeros((shape[0] // b, shape[1] // b, b, b))
-        out[rows, cols] = c_local.reshape(-1, b, b)[src]
-        return out.permute(0, 2, 1, 3).reshape(shape)
+        b, lead = c_local.shape[-1], c_local.shape[:-4]
+        out = c_local.new_zeros((*lead, shape[0] // b, shape[1] // b, b, b))
+        out[..., rows, cols, :, :] = c_local.reshape(*lead, -1, b, b)[..., src, :, :]
+        return out.transpose(-3, -2).reshape(*lead, *shape)
 
     return unpack
 
@@ -390,60 +472,79 @@ class FineStep:
     slots offset by d times the per-rank table size, the padding pairs
     dropped); the reduce all_to_all then folds foreign partials into each C
     nonzero's owner, and the partials a rank both produced and owns fold
-    locally (``prod_to_owned``).
+    locally (``prod_to_owned``).  With ``batch=m`` tables and result have a
+    leading axis of m value sets, and the gathers, the product and the one
+    ``index_add_`` run over per-set copies of the pair lists, set i's slots
+    offset by i times one set's table size.
     """
 
-    def __init__(self, plan: FinePlan, device):
+    def __init__(self, plan: FinePlan, device, batch: int | None = None):
         p = plan.p
         self.p = p
-        self.comm = Loopback(p)
+        self.batch = batch
+        self._lead = () if batch is None else (batch,)
+        self.comm = Loopback(p, batch)
         self.n_prod = plan.n_prod_slots
         self.n_c = plan.n_c_slots
         self._routes = [
             _send_route(plan.routes[f"expand_{op}"], plan.local_ids[f"{op}_nz"].shape[1],
-                        device)
+                        device, batch)
             for op in ("a", "b")
         ]
-        self._reduce = _send_route(plan.routes["reduce_c"], self.n_prod, device)
+        self._reduce = _send_route(plan.routes["reduce_c"], self.n_prod, device, batch)
         rank = np.arange(p, dtype=np.int64)[:, None]
         pc = plan.compute["pair_c"]
         keep = (pc != self.n_prod - 1).ravel()
         pairs = (
-            (plan.compute["pair_a"] + rank * plan.a_table_slots).ravel()[keep],
-            (plan.compute["pair_b"] + rank * plan.b_table_slots).ravel()[keep],
-            (pc + rank * self.n_prod).ravel()[keep],
+            ((plan.compute["pair_a"] + rank * plan.a_table_slots).ravel()[keep],
+             p * plan.a_table_slots),
+            ((plan.compute["pair_b"] + rank * plan.b_table_slots).ravel()[keep],
+             p * plan.b_table_slots),
+            ((pc + rank * self.n_prod).ravel()[keep], p * self.n_prod),
         )
-        self.pair_a, self.pair_b, self.pair_c = (_flat(x, device) for x in pairs)
+        self.pair_a, self.pair_b, self.pair_c = (
+            _flat(per_set(x, n, batch), device) for x, n in pairs
+        )
         # arrivals of the reduce: slot [s, d, t] folds into d's owned C slot
+        # (read as recv[d, s, t], or recv[set, d, s, t] when batched)
         recv_slot = plan.compute["reduce_recv_slot"]
         s_ids, d_ids, t_ids = np.nonzero(recv_slot >= 0)
-        self._arrivals = tuple(_flat(x, device) for x in (d_ids, s_ids, t_ids))
-        self._arrival_dst = _flat(d_ids * self.n_c + recv_slot[s_ids, d_ids, t_ids], device)
+        arrivals = (d_ids, s_ids, t_ids)
+        if batch is not None:
+            sets = np.repeat(np.arange(batch), len(d_ids))
+            arrivals = (sets, *(np.tile(x, batch) for x in arrivals))
+        self._arrivals = tuple(_flat(x, device) for x in arrivals)
+        self._arrival_dst = _flat(
+            per_set(d_ids * self.n_c + recv_slot[s_ids, d_ids, t_ids], p * self.n_c, batch),
+            device,
+        )
         own = plan.compute["prod_to_owned"]
         d_ids, r_ids = np.nonzero(own >= 0)
-        self._own_src = _flat(d_ids * self.n_prod + r_ids, device)
-        self._own_dst = _flat(d_ids * self.n_c + own[d_ids, r_ids], device)
+        self._own_src = _flat(per_set(d_ids * self.n_prod + r_ids, p * self.n_prod, batch),
+                              device)
+        self._own_dst = _flat(per_set(d_ids * self.n_c + own[d_ids, r_ids], p * self.n_c,
+                                       batch), device)
 
     def __call__(self, a_own: torch.Tensor, b_own: torch.Tensor) -> torch.Tensor:
-        p = self.p
-        a_tab = _expand(self.comm, a_own, self._routes[0])
-        b_tab = _expand(self.comm, b_own, self._routes[1])
+        p, lead, m = self.p, self._lead, self.batch or 1
+        a_tab = _expand(self.comm, a_own, self._routes[0], lead)
+        b_tab = _expand(self.comm, b_own, self._routes[1], lead)
         # local compute: exactly this rank's multiplication vertices
         prods = a_tab[self.pair_a] * b_tab[self.pair_b]
-        partial = prods.new_zeros(p * self.n_prod).index_add_(0, self.pair_c, prods)
+        partial = prods.new_zeros(m * p * self.n_prod).index_add_(0, self.pair_c, prods)
         # reduce phase: ship foreign partials to their C owners
         flat_idx, n_items, T = self._reduce
-        recv = self.comm.all_to_all(_take0(partial, flat_idx).reshape(p, p, T), n_items)
-        c = partial.new_zeros(p * self.n_c)
+        recv = self.comm.all_to_all(_take0(partial, flat_idx).reshape(*lead, p, p, T), n_items)
+        c = partial.new_zeros(m * p * self.n_c)
         c.index_add_(0, self._arrival_dst, recv[self._arrivals])
         c.index_add_(0, self._own_dst, partial[self._own_src])
-        return c.reshape(p, self.n_c)
+        return c.reshape(*lead, p, self.n_c)
 
 
-def make_fine_step(plan: FinePlan, device) -> FineStep:
+def make_fine_step(plan: FinePlan, device, batch: int | None = None) -> FineStep:
     """The fine-grained executor core (``repro``'s ``make_fine_step``), with
     the plan's tables uploaded to ``device`` once."""
-    return FineStep(plan, device)
+    return FineStep(plan, device, batch)
 
 
 def fine_spgemm(a, b, plan: FinePlan, device=None) -> torch.Tensor:
@@ -476,7 +577,8 @@ def fine_spgemm(a, b, plan: FinePlan, device=None) -> torch.Tensor:
 
 def make_fine_unpack(plan: FinePlan, c_structure, shape: tuple[int, int], device):
     """``unpack(c_local) -> dense (shape)`` with its scatter indices
-    uploaded once: owned C slots go to their coordinates."""
+    uploaded once: owned C slots go to their coordinates.  A leading set
+    axis on ``c_local`` unpacks every set in the same pass."""
     local_c = plan.local_ids["c_nz"]
     dev, slot = np.nonzero(local_c >= 0)
     gids = local_c[dev, slot]
@@ -485,8 +587,9 @@ def make_fine_unpack(plan: FinePlan, c_structure, shape: tuple[int, int], device
     rows, cols = _flat(crow[gids], device), _flat(ccol[gids], device)
 
     def unpack(c_local: torch.Tensor) -> torch.Tensor:
-        out = c_local.new_zeros(shape)
-        out[rows, cols] = c_local.reshape(-1)[src]
+        lead = c_local.shape[:-2]
+        out = c_local.new_zeros((*lead, *shape))
+        out[..., rows, cols] = c_local.reshape(*lead, -1)[..., src]
         return out
 
     return unpack

@@ -6,7 +6,8 @@ of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source rebuilds and an unchanged one is compiled once.  Nothing here
 runs at import time: the CPU tests import every module on a machine without
 nvcc.  The checks every wrapper makes before it hands pointers to a kernel
-live here too.
+live here too, and ``KernelError``, what every wrapper raises when its
+kernel fails on the card.
 """
 from __future__ import annotations
 
@@ -37,6 +38,14 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel of the port failed on the card: its source did not build,
+    its library did not load, it refused its inputs or its launch failed.
+    Raised only for CUDA tensors.  Nothing answers it with a path that goes
+    around the kernel: a session raises it, and the serving loop fails the
+    requests it was serving with it."""
+
+
 def as_index(x, device: torch.device) -> torch.Tensor:
     """An int32 index tensor on ``device`` from a tensor, array or list."""
     if isinstance(x, torch.Tensor):
@@ -45,17 +54,17 @@ def as_index(x, device: torch.device) -> torch.Tensor:
 
 
 def check_inputs(values, indices) -> None:
-    """Raise unless each ``(name, tensor)`` of ``values`` has a type in
+    """Raise ``KernelError`` unless each ``(name, tensor)`` of ``values`` has a type in
     ``DTYPE_CODE`` and is contiguous, and each of ``indices`` is a
     contiguous 1-D int32 tensor."""
     for name, t in values:
         if t.dtype not in DTYPE_CODE:
-            raise TypeError(f"{name} dtype {t.dtype} not in {tuple(DTYPE_CODE)}")
+            raise KernelError(f"{name} dtype {t.dtype} not in {tuple(DTYPE_CODE)}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise KernelError(f"{name} must be contiguous")
     for name, t in indices:
         if t.dtype != torch.int32 or t.ndim != 1 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D int32 tensor")
+            raise KernelError(f"{name} must be a contiguous 1-D int32 tensor")
 
 
 def _nvcc() -> str:
@@ -65,7 +74,7 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    raise KernelError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def build(name: str) -> tuple[Path, str]:
@@ -89,7 +98,7 @@ def build(name: str) -> tuple[Path, str]:
             text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+            raise KernelError(f"nvcc failed on {src.name}:\n{proc.stderr}")
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib)
     return lib, log.read_text() if log.exists() else ""
@@ -120,5 +129,9 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use."""
     lib = _LOADED.get(name)
     if lib is None:
-        lib = _LOADED[name] = ctypes.CDLL(str(build(name)[0]))
+        try:
+            lib = ctypes.CDLL(str(build(name)[0]))
+        except OSError as exc:  # a missing source, an unloadable library
+            raise KernelError(f"kernel library {name} did not load: {exc}") from exc
+        _LOADED[name] = lib
     return lib

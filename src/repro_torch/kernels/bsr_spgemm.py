@@ -10,7 +10,7 @@ kernel (``csrc/bsr_spgemm.cu``) sums each run of pairs that share a C block.
 ``bsr_spgemm_local`` is the entry the executors call: its tensors are on one
 device and its run offsets were computed once on the host (``pair_runs``).
 On the CPU it runs the plain version (``kernels.ref.bsr_spgemm_ref``); on a
-CUDA device it launches the kernel or raises.  ``bsr_spgemm`` keeps the JAX
+CUDA device it launches the kernel or raises ``KernelError``.  ``bsr_spgemm`` keeps the JAX
 package's signature and derives the runs from ``pair_c`` itself.
 """
 from __future__ import annotations
@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import DTYPE_CODE, as_index, check_inputs, load
+from repro_torch.kernels._build import DTYPE_CODE, KernelError, as_index, check_inputs, load
 from repro_torch.kernels.ref import bsr_spgemm_ref
 
 
@@ -195,7 +195,7 @@ def route(bm: int, bk: int, bn: int) -> str:
 def launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out) -> str:
     """Launch the kernel ``route`` names for these blocks on CUDA tensors
     checked as ``bsr_spgemm_local`` checks them, summing into the zeroed
-    ``out``; raise if it is refused, else return the kernel's name.  Counts
+    ``out``; raise ``KernelError`` if it is refused, else return the kernel's name.  Counts
     nothing: ``bsr_spgemm_local`` counts its launches."""
     bm, bk, bn = _block_shapes(a_blocks, b_blocks)
     kernel = route(bm, bk, bn)
@@ -218,7 +218,7 @@ def launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out) -> str:
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"bsr_spgemm kernel {kernel} launch failed: CUDA error {err}")
+        raise KernelError(f"bsr_spgemm kernel {kernel} launch failed: CUDA error {err}")
     return kernel
 
 
@@ -253,7 +253,7 @@ def bsr_spgemm_local(
     in range (``bsr_spgemm`` checks that; the executors build their lists
     in range).  On the CPU this is the plain version; on CUDA it launches
     the kernel ``route(bm, bk, bn)`` names (adding one to
-    ``bsr_spgemm_local.launches[kernel]``) or raises.  The result is in
+    ``bsr_spgemm_local.launches[kernel]``) or raises ``KernelError``.  The result is in
     ``promote_types(a, b)``, accumulated in fp32; C blocks no pair touches
     are zero.
     """
@@ -286,7 +286,7 @@ def bsr_spgemm_local(
     out = torch.zeros((n_c_blocks, bm, bn), dtype=out_dtype, device=device)
     n_runs = run_c.numel()
     if run_start.numel() != n_runs + 1:
-        raise ValueError("run_start must hold n_runs + 1 offsets")
+        raise KernelError("run_start must hold n_runs + 1 offsets")
     if n_runs == 0:
         return out
     kernel = launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out)

@@ -7,7 +7,7 @@ gives a wrong answer) and on indices out of range.  It computes the
 block-row offsets on the host, once per call, and hands them to
 ``bsr_spmm_local``, which runs the plain version (``kernels.ref``) for CPU
 tensors and launches the kernel of ``csrc/bsr_spmm.cu`` that ``route``
-names for CUDA tensors, or raises.
+names for CUDA tensors, or raises ``KernelError``.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels._build import DTYPE_CODE, as_index, check_inputs, load
+from repro_torch.kernels._build import DTYPE_CODE, KernelError, as_index, check_inputs, load
 from repro_torch.kernels.ref import bsr_spmm_ref
 
 
@@ -119,7 +119,7 @@ def bsr_spmm_local(
     ``row_start = row_offsets(brows, m_blocks)`` and every index in range
     (``bsr_spmm`` checks that).  On the CPU this is the plain version; on
     CUDA it launches the kernel ``route(bm, bk, result type)`` names (adding
-    one to ``bsr_spmm_local.launches[kernel]``) or raises.  The result is
+    one to ``bsr_spmm_local.launches[kernel]``) or raises ``KernelError``.  The result is
     in ``promote_types(blocks, dense)``, summed in fp32 over each block-row
     and rounded once; rows of empty block-rows are zero.
 
@@ -170,7 +170,7 @@ def bsr_spmm_local(
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"bsr_spmm kernel {kernel} launch failed: CUDA error {err}")
+        raise KernelError(f"bsr_spmm kernel {kernel} launch failed: CUDA error {err}")
     bsr_spmm_local.launches[kernel] += 1
     return out
 

@@ -6,7 +6,7 @@ else ``ValueError``; the result is in ``x.dtype``, summed in fp32.  CPU
 tensors run the plain version (``kernels.ref.moe_gemm_ref``); CUDA tensors
 launch the kernels of ``csrc/moe_gemm.cu`` that ``launch_plan`` names (the
 GEMM ``route`` picks, and the copies that give its operands the layout a
-tensor map takes), or raise.
+tensor map takes), or raise ``KernelError``.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels._build import DTYPE_CODE, check_inputs, load
+from repro_torch.kernels._build import DTYPE_CODE, KernelError, check_inputs, load
 from repro_torch.kernels.ref import moe_gemm_ref, split3_bf16_ref, stage16_ref
 
 # the types expert_wgmma multiplies on the tensor cores; their products are
@@ -51,7 +51,7 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         err = _kernel(kernel)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"moe_gemm kernel {kernel} launch failed: CUDA error {err}")
+        raise KernelError(f"moe_gemm kernel {kernel} launch failed: CUDA error {err}")
     moe_gemm.launches[kernel] += 1
 
 
@@ -120,7 +120,7 @@ def split3_bf16(x: torch.Tensor, pitch: int | None = None) -> torch.Tensor:
     if x.device.type == "cpu":
         return split3_bf16_ref(x, pitch)
     if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"split3_bf16 takes a contiguous float32 tensor, not {x.dtype}")
+        raise KernelError(f"split3_bf16 takes a contiguous float32 tensor, not {x.dtype}")
     pieces = torch.empty((3, *x.shape[:-1], pitch), dtype=torch.bfloat16, device=x.device)
     rows = x.numel() // cols if cols else 0
     _launch("split3_bf16", x.device, x.data_ptr(), pieces.data_ptr(), rows, cols, pitch)
@@ -139,7 +139,7 @@ def stage16(x: torch.Tensor, pitch: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return stage16_ref(x, pitch)
     if x.dtype not in TENSOR_CORE_DTYPES or not x.is_contiguous():
-        raise ValueError(f"stage16 takes a contiguous 16-bit tensor, not {x.dtype}")
+        raise KernelError(f"stage16 takes a contiguous 16-bit tensor, not {x.dtype}")
     out = torch.empty((*x.shape[:-1], pitch), dtype=x.dtype, device=x.device)
     cols = x.shape[-1]
     rows = x.numel() // cols if cols else 0

@@ -3,7 +3,7 @@
 Mirrors ``repro.kernels.ops``.  In place of JAX's ``interpret`` flag each
 takes ``device``: ``None`` means the card and raises when there is none;
 ``device="cpu"`` runs the kernels' plain PyTorch versions.  Nothing falls
-back: on the card a failed build or launch raises.  The BSR entry points
+back: on the card a failed build or launch raises ``KernelError``.  The BSR entry points
 take host-side ``BlockSparse`` matrices and run the inspector on the host.
 Block values and dense operands may be numpy arrays (bfloat16 ones too, as
 ``ml_dtypes`` makes them) or tensors.

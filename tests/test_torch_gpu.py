@@ -1,7 +1,9 @@
 """The port on a CUDA card: the BSR SpGEMM, BSR SpMM and grouped GEMM
 kernels against their plain versions, the ``ops`` entry point against its
 CPU path, the monoC front door and tiled path against dense ``A @ B``, and
-the other six models and ``model="auto"`` against their CPU path and scipy.
+the other six models and ``model="auto"`` against their CPU path and scipy,
+and every model's batched executor against its unbatched one; a session
+whose K1 fails to load raises.
 
 Marked ``gpu``; every test skips where no CUDA device exists (decided in
 the ``cuda`` fixture, never at import).  On a card:
@@ -560,3 +562,61 @@ def test_columnwise_rank_by_rank_equals_stacked_tables(cuda):
     got = exe.runtime.step(a_local, b_local)
     want = stacked_rowwise(handle.execution_plan, a_local, b_local, a.shape[1], a.shape[0])
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("model", repro_torch.executable_models())
+def test_batched_equals_looped_on_the_card(cuda, model):
+    rng = np.random.default_rng(6)
+    a_s = from_dense(rng.random((60, 50)) < 0.1)
+    b_s = from_dense(rng.random((50, 44)) < 0.12)
+    av = rng.standard_normal((3, a_s.nnz)).astype(np.float32)
+    bv = rng.standard_normal((3, b_s.nnz)).astype(np.float32)
+    handle = repro_torch.plan(a_s, b_s, p=4, model=model)
+    one, exe = handle.compile(), handle.compile(batch=3)
+    assert exe.batch_capacity == 4
+    exe.runtime.comm.reset()
+    got = exe(av, bv)
+    assert got.device.type == "cuda" and tuple(got.shape) == (3, 60, 44)
+    assert exe.runtime.comm.items_moved == 4 * moved_items(handle.execution_plan)
+    for i in range(3):
+        want = one(av[i], bv[i])
+        if model == "monoC":  # one K1 launch, every C slot in the same order
+            assert torch.equal(got[i], want), i
+        else:  # CUDA index_add_ sums in no fixed order
+            np.testing.assert_allclose(got[i].cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got[i].cpu().numpy(),
+                                   _scipy_product(a_s, av[i], b_s, bv[i]), rtol=1e-4, atol=1e-4)
+
+
+def test_batched_monoC_dispatch_is_one_k1_launch(cuda):
+    rng = np.random.default_rng(7)
+    a_s = from_dense(rng.random((80, 64)) < 0.08)
+    b_s = a_s.transpose()  # A A^T, as the normal equations
+    av = rng.standard_normal((8, a_s.nnz)).astype(np.float32)
+    bv = rng.standard_normal((8, b_s.nnz)).astype(np.float32)
+    exe = repro_torch.plan(a_s, b_s, p=4, model="monoC").compile(batch=8)
+    exe(av, bv)  # warm
+    torch.cuda.synchronize()
+    before = dict(bsr_spgemm_local.launches)
+    for m in (8, 5, 1):
+        exe(av[:m], bv[:m])
+    torch.cuda.synchronize()
+    assert bsr_spgemm_local.launches == {**before,
+                                         "scalar_runs": before["scalar_runs"] + 3}
+
+
+def test_session_raises_when_k1_fails_to_load(cuda, monkeypatch):
+    """A K1 library that does not load fails the multiply: the session
+    raises ``KernelError`` and never answers with a model downgrade."""
+    from repro_torch.kernels import KernelError, _build
+    from repro_torch.kernels import bsr_spgemm as k1
+
+    monkeypatch.setattr(k1, "_kernel", lambda: _build.load("bsr_spgemm_absent").repro_bsr_spgemm)
+    rng = np.random.default_rng(8)
+    a_s = from_dense(rng.random((40, 36)) < 0.1)
+    av = rng.standard_normal(a_s.nnz).astype(np.float32)
+    s = repro_torch.session(p=4, model="monoC")
+    with pytest.raises(KernelError, match="bsr_spgemm_absent"):
+        s.multiply((a_s, av), (a_s.transpose(), av))
+    assert [e.kind for e in s.events] == ["cold_replan"]

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: importing and running it loads neither jax
-nor any module of the JAX package ``repro``."""
+"""The PyTorch port stands alone: importing and running it — the front door,
+the kernel entry point, a session with a plan store and the serving loop —
+loads neither jax nor any module of the JAX package ``repro``."""
 import os
 import subprocess
 import sys
@@ -17,6 +18,8 @@ import repro_torch.distributed.select, repro_torch.distributed.spgemm_exec
 import repro_torch.kernels.bsr_spgemm, repro_torch.kernels.ref
 import repro_torch.kernels.bsr_spmm, repro_torch.kernels.moe_gemm
 import repro_torch.kernels.ops, repro_torch.kernels._build
+import repro_torch.resilience, repro_torch.testing.faults, repro_torch.checkpoint.store
+import repro_torch.distributed.session, repro_torch.launch.serve
 from repro_torch.core import matrices
 from repro_torch.kernels import ops
 from repro_torch.sparse.bsr import to_bsr
@@ -40,6 +43,14 @@ ops.spgemm(to_bsr(a8, 8, 8), to_bsr(b8, 8, 8), device="cpu")
 x = rng.standard_normal((2, 8, 16)).astype(np.float32)
 np.testing.assert_allclose(ops.grouped_gemm(x, x.transpose(0, 2, 1), device="cpu").numpy(),
                            x @ x.transpose(0, 2, 1), rtol=1e-5, atol=1e-5)
+import tempfile
+from repro_torch.launch.serve import serve_spgemm
+with tempfile.TemporaryDirectory() as store:
+    sess = repro_torch.session(p=2, model="monoC", device="cpu", store_dir=store)
+    np.testing.assert_allclose(sess.multiply(a, b).numpy(), a @ b, rtol=1e-5, atol=1e-5)
+    assert [e.kind for e in sess.events] == ["cold_replan", "saved"], sess.events
+requests, report = serve_spgemm([(a, b)] * 3, p=2, model="monoC", device="cpu")
+assert report["completed"] == 3 and report["dispatches"] == 1, report
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
