@@ -55,7 +55,16 @@ Phases, each printing its seconds:
      (pool hits, a cold structure, a drifted one warm-replanned), a restart
      that restores from the store, and a scripted transient fault; every
      product against scipy in float64, no unscripted downgrade, fallback,
-     retry or failure.
+     retry or failure;
+ 11. summa2d and the device partitioner: ``model="summa2d"`` through the
+     front door on 27-PTAP, LP-pds100 and 27-AP at p = 4 and 27-PTAP at
+     p = 6 (closed-form words through the collective, one K1 launch a
+     stage, K1 per stage against its plain version, auto's words beside);
+     ``engine="device"`` (``coarsen="auto"`` and ``"host"``) planning monoC
+     for 27-AP and LP-pds100 (phases, balance, connectivity within 1.25 x
+     the flat plans', the product against scipy); the card's partition
+     labels against the port's CPU labels; profiles of a 27-AP and an
+     LP-pds100 device partition, taken on those runs.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -66,7 +75,8 @@ on the bf16 up projection, ``expert_split`` and ``split3_bf16`` on the
 fp32 one, ``stage16`` on the misaligned bf16 up projection; bounds at the
 peak of each route's arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
-``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``).
+``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``, 11 under
+``summa_device``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -1089,7 +1099,7 @@ def every_model(ap, ptap, ptap_stats, device, rng):
                                           label=f"27-AP {model}")
             torch.cuda.empty_cache()
     phase("every model (c) 27-AP, 1D", t0)
-    return records
+    return records, lp
 
 
 def drifted(structure, frac: float, rng):
@@ -1295,6 +1305,253 @@ def serving(device, rng):
     return record
 
 
+def summa_stage_kernels(exe, a, b) -> dict:
+    """K1 on each stage of a summa2d call: the stage's own inputs through the
+    kernel (graph replay) and its plain version, summed over the stages."""
+    a_own, b_own = exe.runtime.pack(*exe.pack(a, b))
+    step = exe.runtime.step
+    out = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+           "pairs": 0, "stages": []}
+    for t in range(step.n_stages):
+        args = step.kernel_inputs(a_own, b_own, t)
+        a_tab, b_tab, pa, pb, pc, rs, rc, n_c = args
+        err, ms, call_ms, plain_ms = check_kernel(args, TOL[dtype_name(a_tab.dtype)])
+        bound_ms, bound_by, *_ = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
+        out["stages"].append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "pairs": pa.numel(), "runs": rc.numel()})
+        for key, v in (("ms", ms), ("call_ms", call_ms), ("plain_ms", plain_ms),
+                       ("bound_ms", bound_ms)):
+            out[key] += v
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["pairs"] += pa.numel()
+        del args, a_tab, b_tab
+    return out
+
+
+def device_profile(label: str, run, partition_of=lambda out: out):
+    """``run()`` — a call that makes one ``engine="device"`` partition —
+    under ``torch.profiler``, with the card's sync debug mode warning on
+    every host sync.  Returns ``(run(), record)``: the top device ops, the
+    device's idle share over the partition (its three phases) and over its
+    device phases (the ascent, and the descend where it ran on the card),
+    the host syncs by source line and per level, and the levels of the
+    descend (``coarsen_device.coarsen_level`` calls that coarsened, or the
+    host V-cycle's levels).  ``partition_of(run())`` is the
+    ``PartitionResult``; the profile spans the whole call, so device ops
+    outside the partition would count as busy."""
+    import importlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import coarsen_device
+
+    partition_mod = importlib.import_module("repro_torch.core.partition")
+
+    descended, host_levels = [], []
+    coarsen_level, global_vcycle = coarsen_device.coarsen_level, partition_mod._global_vcycle
+
+    def counted(*args, **kwargs):  # the levels the resident descent makes
+        out = coarsen_level(*args, **kwargs)
+        descended.append(out is not None)
+        return out
+
+    def counted_vcycle(*args, **kwargs):  # the host descend's levels
+        levels, cur = global_vcycle(*args, **kwargs)
+        host_levels.append(len(levels))
+        return levels, cur
+
+    coarsen_device.coarsen_level = counted
+    partition_mod._global_vcycle = counted_vcycle
+    torch.cuda.synchronize()
+    try:
+        with warnings.catch_warnings(record=True) as caught, \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        coarsen_device.coarsen_level = coarsen_level
+        partition_mod._global_vcycle = global_vcycle
+        torch.cuda.set_sync_debug_mode("default")
+    res = partition_of(out)
+    if res.phases is None:
+        fail(f"device profile {label}: no device phases: the device engine did not run")
+    syncs = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{Path(w.filename).name}:{w.lineno}"
+            syncs[where] = syncs.get(where, 0) + 1
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_s = sum(e.self_device_time_total for e in ops) / 1e6
+    partition_s = sum(res.phases.values())
+    device_s = res.phases["refine_s"] + (res.phases["coarsen_s"] if res.descend == "device" else 0)
+    levels = 1 + (sum(descended) if res.descend == "device" else sum(host_levels))
+    rec = {
+        "label": label, "descend": res.descend, "wall_s": wall_s, "partition_s": partition_s,
+        "phases": res.phases, "connectivity": res.connectivity, "device_busy_s": busy_s,
+        "idle_share": 1 - busy_s / partition_s if ops else None,
+        "idle_share_device_phases": 1 - busy_s / device_s if ops else None,
+        "levels": levels, "coarsen_calls": len(descended),
+        "host_syncs": sum(syncs.values()), "host_syncs_per_level": sum(syncs.values()) / levels,
+        "host_syncs_by_line": syncs,
+        "top_ops": [{"ms": e.self_device_time_total / 1e3, "count": e.count, "op": e.key[:90]}
+                    for e in ops[:10]],
+    }
+    if not ops:
+        print("profile: the profiler saw no device time (not measured)", flush=True)
+    print(f"device profile {label}", json.dumps(rec), flush=True)
+    return out, rec
+
+
+def summa_and_device_engine(ap, ptap, lp, ap_stats, ptap_stats, models, device, rng):
+    """Phase 11: the Sparse SUMMA baseline and the device partitioner.
+
+    (a) ``model="summa2d"`` through the front door (as ``front_door_run``)
+    on 27-PTAP, LP-pds100 and 27-AP at p = 4 and 27-PTAP at p = 6, each on
+    the grid ``summa_mesh_shape`` picks: the collective's items a call ==
+    ``moved_items`` == nnz(A)(pc - 1) + nnz(B)(pr - 1), K1 launches a call
+    == the stages with pairs, K1 on each stage's own inputs against its
+    plain version, and auto's predicted words beside summa2d's.  (b)
+    ``engine="device"`` with ``coarsen="auto"`` and ``"host"`` on monoC at
+    p = 4 for 27-AP and LP-pds100: plan seconds, phases and the descend
+    taken; a result without phases, a part over its cap, or connectivity
+    past 1.25 x the flat engine's plan of phases 4 and 9 (the aggregate
+    bound of ``tests/test_partition_device.py``) fails.  On these instances
+    the finest level is past the reference's int32 sort-key guard
+    (``nb * pb < 2^31``), so ``"auto"`` takes the host descend, and its
+    labels must equal the ``"host"`` run's.  The product against scipy as
+    in (a).  (c) The card's labels equal the port's CPU labels bit for
+    bit: 27-PTAP monoC (the host descend, past the guard) and LP-pds100
+    rowwise (the resident descent through ``coarsen_device``).  (d)
+    ``device_profile`` of (b)'s 27-AP ``"auto"`` plan and of (c)'s
+    LP-pds100 rowwise partition on the card, taken on those runs."""
+    import torch
+    import repro_torch
+    from repro_torch.core import build_model
+    from repro_torch.core.partition import partition
+    from repro_torch.distributed.plan_ir import moved_items
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+
+    record = {"summa2d": [], "device_engine": [], "labels": [], "profile": {}}
+    # auto's predicted words: its rule is the minimum over the models that
+    # lower; 27-AP planned four of the seven in phases 4 and 9
+    planned = {name: {m: r["predicted_words"] for m, r in recs.items() if m != "auto"}
+               for name, recs in models.items()}
+    planned.setdefault(ap.name, {})["monoC"] = ap_stats["predicted_words"]
+    planned[ptap.name]["monoC"] = ptap_stats["predicted_words"]
+    monoC_ms = {ap.name: ap_stats["call_ms_median"], ptap.name: ptap_stats["call_ms_median"],
+                lp.name: models[lp.name]["monoC"]["call_ms_median"]}
+
+    t0 = time.perf_counter()
+    for inst, p in ((ptap, 4), (lp, 4), (ap, 4), (ptap, 6)):
+        t1 = time.perf_counter()
+        handle = repro_torch.plan(inst, p=p, model="summa2d")
+        plan_s = time.perf_counter() - t1
+        plan = handle.execution_plan
+        exe, (a, b), rec = front_door_run(inst, "summa2d", device, rng, handle=handle)
+        what = f"summa2d {inst.name} p={p}"
+        closed = inst.a.nnz * (plan.pc - 1) + inst.b.nnz * (plan.pr - 1)
+        if moved_items(plan) != closed or rec["items_moved_per_call"] != closed:
+            fail(f"{what}: {rec['items_moved_per_call']} items a call, closed form {closed}")
+        staged = sum(int((plan.compute[f"pair_c_s{t}"] != plan.n_c_slots - 1).any())
+                     for t in range(plan.n_stages))
+        launches = rec["kernel_launches"]
+        if launches != {"scalar_runs": REPS * staged} or staged != plan.n_stages:
+            fail(f"{what}: K1 launches {launches} in {REPS} calls, {plan.n_stages} stages")
+        k1 = summa_stage_kernels(exe, a, b)
+        auto_words = min(planned[inst.name].values())
+        rec.update(p=p, grid=[plan.pr, plan.pc], n_stages=plan.n_stages, plan_s=plan_s,
+                   closed_form_words=closed, k1_launches_per_call=launches["scalar_runs"] / REPS,
+                   k1=k1, monoC_call_ms_median=monoC_ms[inst.name],
+                   auto_predicted_words=auto_words,
+                   auto_over=sorted(planned[inst.name]))
+        record["summa2d"].append(rec)
+        print(f"summa2d {inst.name} p={p}", json.dumps(rec), flush=True)
+        del exe, a, b
+        torch.cuda.empty_cache()
+    phase("summa2d (a)", t0)
+
+    t0 = time.perf_counter()
+    flat = {ap.name: ap_stats["predicted_words"], lp.name: planned[lp.name]["monoC"]}
+    handles = {}
+    for inst in (ap, lp):
+        for coarsen in ("auto", "host"):
+            what = f"device engine {inst.name} coarsen={coarsen}"
+
+            def run():
+                return repro_torch.plan(inst, p=P, model="monoC", engine="device",
+                                        coarsen=coarsen, seed=0)
+
+            t1 = time.perf_counter()
+            if inst is ap and coarsen == "auto":  # (d): this run under the profiler
+                handle, record["profile"]["27-AP monoC"] = device_profile(
+                    f"{ap.name} monoC", run, lambda h: h.partition)
+            else:
+                handle = run()
+            plan_s = time.perf_counter() - t1
+            res, hg = handle.partition, handle.hypergraph
+            if res.phases is None:
+                fail(f"{what}: no device phases: the device engine did not run")
+            w = hg.w_comp.astype(np.float64)
+            cap = max(1.10 * w.sum() / P, float(w.max()))
+            part_w = np.bincount(res.parts, weights=w, minlength=P)
+            if part_w.max() > cap + 1e-9:
+                fail(f"{what}: part weights {part_w.tolist()} over the cap {cap}")
+            ratio = res.connectivity / flat[inst.name]
+            if ratio > 1.25:
+                fail(f"{what}: connectivity {res.connectivity}, {ratio:.3f} x flat's")
+            _, _, rec = front_door_run(inst, "monoC", device, rng, handle=handle)
+            rec.update(coarsen=coarsen, descend=res.descend, plan_s=plan_s,
+                       profiled=inst is ap and coarsen == "auto", phases=res.phases,
+                       connectivity=res.connectivity, flat_connectivity=flat[inst.name],
+                       over_flat=ratio, part_weights=part_w.tolist(), cap=cap,
+                       n_vertices=hg.n_vertices, n_pins=hg.n_pins)
+            record["device_engine"].append(rec)
+            print(f"device engine {inst.name} coarsen={coarsen}", json.dumps(rec), flush=True)
+            handles[(inst.name, coarsen)] = handle
+            torch.cuda.empty_cache()
+        auto, host = handles[(inst.name, "auto")].partition, handles[(inst.name, "host")].partition
+        if auto.descend == "host" and not np.array_equal(auto.parts, host.parts):
+            fail(f"device engine {inst.name}: auto took the host descend, labels differ")
+    phase("device engine (b)", t0)
+
+    t0 = time.perf_counter()
+    lp_rowwise = build_model(lp, "rowwise")
+    cases = ((ptap, "monoC", build_model(ptap, "monoC")), (lp, "rowwise", lp_rowwise))
+    for inst, model, hg in cases:
+        runs = {}
+        for where in ("cuda", "cpu"):
+            def run(where=where, hg=hg):
+                return partition(hg, P, eps=0.10, seed=0, engine="device",
+                                 device=None if where == "cuda" else "cpu")
+
+            t1 = time.perf_counter()
+            if inst is lp and where == "cuda":  # (d): this run under the profiler
+                runs[where], record["profile"]["LP-pds100 rowwise"] = device_profile(
+                    f"{lp.name} rowwise", run)
+            else:
+                runs[where] = run()
+            runs[where + "_s"] = time.perf_counter() - t1
+        equal = bool(np.array_equal(runs["cuda"].parts, runs["cpu"].parts))
+        rec = {"instance": inst.name, "model": model, "n_vertices": hg.n_vertices,
+               "n_pins": hg.n_pins, "labels_equal": equal, "descend": runs["cuda"].descend,
+               "card_s": runs["cuda_s"], "cpu_s": runs["cpu_s"],
+               "card_phases": runs["cuda"].phases, "cpu_phases": runs["cpu"].phases,
+               "connectivity": runs["cuda"].connectivity}
+        record["labels"].append(rec)
+        print("device engine labels", json.dumps(rec), flush=True)
+        if not equal or runs["cuda"].phases is None:
+            fail(f"device engine {inst.name} {model}: the card's labels differ from the CPU's")
+    phase("device engine labels (c)", t0)
+    return record
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a repository checkout")
@@ -1387,7 +1644,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    models = every_model(ap, ptap, ptap_stats, device, rng)
+    models, lp = every_model(ap, ptap, ptap_stats, device, rng)
     phase("every model", t0)
 
     t0 = time.perf_counter()
@@ -1395,12 +1652,18 @@ def main() -> None:
     served = serving(device, rng)
     phase("serving", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    summa_device = summa_and_device_engine(ap, ptap, lp, ap_stats, ptap_stats, models,
+                                           device, rng)
+    phase("summa2d and the device partitioner", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
-        "serving": served,
+        "serving": served, "summa_device": summa_device,
     }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",

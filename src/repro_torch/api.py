@@ -15,10 +15,12 @@ bit-for-bit the reference's results) and execution in PyTorch and CUDA:
 ``A`` / ``B`` are structures (dense array, scipy sparse, or
 ``SparseStructure``); values are 1-D nonzero vectors in canonical CSR order
 for every model — the registry's ``pack_values`` hides monoC's block layout.
-``model`` is any of the paper's seven (``repro_torch.MODELS``) or ``"auto"``:
+``model`` is any of the paper's seven (``repro_torch.MODELS``), the
+partition-free Sparse SUMMA baseline ``"summa2d"``, or ``"auto"``:
 partition every executable model and keep the communication-minimal one
-(the reference's rule: fewest predicted words among the plans that lower).
-The reference's Sparse SUMMA baseline (``"summa2d"``) is not ported yet.
+(the reference's rule: fewest predicted words among the plans that lower;
+summa2d is never auto-selected).  ``engine="device"`` runs the partitioner's
+V-cycle on the card (``core/partition.py``).
 
 ``compile(batch=n)`` streams batches of same-structure values through one
 executor per capacity bucket, and ``session(...)`` is the long-lived handle
@@ -152,9 +154,10 @@ class PlannedSpGEMM:
 
     instance: SpGEMMInstance
     model: str
-    # None on a handle restored from the plan store: no hypergraph was built
+    # None on a handle restored from the plan store, and for partition-free
+    # baselines (summa2d): no hypergraph was built
     hypergraph: Hypergraph | None
-    partition: PartitionResult
+    partition: PartitionResult | None  # None for partition-free baselines
     execution_plan: ExecutionPlan | None
     eps: float = 0.10
     seed: int = 0
@@ -166,7 +169,9 @@ class PlannedSpGEMM:
 
     @property
     def p(self) -> int:
-        return self.partition.p
+        if self.partition is not None:
+            return self.partition.p
+        return self.execution_plan.p
 
     @property
     def executable(self) -> bool:
@@ -174,6 +179,11 @@ class PlannedSpGEMM:
 
     def costs(self) -> CommCosts:
         """The partition's communication metrics (Lemma 4.2 machinery)."""
+        if self.partition is None:
+            raise ValueError(
+                f"model {self.model!r} is partition-free (no hypergraph); "
+                f"its communication is the analytic cost_report()"
+            )
         if self.hypergraph is None:
             raise ValueError(
                 "this handle was restored from the plan store without its "
@@ -196,6 +206,10 @@ class PlannedSpGEMM:
         - ``planned_messages``: non-empty (src, dst) route cells;
         - ``bounds``: the classical eq. (1) lower bounds (local memory taken
           as 3 * nnz / p).
+
+        For a partition-free baseline (summa2d) ``predicted_words`` is the
+        closed-form analytic volume (``stats["words_analytic"]``) and
+        ``planned_words`` the route-table count.
         """
         inst, p = self.instance, self.p
         n_nz = inst.a.nnz + inst.b.nnz + inst.c.nnz
@@ -213,6 +227,13 @@ class PlannedSpGEMM:
                 ),
             },
         }
+        if self.partition is None:
+            plan_obj = self.execution_plan
+            report["predicted_words"] = int(plan_obj.stats["words_analytic"])
+            report["planned_words"] = measured_route_words(plan_obj)
+            report["padded_words"] = plan_obj.comm_words_padded
+            report["planned_messages"] = route_messages(plan_obj)
+            return report
         costs = self.costs()
         report.update(
             {
@@ -296,8 +317,22 @@ def _plan_one(
     engine: str,
     warm_start: np.ndarray | None = None,
     warm_drift_limit: float = 0.5,
+    coarsen: str = "auto",
+    device=None,
 ) -> PlannedSpGEMM:
     spec = get_spec(model)
+    if spec.build is None:
+        # partition-free baseline (summa2d): no hypergraph to build or
+        # partition — lower the instance straight to its execution plan
+        return PlannedSpGEMM(
+            instance=inst,
+            model=model,
+            hypergraph=None,
+            partition=None,
+            execution_plan=spec.lower(inst, None, p),
+            eps=eps,
+            seed=seed,
+        )
     hg = spec.build(inst, include_nz=include_nz)
     res = _partition(
         hg,
@@ -307,6 +342,8 @@ def _plan_one(
         engine=engine,
         warm_start=warm_start,
         warm_drift_limit=warm_drift_limit,
+        coarsen=coarsen,
+        device=device,
     )
     # a V^nz partition lowers only where the model's lowerer accepts one
     # (fine); elsewhere the handle stays analysis-only
@@ -334,20 +371,29 @@ def plan(
     name: str = "",
     include_nz: bool = False,
     engine: str = "flat",
+    coarsen: str = "auto",
+    device=None,
 ) -> PlannedSpGEMM:
     """Plan a distributed SpGEMM: model the instance, partition, lower.
 
     ``A`` / ``B`` give the nonzero structures (dense array, scipy sparse
     matrix, or ``SparseStructure`` — values never enter the inspector);
     alternatively ``A`` may be an existing ``SpGEMMInstance`` (``B``
-    omitted).  ``model`` is one of the paper's seven (``MODELS``) or
-    ``"auto"``: partition every ``executable_models()`` candidate and keep
-    the one with the fewest predicted words, among those whose plans lower
-    when any does; the per-model cost reports land on ``.selection``.
-    ``include_nz`` keeps the V^nz nonzero vertices; only fine's lowerer
-    accepts such partitions, the other handles stay cost-only.  ``engine``
-    is ``"flat"`` (default) or ``"loop"``; the results equal ``repro.plan``
-    with the same arguments.
+    omitted).  ``model`` is one of the paper's seven (``MODELS``),
+    ``"summa2d"`` (the partition-free Sparse SUMMA baseline, never
+    auto-selected) or ``"auto"``: partition every ``executable_models()``
+    candidate and keep the one with the fewest predicted words, among those
+    whose plans lower when any does; the per-model cost reports land on
+    ``.selection``.  ``include_nz`` keeps the V^nz nonzero vertices; only
+    fine's lowerer accepts such partitions, the other handles stay
+    cost-only.  ``engine`` is ``"flat"`` (default), ``"loop"`` or
+    ``"device"`` (the partitioner's V-cycle as torch ops on ``device``: the
+    card unless ``device="cpu"``; ``coarsen`` picks its descend,
+    ``"device"`` on the device, ``"host"`` in scipy, or ``"auto"``: the
+    device one where its first level fits the reference's int32 sort-key
+    packing, else the host one); the results equal ``repro.plan`` with the
+    same arguments, except ``coarsen="auto"`` past that packing bound,
+    where the reference stops its descent before the first level.
     """
     if isinstance(A, SpGEMMInstance):
         if B is not None:
@@ -358,9 +404,11 @@ def plan(
             raise ValueError("B is required unless A is an SpGEMMInstance")
         inst = SpGEMMInstance.from_operands(A, B, name=name)
     if model != "auto":
-        return _plan_one(inst, model, p, eps, seed, include_nz, engine)
+        return _plan_one(
+            inst, model, p, eps, seed, include_nz, engine, coarsen=coarsen, device=device
+        )
     candidates = [
-        _plan_one(inst, m, p, eps, seed, include_nz, engine)
+        _plan_one(inst, m, p, eps, seed, include_nz, engine, coarsen=coarsen, device=device)
         for m in executable_models()
     ]
     records = []

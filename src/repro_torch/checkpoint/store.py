@@ -11,9 +11,8 @@ written as one ``arrays.npz`` (every ndarray field) plus a versioned
 file).  A restarted session rebuilds its warm executor pool from here
 instead of re-partitioning and re-lowering the world.  Corrupt or
 version-mismatched entries are *quarantined* — renamed aside and logged,
-never fatal — so a bad byte on disk costs one replan, not the process.  An
-entry of a plan class the port cannot execute yet (the reference's
-``SummaPlan``) raises "not yet ported": it is not corrupt, so it stays.
+never fatal — so a bad byte on disk costs one replan, not the process.
+Every plan class of the reference, ``SummaPlan`` included, restores here.
 
 Commit protocol: write the payload into a ``*.tmp`` sibling, rename any
 existing final dir aside to ``*.prev``, ``os.replace`` the tmp into place,
@@ -34,8 +33,6 @@ import numpy as np
 
 PLAN_STORE_VERSION = 1
 _KEY_RE = re.compile(r"[A-Za-z0-9_-]+")
-#: plan classes the reference stores that the port does not execute yet
-_NOT_PORTED = ("SummaPlan",)
 
 
 class PlanStoreError(RuntimeError):
@@ -103,7 +100,7 @@ _ROUTE_SCALARS = (
 
 
 def _plan_classes():
-    from repro_torch.distributed import plan_ir
+    from repro_torch.distributed import plan_ir, summa
 
     return {
         cls.__name__: cls
@@ -113,6 +110,7 @@ def _plan_classes():
             plan_ir.OuterPlan,
             plan_ir.MonoCPlan,
             plan_ir.FinePlan,
+            summa.SummaPlan,
         )
     }
 
@@ -202,8 +200,7 @@ def save_plan(
 
 def _read_plan_entry(entry_dir: str, key: str) -> RestoredPlan:
     """Parse + integrity-check one entry; raises ``PlanStoreError`` on any
-    corruption or version mismatch (the quarantinable failures), and
-    ``ValueError`` for an intact entry of a plan class not yet ported."""
+    corruption or version mismatch (the quarantinable failures)."""
     man_path = os.path.join(entry_dir, "manifest.json")
     arr_path = os.path.join(entry_dir, "arrays.npz")
     try:
@@ -228,13 +225,7 @@ def _read_plan_entry(entry_dir: str, key: str) -> RestoredPlan:
             f"plan {key!r}: arrays.npz checksum mismatch "
             f"({digest[:12]} != {str(manifest.get('arrays_sha256'))[:12]})"
         )
-    classes = _plan_classes()
-    if manifest.get("plan_class") in _NOT_PORTED:
-        raise ValueError(
-            f"plan {key!r}: a {manifest['plan_class']} (model "
-            f"{manifest.get('model')!r}) is not yet ported to repro_torch"
-        )
-    cls = classes.get(manifest.get("plan_class"))
+    cls = _plan_classes().get(manifest.get("plan_class"))
     if cls is None:
         raise PlanStoreError(
             f"plan {key!r}: unknown plan class {manifest.get('plan_class')!r}"
@@ -323,8 +314,7 @@ def restore_plan(
     case it is renamed aside first (a bad entry costs one replan, never the
     process).  With ``quarantine=False`` integrity failures raise
     ``PlanStoreError``.  Transient IO errors propagate either way (they are
-    retryable; quarantining on them would discard good data), as does the
-    "not yet ported" ``ValueError`` of a ``SummaPlan`` entry."""
+    retryable; quarantining on them would discard good data)."""
     from repro_torch.testing import faults
 
     faults.fire("store_restore")

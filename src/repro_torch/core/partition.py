@@ -12,9 +12,8 @@ PaToH stand-in: recursive bisection with
 subject to w_comp(V_i) <= (1 + eps) * W / p (Def. 4.4 with delta = p - 1,
 matching the paper's experiments).
 
-Two engines share this driver (DESIGN.md §6); the module is a copy of
-``repro.core.partition`` restricted to them, and the planning tests pin
-equal partitions:
+Three engines share this driver (DESIGN.md §6); the module is a copy of
+``repro.core.partition``, and the planning tests pin equal partitions:
 
 - ``engine="flat"`` (default): the flat-CSR refinement engine in
   ``core/refine.py`` — gain-bucket FM, vectorized frontier growth, star
@@ -22,9 +21,15 @@ equal partitions:
 - ``engine="loop"``: the original per-move implementation, retained as the
   executable specification (``_fm_refine_loop`` / ``_initial_bisect_loop`` /
   ``_match_vertices_loop``).
+- ``engine="device"``: the batched label-propagation V-cycle of
+  ``core/refine_device.py`` and ``core/coarsen_device.py`` as torch ops on
+  an explicit device (the card unless ``device="cpu"``); the best seed gets
+  one host ``kway_refine`` polish.  Below ``DEVICE_MIN_VERTICES`` (and at
+  p = 1) the host quality path stays authoritative, as in the reference.
+  Unlike the reference, nothing falls back: a device failure raises (the
+  reference warns and degrades to host coarsening or to ``"flat"``).
 
-The reference's ``engine="device"`` (a batched label-propagation V-cycle on
-the accelerator) is not ported yet; asking for it raises.  The warm start
+The warm start
 (``partition(..., warm_start=labels)``, ``_warm_partition``) is the
 reference's: a previous partition's labels carried onto a drifted
 structure, polished by one K-way pass.
@@ -40,6 +45,7 @@ Engineering notes (documented, standard heuristics):
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 
 import numpy as np
@@ -58,6 +64,9 @@ MAX_MOVES_PER_PASS = 1200  # loop-engine FM candidate cap
 SMALL_DIRECT = 4096  # below this, the flat engine runs full per-bisection
 # multilevel (quality path); above it, one shared V-cycle (speed path)
 SMALL_STARTS = 4  # independent starts on the quality path (best kept)
+DEVICE_MIN_VERTICES = SMALL_DIRECT  # below this the device engine defers to
+# the host quality path (launch and padding overheads dominate there);
+# tests monkeypatch this to 0 to exercise the device path on small instances
 
 
 @dataclasses.dataclass
@@ -66,6 +75,9 @@ class PartitionResult:
     p: int
     connectivity: int  # final objective value
     warm: bool = False  # produced by the warm-start path (label reuse)
+    phases: dict | None = None  # per-phase seconds (device engine):
+    # {"coarsen_s", "refine_s", "polish_s"}
+    descend: str | None = None  # the device engine's descend: "device" or "host"
 
 
 # ---------------------------------------------------------------------------
@@ -595,6 +607,152 @@ def _global_vcycle(
     return levels, cur
 
 
+# resident-path refinement schedule (the reference's constants): the descend
+# happens on the device, so the ascent can winnow hard — a full multi-round
+# sweep at the coarsest level picks the surviving start, intermediate levels
+# get short touch-up passes, and one finest-level round settles the
+# expansion before the host K-way polish
+RESIDENT_MID_STARTS = 1  # starts surviving past the coarsest sweep
+RESIDENT_MID_ROUNDS = 2  # LP rounds per intermediate level
+RESIDENT_COARSE_STARTS = 3  # independent LPT starts at the coarsest level
+RESIDENT_COARSE_ROUNDS = 4  # LP rounds at the coarsest level
+RESIDENT_FINE_ROUNDS = 1  # winner-only LP rounds at the finest level
+RESIDENT_KWAY_ROUNDS = 4  # host polish rounds after the device V-cycle
+RESIDENT_TARGET = 75  # stop descending near TARGET * p vertices
+
+
+def _partition_device(
+    hg: Hypergraph, p: int, part_cap: float, seed: int, device, coarsen: str = "auto"
+) -> tuple[np.ndarray, dict]:
+    """Device-engine dispatcher: returns the labels, the phase seconds and
+    the descend it ran.  ``coarsen="device"`` runs the device-resident
+    V-cycle (``core/coarsen_device.py``), ``"host"`` the host-scipy descend
+    with device refinement, and ``"auto"`` the resident one unless its first
+    level is already past the reference's int32 sort-key guard
+    (``coarsen_device.packs_finest``), where the resident descent would
+    stop before its first step and leave label propagation on the finest
+    level alone; it then takes the host descend.  The choice is made from
+    the shapes before any device work.  A failure raises; the reference's
+    fallback to host coarsening is deliberately absent."""
+    from repro_torch.core import coarsen_device as cd
+
+    if coarsen == "host" or (coarsen == "auto" and not cd.packs_finest(hg)):
+        return (*_partition_device_hostcoarsen(hg, p, part_cap, seed, device), "host")
+    return (*_partition_device_resident(hg, p, part_cap, seed, device), "device")
+
+
+def _partition_device_resident(
+    hg: Hypergraph, p: int, part_cap: float, seed: int, device
+) -> tuple[np.ndarray, dict]:
+    """Device-resident V-cycle: descend (cluster + contract) and ascend
+    (batched multi-seed refinement) both run as torch ops over bucket-padded
+    tensors on ``device``; per level only two shape scalars cross to the
+    host, and only the winning finest-level labels come back for the
+    ``kway_refine`` polish."""
+    import torch
+
+    from repro_torch.core import coarsen_device as cd
+    from repro_torch.core import refine_device as rd
+
+    t0 = time.perf_counter()
+    total = float(hg.w_comp.sum())
+    cluster_cap = max(min(total / 10, part_cap / 4), float(hg.w_comp.max()))
+    glob_target = max(256, RESIDENT_TARGET * p)
+    levels = [cd.finest_level(hg, device)]
+    cmaps = []
+    while levels[-1].n_vertices > glob_target and len(cmaps) < cd.MAX_LEVELS:
+        out = cd.coarsen_level(levels[-1], cluster_cap, seed, len(cmaps))
+        if out is None:  # stalled or shape guard tripped: stop descending
+            break
+        coarse, cmap, _ = out
+        levels.append(coarse)
+        cmaps.append(cmap)
+    t1 = time.perf_counter()
+
+    cur = levels[-1]
+    w_host = cur.args[3][: cur.n_vertices].cpu().numpy()
+    small = not cmaps or hg.n_vertices <= SMALL_DIRECT
+    starts = rd.DEVICE_STARTS if small else RESIDENT_COARSE_STARTS
+    init = np.zeros((starts, cur.nb), np.int64)
+    init[:, : cur.n_vertices] = rd.initial_partitions_raw(w_host, p, seed, starts)
+    rounds = 3 * rd.ROUNDS_COARSE if small else RESIDENT_COARSE_ROUNDS
+    batch, scores = rd.refine_args(
+        cur.nb, cur.mb, cur.pb, cur.args, init, p, part_cap, rounds, seed, 0,
+    )
+    # small instances keep the full-width ascent (every start, tripled
+    # rounds): their rounds are nearly free
+    keep = starts if small else RESIDENT_MID_STARTS
+    mid_rounds = 3 * rd.ROUNDS_MID if small else RESIDENT_MID_ROUNDS
+    fine_rounds = 3 * rd.ROUNDS_FINE if small else RESIDENT_FINE_ROUNDS
+    if cmaps:
+        # winnow and expand without leaving the device
+        order = torch.argsort(scores, stable=True)
+        batch = batch[order[:keep]]
+        scores = scores[order[:keep]]
+        for li in range(len(levels) - 2, 0, -1):
+            lvl = levels[li]
+            batch = batch[:, cmaps[li]]
+            batch, scores = rd.refine_args(
+                lvl.nb, lvl.mb, lvl.pb, lvl.args, batch, p, part_cap,
+                mid_rounds, seed, li + 1,
+            )
+    winner = batch.index_select(0, torch.argmin(scores).reshape(1))[0]  # no host sync
+    if cmaps:
+        winner = winner[cmaps[0]]
+        if fine_rounds > 0:
+            # a short winner-only touch-up at the finest level (salt: li
+            # never reaches len(levels) in the mid loop, so the stream is
+            # fresh)
+            lvl = levels[0]
+            wb, _ = rd.refine_args(
+                lvl.nb, lvl.mb, lvl.pb, lvl.args, winner[None], p, part_cap,
+                fine_rounds, seed, len(levels),
+            )
+            winner = wb[0]
+    parts = winner[: hg.n_vertices].cpu().numpy().astype(np.int64)
+    t2 = time.perf_counter()
+    parts = kway_refine(
+        hg, parts, p, part_cap,
+        **({} if small else {"max_rounds": RESIDENT_KWAY_ROUNDS}),
+    )
+    t3 = time.perf_counter()
+    return parts, {"coarsen_s": t1 - t0, "refine_s": t2 - t1, "polish_s": t3 - t2}
+
+
+def _partition_device_hostcoarsen(
+    hg: Hypergraph, p: int, part_cap: float, seed: int, device
+) -> tuple[np.ndarray, dict]:
+    """Host scipy V-cycle + batched multi-seed device refinement at every
+    level + best-seed host polish (the reference's ``coarsen="host"``
+    driver).  The whole multi-start batch moves through the V-cycle side by
+    side; seeds are compared on the device score and only the winner pays
+    the host ``kway_refine`` polish."""
+    from repro_torch.core import refine_device as rd
+
+    t0 = time.perf_counter()
+    levels, cur = _global_vcycle(hg, p, part_cap)
+    t1 = time.perf_counter()
+    batch = rd.initial_partitions(cur, p, seed)
+    # rounds are nearly free below the size threshold (and when the V-cycle
+    # found no hierarchy, LP does all the work), so trade rounds for quality
+    boost = 3 if (not levels or hg.n_vertices <= SMALL_DIRECT) else 1
+    batch, scores = rd.refine_batch(
+        cur, batch, p, part_cap, boost * rd.ROUNDS_COARSE, seed=seed, salt=0, device=device
+    )
+    n_lv = len(levels)
+    for li, (fine, cmap) in enumerate(reversed(levels)):
+        batch = batch[:, cmap]
+        rounds = rd.ROUNDS_FINE if li == n_lv - 1 else rd.ROUNDS_MID
+        batch, scores = rd.refine_batch(
+            fine, batch, p, part_cap, boost * rounds, seed=seed, salt=li + 1, device=device
+        )
+    parts = batch[int(np.argmin(scores))].astype(np.int64)
+    t2 = time.perf_counter()
+    parts = kway_refine(hg, parts, p, part_cap)
+    t3 = time.perf_counter()
+    return parts, {"coarsen_s": t1 - t0, "refine_s": t2 - t1, "polish_s": t3 - t2}
+
+
 def _warm_partition(
     hg: Hypergraph, p: int, part_cap: float, labels: np.ndarray, drift_limit: float
 ) -> np.ndarray | None:
@@ -639,6 +797,8 @@ def partition(
     engine: str = "flat",
     warm_start: np.ndarray | None = None,
     warm_drift_limit: float = 0.5,
+    coarsen: str = "auto",
+    device=None,
 ) -> PartitionResult:
     """K-way partition via recursive bisection (+ a direct K-way pass).
 
@@ -654,6 +814,22 @@ def partition(
     recursive bisection directly on the fine hypergraph, re-coarsening each
     subproblem with pairwise matching.
 
+    ``engine="device"`` keeps the whole V-cycle on ``device`` (the card
+    unless the caller names another; without a card and without
+    ``device=`` it raises): coarsening (``core/coarsen_device.py``) and
+    batched multi-start refinement (``core/refine_device.py``) per level,
+    with only the final labels crossing back for the host polish.
+    ``coarsen`` selects the descend: ``"device"`` on the device (the
+    reference's ``"auto"``/``"device"``), ``"host"`` the host-scipy
+    V-cycle, and ``"auto"`` the device one unless the finest level is past
+    the reference's int32 sort-key guard, where that descent cannot start,
+    and then the host one (a deliberate difference: the reference refines
+    the finest level alone there).  Sizes at or below
+    ``DEVICE_MIN_VERTICES`` (and p = 1) take the flat quality path
+    unchanged, with ``phases=None``; a device result carries ``phases``
+    (coarsen / refine / polish seconds) and ``descend`` (``"device"`` or
+    ``"host"``).  A device failure raises.
+
     ``warm_start``: previous labels aligned to this hypergraph's vertices
     (entries outside ``[0, p)`` = unmapped after drift).  When reuse is
     viable (drift under ``warm_drift_limit`` and the polished result
@@ -665,13 +841,14 @@ def partition(
     from repro_torch.testing import faults
 
     faults.fire("partition")
-    if engine == "device":
-        raise ValueError(
-            "engine='device' is not ported yet (ROADMAP.md, Queue 1: the "
-            "device partitioner engine); use engine='flat' or 'loop'"
-        )
-    if engine not in ("flat", "loop"):
+    if engine not in ("flat", "loop", "device"):
         raise ValueError(f"unknown partition engine {engine!r}")
+    if coarsen not in ("auto", "device", "host"):
+        raise ValueError(f"unknown coarsen mode {coarsen!r}")
+    if engine == "device":
+        from repro_torch._device import resolve_device
+
+        device = resolve_device(device)
     if warm_start is not None and hg.n_vertices:
         if p == 1:
             parts = np.zeros(hg.n_vertices, dtype=np.int64)
@@ -683,6 +860,15 @@ def partition(
         if parts is not None:
             conn = evaluate(hg, parts, p).connectivity
             return PartitionResult(parts=parts, p=p, connectivity=conn, warm=True)
+    if engine == "device":
+        if hg.n_vertices > DEVICE_MIN_VERTICES and p > 1:
+            total = float(hg.w_comp.sum())
+            part_cap = max((1 + eps) * total / p, float(hg.w_comp.max()))
+            parts, phases, descend = _partition_device(hg, p, part_cap, seed, device, coarsen)
+            conn = evaluate(hg, parts, p).connectivity
+            return PartitionResult(parts=parts, p=p, connectivity=conn, phases=phases,
+                                   descend=descend)
+        engine = "flat"  # the reference's algorithm below the threshold
     rng = np.random.default_rng(seed)
     parts = np.zeros(hg.n_vertices, dtype=np.int64)
     if p > 1 and hg.n_vertices:

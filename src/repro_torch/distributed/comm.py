@@ -21,7 +21,7 @@ class Loopback:
     def __init__(self, p: int, batch: int | None = None):
         self.p = p
         self.batch = batch
-        self.items_moved = 0  # non-padding items exchanged since ``reset``
+        self.items_moved = 0  # items exchanged since ``reset``
         # the leading dims every stack has: (sets,) when batched, then ranks
         self._want = (p, p) if batch is None else (batch, p, p)
 
@@ -57,6 +57,23 @@ class Loopback:
         axis = self._rank_axis(buf, "rows")
         self.items_moved += buf.numel() // self.p * (self.p - 1)
         return buf.sum(axis)
+
+    def all_gather(self, buf: torch.Tensor, members: torch.Tensor) -> torch.Tensor:
+        """All-gather within groups of ranks: ``buf`` is the ``(p, ...)``
+        stack of each rank's block, ``members`` a ``(p, g)`` index tensor
+        whose row d lists, in order, the ranks of d's group (d among them).
+        Returns the ``(p, g, ...)`` stack whose rank d holds its group's
+        blocks — ``jax.lax.all_gather(..., tiled=False)`` over one axis of a
+        grid.  Each rank receives the ``g - 1`` blocks of the others, so
+        ``p (g - 1)`` blocks are counted, every element of each.
+        """
+        lead = 0 if self.batch is None else 1
+        if buf.shape[lead] != self.p or members.shape[0] != self.p:
+            raise ValueError(f"expected {self.p} ranks; got {tuple(buf.shape)} "
+                             f"and members {tuple(members.shape)}")
+        block = buf[0].numel() if self.batch is None else buf[0, 0].numel()
+        self.items_moved += self.p * (members.shape[1] - 1) * block * (self.batch or 1)
+        return buf[members] if self.batch is None else buf[:, members]
 
     def reset(self) -> None:
         self.items_moved = 0

@@ -856,8 +856,11 @@ def plan_from_reference(obj) -> ExecutionPlan:
     this IR hands the *same* plan to this package's executors.  Every array
     is copied, and the plan comes back as its model's class: ``RowwisePlan``
     for rowwise and columnwise, ``OuterPlan`` for outer, ``FinePlan`` for
-    fine, monoA and monoB, ``MonoCPlan`` for monoC.
+    fine, monoA and monoB, ``MonoCPlan`` for monoC, ``SummaPlan`` for
+    summa2d.
     """
+    from repro_torch.distributed.summa import SummaPlan
+
 
     def arrays(group) -> dict[str, np.ndarray]:
         return {k: np.array(v, dtype=np.int64) for k, v in group.items()}
@@ -878,7 +881,7 @@ def plan_from_reference(obj) -> ExecutionPlan:
         )
         for name, r in obj.routes.items()
     }
-    cls = _PLAN_CLASSES.get(str(obj.model), ExecutionPlan)
+    cls = {**_PLAN_CLASSES, "summa2d": SummaPlan}.get(str(obj.model), ExecutionPlan)
     return cls(
         model=str(obj.model),
         p=int(obj.p),

@@ -14,11 +14,12 @@ Mirrors ``repro.distributed.registry``.  A ``ModelSpec`` bundles:
 
 All seven paper models are executable; columnwise rides the rowwise
 machinery under ``C^T = B^T A^T``, and monoA/monoB lower through the fine
-plan with multiplications colocated with their stationary operand.  Ranks
-are stacked in plan order: rank d is row d of every rank-major table, which
-is the row-major flattening of the reference's meshes, so a plan's rank d is
-the same rank in both executors.  The reference's Sparse SUMMA baseline
-(``"summa2d"``) is not ported yet and raises "not yet ported".
+plan with multiplications colocated with their stationary operand.  The
+Sparse SUMMA baseline (``"summa2d"``, ``distributed/summa.py``) is
+partition-free (``build=None``) and executable, but never auto-selected.
+Ranks are stacked in plan order: rank d is row d of every rank-major table,
+which is the row-major flattening of the reference's meshes, so a plan's
+rank d is the same rank in both executors.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.distributed.plan_ir import (
     build_rowwise_plan,
     derive_owner_from_pins,
 )
+from repro_torch.distributed.summa import _lower_summa, _summa_runner
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,11 +319,15 @@ class ModelSpec:
     == the predicted words) or "useful" (unit-cost prediction recovered by
     nnz-weighting, ``item_words``, or fold accounting).  ``in_auto`` gates
     membership in ``model="auto"`` selection.
+
+    ``build is None`` marks a partition-free baseline (summa2d): there is
+    no hypergraph — the lowerer goes straight from the instance and the
+    prediction is the plan's analytic ``stats["words_analytic"]``.
     """
 
     name: str
     family: str  # "1D" | "2D" | "3D" (paper Sec. 5 classification)
-    build: Callable  # (inst, include_nz=False) -> Hypergraph
+    build: Callable | None  # (inst, include_nz=False) -> Hypergraph; None: no hypergraph
     lower: Callable  # (inst, parts, p) -> ExecutionPlan
     # (plan, a_s, b_s, *, device, dtype, block, batch=None) -> RunnerSetup
     make_runner: Callable
@@ -415,24 +421,35 @@ MODEL_SPECS: dict[str, ModelSpec] = {
         needs_c_structure=True,
         measured="exact",
     ),
+    # -- not a hypergraph model: the oblivious competitor ------------------
+    "summa2d": ModelSpec(
+        name="summa2d",
+        family="2D",
+        build=None,
+        lower=_lower_summa,
+        make_runner=_summa_runner,
+        make_unpack=_exec.make_monoC_unpack,  # monoC's rank-major C slots
+        pack_values=_values_blocked,
+        needs_c_structure=True,
+        measured="exact",
+        in_auto=False,
+    ),
 }
 
-assert set(MODELS) == set(MODEL_SPECS), "registry out of sync with core MODELS"
+assert set(MODELS) <= set(MODEL_SPECS), "registry out of sync with core MODELS"
 
 
 def get_spec(model: str) -> ModelSpec:
-    spec = MODEL_SPECS.get(model)
-    if spec is not None:
-        return spec
-    if model == "summa2d":
+    try:
+        return MODEL_SPECS[model]
+    except KeyError:
         raise ValueError(
-            f"model {model!r} is not yet ported to repro_torch (ported: "
-            f"{tuple(MODEL_SPECS)}); ROADMAP.md Queue 1 names its slice"
-        )
-    raise ValueError(f"unknown model {model!r}; choose from {tuple(MODEL_SPECS)}")
+            f"unknown model {model!r}; choose from {tuple(MODEL_SPECS)}"
+        ) from None
 
 
 def executable_models() -> tuple[str, ...]:
     """Names of the paper models with a full plan-lowering + executor path
-    that participate in ``model="auto"``, in ``MODELS`` order."""
+    that participate in ``model="auto"``, in ``MODELS`` order (the summa2d
+    baseline is executable but excluded by ``in_auto=False``)."""
     return tuple(n for n in MODELS if MODEL_SPECS[n].in_auto)

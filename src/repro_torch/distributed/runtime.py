@@ -40,6 +40,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.distributed.registry import get_spec
 from repro_torch.sparse.structure import SparseStructure, structure_fingerprint
 from repro_torch.testing import faults
@@ -53,23 +54,6 @@ __all__ = [
     "resolve_device",
     "torch_dtype",
 ]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: the card unless the caller names
-    another.  ``None`` means CUDA and raises when there is none — the CPU is
-    only ever chosen explicitly (``device="cpu"``)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch path on the CPU"
-            )
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -35,12 +35,12 @@ stage failures, and process restarts:
   persistent compile/execute failures walk the model chain
   (fine -> monoC -> rowwise), replanning with the cheaper model.  Every
   decision is recorded on ``session.events`` so tests and benchmarks can
-  assert exactly what happened.  The port has no ``engine="device"``
-  partitioner yet: asking for it raises, so the default engine chain falls
-  back to ``"flat"`` with an ``engine_fallback`` event.  A kernel of the
-  port that fails on the card (``kernels.KernelError``: no build, no load,
-  refused inputs, a failed launch) is never downgraded around: the session
-  raises it.
+  assert exactly what happened.  ``engine="device"`` partitions on the
+  session's device; a device partitioner that fails raises in
+  ``partition``, and the session reports that as an ``engine_fallback`` to
+  ``"flat"``.  A kernel of the port that fails on the card
+  (``kernels.KernelError``: no build, no load, refused inputs, a failed
+  launch) is never downgraded around: the session raises it.
 """
 from __future__ import annotations
 
@@ -314,6 +314,7 @@ class SpGEMMSession:
                         eps=self.eps,
                         seed=self.seed,
                         engine=eng,
+                        device=self.device,
                     )
                 return api._plan_one(
                     inst,
@@ -325,6 +326,7 @@ class SpGEMMSession:
                     engine=eng,
                     warm_start=warm_labels,
                     warm_drift_limit=self.warm_drift_limit,
+                    device=self.device,
                 )
 
             try:

@@ -305,6 +305,53 @@ def outer_product_spgemm(a_dense, b_dense, plan: OuterPlan, device=None) -> torc
     return _dense_call_1d(plan, a_dense, b_dense, device)
 
 
+def spsumma(
+    a_dense,
+    b_dense,
+    grid: tuple[int, int] = (2, 2),
+    device=None,
+    comm: Loopback | None = None,
+) -> torch.Tensor:
+    """Dense SUMMA (2D, stationary C) on a ``(pr, pc)`` grid of ranks: rank
+    ``(r, c)`` holds block ``(r, c)`` of the zero-padded A and B, gathers
+    the A blocks of its grid row and the B blocks of its grid column (the
+    volume of the SUMMA panel broadcasts) and multiplies them into its C
+    block.  Returns the dense (I, J) product on ``device`` (the card unless
+    named); ``comm`` (a ``Loopback`` over pr * pc ranks) counts the items
+    the two all-gathers move."""
+    from repro_torch.distributed.runtime import resolve_device
+
+    pr, pc = grid
+    p = pr * pc
+    device = resolve_device(device)
+    comm = Loopback(p) if comm is None else comm
+    a = torch.as_tensor(np.asarray(a_dense))
+    b = torch.as_tensor(np.asarray(b_dense))
+    I, K = a.shape
+    _, J = b.shape
+    I_p = (I + pr - 1) // pr * pr
+    K_p = (K + p - 1) // p * p
+    J_p = (J + pc - 1) // pc * pc
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    a_pad = torch.zeros((I_p, K_p), dtype=dtype, device=device)
+    a_pad[:I, :K] = a.to(device)
+    b_pad = torch.zeros((K_p, J_p), dtype=dtype, device=device)
+    b_pad[:K, :J] = b.to(device)
+    # rank r * pc + c holds A block (r, c) of (I_p/pr, K_p/pc) and B block
+    # (r, c) of (K_p/pr, J_p/pc)
+    a_blk = a_pad.reshape(pr, I_p // pr, pc, K_p // pc).transpose(1, 2).reshape(p, I_p // pr, -1)
+    b_blk = b_pad.reshape(pr, K_p // pr, pc, J_p // pc).transpose(1, 2).reshape(p, K_p // pr, -1)
+    r, c = np.divmod(np.arange(p), pc)
+    row_ranks = torch.as_tensor(r[:, None] * pc + np.arange(pc)[None, :], device=device)
+    col_ranks = torch.as_tensor(np.arange(pr)[None, :] * pc + c[:, None], device=device)
+    # (p, pc, I_p/pr, K_p/pc) -> each rank's (I_p/pr, K_p) A panel row
+    a_row = comm.all_gather(a_blk, row_ranks).transpose(1, 2).reshape(p, I_p // pr, K_p)
+    b_col = comm.all_gather(b_blk, col_ranks).reshape(p, K_p, J_p // pc)
+    c_blk = torch.matmul(a_row, b_col)  # (p, I_p/pr, J_p/pc)
+    out = c_blk.reshape(pr, pc, I_p // pr, J_p // pc).transpose(1, 2).reshape(I_p, J_p)
+    return out[:I, :J]
+
+
 # ---------------------------------------------------------------------------
 # 2D monochrome-C (Ex. 5.4)
 # ---------------------------------------------------------------------------

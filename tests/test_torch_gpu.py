@@ -2,8 +2,10 @@
 kernels against their plain versions, the ``ops`` entry point against its
 CPU path, the monoC front door and tiled path against dense ``A @ B``, and
 the other six models and ``model="auto"`` against their CPU path and scipy,
-and every model's batched executor against its unbatched one; a session
-whose K1 fails to load raises.
+and every model's batched executor against its unbatched one; the Sparse
+SUMMA baseline (one K1 launch a stage) and ``spsumma``; the device
+partitioner's labels on the card equal to its CPU labels; a session whose
+K1 fails to load raises.
 
 Marked ``gpu``; every test skips where no CUDA device exists (decided in
 the ``cuda`` fixture, never at import).  On a card:
@@ -604,6 +606,72 @@ def test_batched_monoC_dispatch_is_one_k1_launch(cuda):
     torch.cuda.synchronize()
     assert bsr_spgemm_local.launches == {**before,
                                          "scalar_runs": before["scalar_runs"] + 3}
+
+
+@pytest.mark.parametrize("p", [4, 6])
+def test_summa2d_on_the_card(cuda, p):
+    """One K1 launch a stage, the closed-form words through the collective,
+    the product equal to the CPU path and to scipy; batched, every set bit
+    for bit its unbatched result."""
+    rng = np.random.default_rng(9)
+    a = (rng.standard_normal((70, 55)) * (rng.random((70, 55)) < 0.1)).astype(np.float32)
+    b = (rng.standard_normal((55, 48)) * (rng.random((55, 48)) < 0.12)).astype(np.float32)
+    a_s, b_s = from_dense(a), from_dense(b)
+    av, bv = a[a_s.coo()], b[b_s.coo()]
+    handle = repro_torch.plan(a_s, b_s, p=p, model="summa2d")
+    plan = handle.execution_plan
+    exe = handle.compile()
+    exe.runtime.comm.reset()
+    before = dict(bsr_spgemm_local.launches)
+    c = exe(av, bv)
+    torch.cuda.synchronize()
+    assert bsr_spgemm_local.launches == {
+        **before, "scalar_runs": before["scalar_runs"] + plan.n_stages}
+    pr, pc = plan.pr, plan.pc
+    assert exe.runtime.comm.items_moved == moved_items(plan) == (
+        a_s.nnz * (pc - 1) + b_s.nnz * (pr - 1))
+    on_cpu = handle.compile(device="cpu")(av, bv)
+    np.testing.assert_allclose(c.cpu().numpy(), on_cpu.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(c.cpu().numpy(), _scipy_product(a_s, av, b_s, bv),
+                               rtol=1e-4, atol=1e-4)
+    stacks = (np.stack([av, 2 * av, -av]), np.stack([bv, bv, 0.5 * bv]))
+    got = handle.compile(batch=3)(*stacks)
+    for i in range(3):
+        assert torch.equal(got[i], exe(stacks[0][i], stacks[1][i])), i
+
+
+def test_spsumma_on_the_card(cuda):
+    from repro_torch.distributed import spsumma
+
+    rng = np.random.default_rng(10)
+    a = (rng.standard_normal((45, 38)) * (rng.random((45, 38)) < 0.2)).astype(np.float32)
+    b = (rng.standard_normal((38, 41)) * (rng.random((38, 41)) < 0.2)).astype(np.float32)
+    c = spsumma(a, b, (2, 3))
+    assert c.device.type == "cuda"
+    np.testing.assert_allclose(c.cpu().numpy(), a @ b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("coarsen", ["auto", "device", "host"])
+@pytest.mark.parametrize("model", ["rowwise", "fine"])
+def test_device_engine_labels_on_the_card_equal_the_cpu(cuda, monkeypatch, model, coarsen):
+    import importlib
+
+    from repro_torch.core import build_model, SpGEMMInstance
+    from repro_torch.core.partition import partition
+    from repro_torch.sparse.structure import random_structure
+
+    monkeypatch.setattr(importlib.import_module("repro_torch.core.partition"),
+                        "DEVICE_MIN_VERTICES", 0)
+    rng = np.random.default_rng(0)
+    inst = SpGEMMInstance(random_structure(900, 700, 0.01, rng),
+                          random_structure(700, 800, 0.01, rng))
+    hg = build_model(inst, model)
+    for p in (2, 4, 8):
+        on_card = partition(hg, p, eps=0.10, seed=0, engine="device", coarsen=coarsen)
+        on_cpu = partition(hg, p, eps=0.10, seed=0, engine="device", coarsen=coarsen,
+                           device="cpu")
+        assert on_card.phases is not None and on_card.descend == on_cpu.descend
+        np.testing.assert_array_equal(on_card.parts, on_cpu.parts)
 
 
 def test_session_raises_when_k1_fails_to_load(cuda, monkeypatch):

@@ -20,6 +20,8 @@ import repro_torch.kernels.bsr_spmm, repro_torch.kernels.moe_gemm
 import repro_torch.kernels.ops, repro_torch.kernels._build
 import repro_torch.resilience, repro_torch.testing.faults, repro_torch.checkpoint.store
 import repro_torch.distributed.session, repro_torch.launch.serve
+import repro_torch.distributed.summa, repro_torch.distributed
+import repro_torch.core.refine_device, repro_torch.core.coarsen_device, repro_torch._device
 from repro_torch.core import matrices
 from repro_torch.kernels import ops
 from repro_torch.sparse.bsr import to_bsr
@@ -32,9 +34,19 @@ av = rng.standard_normal(a_s.nnz).astype(np.float32)
 bv = rng.standard_normal(b_s.nnz).astype(np.float32)
 a = np.zeros(a_s.shape, np.float32); a[a_s.coo()] = av
 b = np.zeros(b_s.shape, np.float32); b[b_s.coo()] = bv
-for model in ("monoC", "rowwise", "fine"):
+for model in ("monoC", "rowwise", "fine", "summa2d"):
     c = repro_torch.plan(a_s, b_s, p=2, model=model).compile(device="cpu")(av, bv)
     np.testing.assert_allclose(c.numpy(), a @ b, rtol=1e-5, atol=1e-5)
+np.testing.assert_allclose(repro_torch.distributed.spsumma(a, b, (1, 2), device="cpu").numpy(),
+                           a @ b, rtol=1e-5, atol=1e-5)
+import importlib
+importlib.import_module("repro_torch.core.partition").DEVICE_MIN_VERTICES = 0
+for coarsen in ("auto", "host"):
+    h = repro_torch.plan(a_s, b_s, p=2, model="fine", engine="device", coarsen=coarsen,
+                         device="cpu")
+    assert h.partition.phases is not None
+    np.testing.assert_allclose(h.compile(device="cpu")(av, bv).numpy(), a @ b,
+                               rtol=1e-5, atol=1e-5)
 a8 = np.kron(rng.random((3, 2)) < 0.7, np.ones((8, 8))).astype(np.float32)
 b8 = rng.standard_normal((16, 8)).astype(np.float32)
 np.testing.assert_allclose(ops.spmm(to_bsr(a8, 8, 8), b8, device="cpu").numpy(), a8 @ b8,
@@ -65,3 +77,21 @@ def test_port_imports_and_runs_without_jax_or_repro():
         timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    """``chip_smoke.py`` (which runs only on the card) names no module of
+    jax or of the JAX package in any import, at any depth."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, bad
+    assert any(n.startswith("repro_torch") for n in names)

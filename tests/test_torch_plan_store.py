@@ -2,9 +2,8 @@
 package's: one on-disk format, so a plan either package stores restores in
 the other with equal plan arrays and ``plan_fingerprint`` (the identity the
 executor LRU keys on); atomic commits, checksum and version quarantine; and
-the reference's ``SummaPlan`` entries, which the port cannot execute yet,
-raise "not yet ported" without being quarantined.  The session's store keys
-equal the reference's for the same operands.
+the reference's ``SummaPlan`` entries, which restore and execute in the port.
+The session's store keys equal the reference's for the same operands.
 """
 import json
 import os
@@ -99,14 +98,33 @@ def test_port_stored_plan_restores_in_jax(model, tmp_path):
 
 
 def test_summa_entry_is_not_yet_ported_and_not_quarantined(tmp_path):
+    """A JAX ``SummaPlan`` entry restores in the port (no longer refused as
+    "not yet ported"), intact and unquarantined, and executes to A @ B."""
     a, b = _masks(1)
     summa = repro.plan(jax_from_dense(a), jax_from_dense(b), p=4, model="summa2d")
     store = str(tmp_path / "store")
     jax_save_plan(store, "summa", summa.execution_plan)
-    with pytest.raises(ValueError, match="not yet ported"):
-        restore_plan(store, "summa")
+    back = restore_plan(store, "summa")
+    assert type(back.plan).__name__ == "SummaPlan"
+    _same_plan(summa.execution_plan, back.plan)
+    assert plan_fingerprint(back.plan) == jax_fingerprint(summa.execution_plan)
     assert list_plans(store) == ["summa"]  # intact: no quarantine
     assert not any("quarantined" in d for d in os.listdir(store))
+    a_s, b_s = from_dense(a), from_dense(b)
+    exe = restore_compile(back.plan, a_s, b_s)
+    np.testing.assert_allclose(
+        exe(np.ones(a_s.nnz, np.float32), np.ones(b_s.nnz, np.float32)).numpy(),
+        a.astype(np.float32) @ b.astype(np.float32), rtol=1e-5, atol=1e-5,
+    )
+
+
+def restore_compile(plan, a_s, b_s):
+    """A restored plan compiled on the CPU through the front door's handle."""
+    from repro_torch.api import PlannedSpGEMM
+
+    inst = SpGEMMInstance(a_s, b_s)
+    return PlannedSpGEMM(instance=inst, model=plan.model, hypergraph=None, partition=None,
+                         execution_plan=plan).compile(device="cpu")
 
 
 def test_session_store_keys_equal_jax(tmp_path):

@@ -149,13 +149,19 @@ def test_pair_lists_byte_identical_to_jax_and_loop():
 
 
 def test_unported_models_and_engines_raise():
-    # every paper model and "auto" are ported; the Sparse SUMMA baseline and
-    # the device partitioner engine are not
+    # every model of the reference (the Sparse SUMMA baseline included) and
+    # every partitioner engine is ported: only names the reference does not
+    # know raise
     ji, ti = _instances("random")
-    for model in ("summa2d",):
-        with pytest.raises(ValueError, match="not yet ported"):
-            repro_torch.plan(ti, p=2, model=model)
+    assert repro_torch.plan(ti, p=2, model="summa2d").model == "summa2d"
     with pytest.raises(ValueError, match="unknown model"):
         repro_torch.plan(ti, p=2, model="nope")
-    with pytest.raises(ValueError, match="device partitioner engine"):
-        repro_torch.plan(ti, p=2, model="monoC", engine="device")
+    with pytest.raises(ValueError, match="unknown partition engine"):
+        repro_torch.plan(ti, p=2, model="monoC", engine="nope")
+    with pytest.raises(ValueError, match="unknown coarsen mode"):
+        repro_torch.plan(ti, p=2, model="monoC", engine="device", coarsen="nope",
+                         device="cpu")
+    # below the device engine's size threshold it runs the flat path, as the
+    # reference does, and reports no device phases
+    handle = repro_torch.plan(ti, p=2, model="monoC", engine="device", device="cpu")
+    assert handle.partition.phases is None

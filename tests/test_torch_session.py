@@ -240,15 +240,24 @@ def test_unchanged_structure_hits_warm_pool():
     assert s.stats()["pool_size"] == 1
 
 
-def test_engine_device_falls_back_to_flat():
-    """The port has no device partitioner: asking for it takes the policy's
-    engine chain down to "flat", recorded as an engine_fallback event."""
+def test_engine_device_falls_back_to_flat(monkeypatch):
+    """A device partitioner that fails raises in ``partition`` (the port has
+    no silent fallback there); the session's engine chain then replans with
+    "flat", recorded as an engine_fallback event."""
+    partition_mod = importlib.import_module("repro_torch.core.partition")
+    refine_device = importlib.import_module("repro_torch.core.refine_device")
+    monkeypatch.setattr(partition_mod, "DEVICE_MIN_VERTICES", 0)
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("device refinement failed")
+
+    monkeypatch.setattr(refine_device, "refine_args", broken)
     A, B = _mats(40)
     s = _session(p=4, model="rowwise", engine="device")
     _check(s, A, B)
     assert _kinds(s) == ["engine_fallback", "cold_replan"]
     assert s.events[0].detail["engine"] == "flat"
-    assert "not ported yet" in s.events[0].detail["error"]
+    assert "device refinement failed" in s.events[0].detail["error"]
 
 
 def test_session_defaults_to_the_card():
