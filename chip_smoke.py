@@ -65,6 +65,15 @@ Phases, each printing its seconds:
      the flat plans', the product against scipy); the card's partition
      labels against the port's CPU labels; profiles of a 27-AP and an
      LP-pds100 device partition, taken on those runs.
+ 12. LM serving (``lm_serving``): Qwen3-MoE-235B-A22B at its published
+     width, bf16, 4 of its 94 layers: an expert placement planned by
+     ``core.moe_planner`` for 4 columns and installed in the config;
+     ``make_prefill_step`` on 8 x 1024 synthetic tokens (K3 at C = 640,
+     3 launches a layer) and 16 greedy ``make_decode_step`` steps (K3 at
+     C = 1), timed and profiled, with the decode step's byte bound; every K3
+     launch of one prefill and one decode step against its plain version;
+     prefill against token-by-token decode in fp32 at 2 layers; the eight
+     attention-family smoke configs, card against CPU.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -72,11 +81,13 @@ on the retiled 32 and 64 products, ``warp_rows`` and ``mma_rows`` on the
 fp32 and bf16 AMG SpMMs at 8 x 8, ``warp_blocks`` and ``mma_blocks`` on
 the fp32 and bf16 ones at 12 x 12, ``expert_wgmma``
 on the bf16 up projection, ``expert_split`` and ``split3_bf16`` on the
-fp32 one, ``stage16`` on the misaligned bf16 up projection; bounds at the
+fp32 one, ``stage16`` on the misaligned bf16 up projection, and
+``expert_wgmma`` again at the LM path's prefill (C = 640) and decode
+(C = 1) up projections, with their launches on that path; bounds at the
 peak of each route's arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
 ``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``, 11 under
-``summa_device``).
+``summa_device``, 12 under ``lm_serve``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -428,7 +439,13 @@ def kernel_record_at(exe, a, b, library_ms):
 
 
 def profile_call(exe, a, b, call_ms: float, calls: int = 3, label: str = "27-AP") -> dict:
-    """Where one front-door call's device time goes: the CUDA kernels that
+    """Where one front-door call's device time goes (``profile_fn`` of
+    ``exe(a, b)``)."""
+    return profile_fn(lambda: exe(a, b), call_ms, calls, label)
+
+
+def profile_fn(fn, call_ms: float, calls: int = 3, label: str = "27-AP") -> dict:
+    """Where one call of ``fn``'s device time goes: the CUDA kernels that
     ``torch.profiler`` saw over a few calls, per call, against the median
     unprofiled call time ``call_ms`` (the idle share is the rest).  Printed,
     and returned for the phase's record (empty if the profiler saw no
@@ -438,7 +455,7 @@ def profile_call(exe, a, b, call_ms: float, calls: int = 3, label: str = "27-AP"
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            exe(a, b)
+            fn()
         torch.cuda.synchronize()
     kernels = [
         e for e in prof.key_averages()
@@ -1552,6 +1569,361 @@ def summa_and_device_engine(ap, ptap, lp, ap_stats, ptap_stats, models, device, 
     return record
 
 
+LM_ARCH = "qwen3-moe-235b-a22b"
+LM_LAYERS = 4  # of the published 94: the weights then take 22.4 GB of the card
+LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 1024, 16
+LM_PEAK_BYTES = 40e9
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _tree_bytes(tree) -> int:
+    return sum(_tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def timed_ms(fn, calls: int) -> list[float]:
+    """Host-clock ms of ``calls`` calls of ``fn``, each ending in a sync."""
+    import torch
+
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def k3_checked(records: list, keep: dict, label: str):
+    """A stand-in for the MoE layer's ``moe_gemm`` that holds every launch
+    against ``moe_gemm_ref`` on the same inputs (bf16 tolerance), records
+    its shapes, launches and error, and keeps the first call's operands
+    under ``keep[label]``."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.ref import moe_gemm_ref
+
+    def checked(x, w, b_c=128, b_f=128, b_d=512):
+        before = dict(moe_gemm.launches)
+        out = moe_gemm(x, w, b_c, b_f, b_d)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in moe_gemm.launches.items() if v != before[k]}
+        err = max_err_within(out, moe_gemm_ref(x, w), TOL[dtype_name(x.dtype)],
+                             f"LM {label}: K3 at {tuple(x.shape)} x {tuple(w.shape)}")
+        records.append({"call": label, "x": list(x.shape), "w": list(w.shape),
+                        "launches": moved, "max_abs_err": err})
+        keep.setdefault(label, (x, w))
+        return out
+
+    return checked
+
+
+def k3_record_at(x, w, launches: int, err: float) -> dict:
+    """K3's numbers at operands the LM path gave it: the kernel, its plain
+    version and ``torch.bmm`` on the same tensors, by events; the bound is
+    each operand read once and the output written once, against bf16
+    operations at the tensor cores' peak."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm, route
+    from repro_torch.kernels.ref import moe_gemm_ref
+
+    E, C, d = x.shape
+    f = w.shape[2]
+    n_bytes = (x.numel() + w.numel() + E * C * f) * x.element_size()
+    n_ops = 2.0 * E * C * d * f
+    bound_ms, bound_by = bound(n_bytes, n_ops, dtype_name(x.dtype))
+    return {
+        "kernel": route(x, w), "shape": [list(x.shape), list(w.shape)], "launches": launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: moe_gemm(x, w, b_c=C, b_f=f, b_d=d), reps=20),
+        "plain_ms": cuda_ms(lambda: moe_gemm_ref(x, w), reps=3, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": n_bytes,
+        "bound_flops": n_ops, "library_ms": cuda_ms(lambda: torch.bmm(x, w), reps=20),
+        "library_call": "torch.bmm",
+    }
+
+
+def replay_decode(decode, params, cache: dict, tok) -> None:
+    """``LM_DECODE_STEPS`` greedy steps from a copy of ``cache``."""
+    cache = {k: v.clone() for k, v in cache.items()}
+    for _ in range(LM_DECODE_STEPS):
+        logits, cache = decode(params, cache, tok)
+        tok = logits.argmax(-1)[:, None]
+
+
+def experts_with_rows(layers, run, n_layers: int) -> list[list[int]]:
+    """Runs ``run`` with the MoE layer's K3 calls watched and returns, for
+    each decode step and layer, how many experts K3 got a row for: the
+    experts whose rows of the up projection's input are not all zero (an
+    expert that no kept pair reached has only zero rows)."""
+    import torch
+
+    real, counts = layers.moe_gemm, []
+
+    def watched(x, w, *args, **tiles):
+        if len(counts) % 3 == 0:  # up, gate, down: the first of a layer's three
+            counts.append((x != 0).flatten(1).any(1).sum())
+        else:
+            counts.append(None)
+        return real(x, w, *args, **tiles)
+
+    try:
+        layers.moe_gemm = watched
+        run()
+    finally:
+        layers.moe_gemm = real
+    torch.cuda.synchronize()
+    per_layer = [int(c) for c in counts if c is not None]
+    return [per_layer[i:i + n_layers] for i in range(0, len(per_layer), n_layers)]
+
+
+def lm_serving(device):
+    """Phase 12: the LM stack's serving path with Qwen3-MoE-235B-A22B at its
+    published width (d 4096, 64 heads, 4 KV heads, head 128, 128 experts,
+    top-8, expert f 1536, vocab 151,936), bf16, ``n_layers`` cut from 94 to
+    ``LM_LAYERS``, random weights from a seed.
+
+    (a) ``plan_expert_placement`` for 4 expert columns on correlated
+        routing (8192 tokens, 4 blocks of 32 experts scattered over the
+        ids, 64 token groups), installed in the config;
+    (b) ``make_prefill_step`` on 8 x 1024 tokens of ``SyntheticTokens``
+        (T = 8192, C = 640 rows per expert): median ms of 5 calls after a
+        warm-up, K3 launches of one call (3 a layer, or it fails), a
+        profile (top device ops, idle share);
+    (c) ``make_decode_step``, 16 greedy steps on the returned cache (C = 1):
+        ms per step, tokens/s, K3 launches (3 a layer a step), one step
+        under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync),
+        a profile, the step's byte bound (every weight read once), and,
+        from a replay of the 16 steps, the experts each layer routes a row
+        to and the needed-bytes bound (the weights less the experts that
+        got no row);
+    (d) every K3 launch of one prefill call and one decode step against
+        ``moe_gemm_ref`` on the same inputs (bf16 tolerance), then K3 timed
+        at the layer-0 up projection of each, beside its plain version and
+        ``torch.bmm``;
+    (e) prefill against token-by-token decode at full width in fp32, 2
+        layers, B = 1, S = 64, capacity factor E / K (no expert drops a
+        pair, so both see the same experts), within 1e-3;
+    (f) the eight attention-family smoke configs in fp32: ``forward``,
+        ``prefill_step`` and three ``decode_step``s on the card against
+        the CPU, same weights, within 1e-4.
+    Peak memory over (a)-(d) must stay under 40 GB."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import all_arch_ids, get_config, get_smoke_config
+    from repro_torch.core.moe_planner import plan_expert_placement, routing_counts
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import forward, init_kv_cache, init_params, layers
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(LM_ARCH)
+    E, K = base.moe.n_experts, base.moe.top_k
+    rec = {"config": LM_ARCH, "n_layers": LM_LAYERS, "n_layers_published": base.n_layers,
+           "dtype": base.dtype}
+
+    # (a) the dispatch planner's expert placement
+    rng = np.random.default_rng(0)
+    n_tokens, n_blocks = 8192, 4
+    scattered = rng.permutation(E).reshape(n_blocks, E // n_blocks)
+    gate = np.stack([rng.choice(scattered[(t * n_blocks) // n_tokens], size=K, replace=False)
+                     for t in range(n_tokens)])
+    t_plan = time.perf_counter()
+    plan = plan_expert_placement(routing_counts(gate, E, n_groups=64), n_columns=4)
+    plan_s = time.perf_counter() - t_plan
+    if sorted(plan.placement.tolist()) != list(range(E)):
+        fail("LM (a): the placement is not a permutation of the experts")
+    if not plan.comm_planned < plan.comm_contiguous:
+        fail(f"LM (a): planned cut {plan.comm_planned} not below contiguous {plan.comm_contiguous}")
+    rec["placement"] = {
+        "plan_s": plan_s, "columns": 4, "tokens": n_tokens, "groups": 64,
+        "comm_planned": int(plan.comm_planned), "comm_contiguous": int(plan.comm_contiguous),
+        "load_imbalance_planned": plan.load_imbalance_planned,
+        "load_imbalance_contiguous": plan.load_imbalance_contiguous,
+    }
+    print("LM (a) placement", json.dumps(rec["placement"]), flush=True)
+    cfg = dataclasses.replace(base, n_layers=LM_LAYERS, moe=dataclasses.replace(
+        base.moe, expert_placement=tuple(int(e) for e in plan.placement)))
+    phase("LM serving (a) placement", t0)
+
+    # (b) prefill
+    t_init = time.perf_counter()
+    params = init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t_init
+    rec["param_bytes"] = _tree_bytes(params)
+    tokens = torch.as_tensor(
+        SyntheticTokens(cfg.vocab, LM_PROMPT, LM_BATCH, seed=0).batch(0)["tokens"], device=device)
+    batch = {"tokens": tokens}
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    prefill(params, batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    if launches != {"expert_wgmma": 3 * LM_LAYERS}:
+        fail(f"LM (b): K3 launches {launches} in one prefill call, not "
+             f"{{'expert_wgmma': {3 * LM_LAYERS}}}")
+    if logits.shape != (LM_BATCH, cfg.vocab) or not bool(logits.isfinite().all()):
+        fail(f"LM (b): prefill logits {tuple(logits.shape)}, finite {bool(logits.isfinite().all())}")
+    prefill_launches = launches["expert_wgmma"]
+    calls = timed_ms(lambda: prefill(params, batch), 5)
+    cap = int(np.ceil(LM_BATCH * LM_PROMPT * K / E * cfg.moe.capacity_factor))
+    rec["prefill"] = {
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "tokens": LM_BATCH * LM_PROMPT, "capacity": cap,
+        "ms_median": statistics.median(calls), "ms": calls,
+        "tokens_per_s": LM_BATCH * LM_PROMPT / (statistics.median(calls) / 1e3),
+        "k3_launches_per_call": launches,
+    }
+    rec["prefill"]["profile"] = profile_fn(lambda: prefill(params, batch),
+                                           rec["prefill"]["ms_median"], calls=2,
+                                           label="LM prefill")
+    print("LM (b) prefill", json.dumps(rec["prefill"]), flush=True)
+    phase("LM serving (b) prefill", t0)
+
+    # (c) greedy decode on the returned cache
+    logits, cache = prefill(params, batch)
+    tok = logits.argmax(-1)[:, None]
+    start = ({k: v.clone() for k, v in cache.items()}, tok)  # replayed below
+    steps = []
+    reset_launches()
+    for _ in range(LM_DECODE_STEPS):
+        t_step = time.perf_counter()
+        logits, cache = decode(params, cache, tok)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t_step) * 1e3)
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    if launches != {"expert_wgmma": 3 * LM_LAYERS * LM_DECODE_STEPS}:
+        fail(f"LM (c): K3 launches {launches} in {LM_DECODE_STEPS} decode steps")
+    if not bool(logits.isfinite().all()) or int(cache["pos"]) != LM_PROMPT + LM_DECODE_STEPS:
+        fail(f"LM (c): decode logits finite {bool(logits.isfinite().all())}, "
+             f"pos {int(cache['pos'])}")
+    decode_launches = launches["expert_wgmma"]
+    torch.cuda.set_sync_debug_mode("error")  # a step must never wait for the card
+    try:
+        decode(params, cache, tok)
+    except RuntimeError as e:
+        fail(f"LM (c): a decode step waits for the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hit = experts_with_rows(layers, lambda: replay_decode(decode, params, *start), LM_LAYERS)
+    table = params["embed"]["tokens"]
+    # every weight read once; of the embedding table, the B rows gathered
+    step_bytes = (rec["param_bytes"] - table.numel() * table.element_size()
+                  + LM_BATCH * cfg.d_model * table.element_size())
+    # the same, less the experts that no token reached (K3 still reads them)
+    one_expert = sum(params["layers"]["moe"][k][0, 0].numel() for k in ("wi", "wg", "wo")) * (
+        table.element_size())
+    needed = [step_bytes - sum(E - n for n in step) * one_expert for step in hit]
+    step_ms = statistics.median(steps)
+    rec["decode"] = {
+        "batch": LM_BATCH, "steps": LM_DECODE_STEPS, "capacity": int(np.ceil(
+            LM_BATCH * K / E * cfg.moe.capacity_factor)),
+        "ms_per_step_median": step_ms, "ms": steps, "tokens_per_s": LM_BATCH / (step_ms / 1e3),
+        "k3_launches_per_step": {k: v / LM_DECODE_STEPS for k, v in launches.items()},
+        "bound_bytes": step_bytes, "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        "experts_with_rows": hit, "experts_with_rows_mean": float(np.mean(hit)),
+        "needed_bytes_median": statistics.median(needed),
+        "needed_ms_median": statistics.median(needed) / HBM_BYTES_PER_S * 1e3,
+    }
+    rec["decode"]["profile"] = profile_fn(lambda: decode(params, cache, tok), step_ms, calls=3,
+                                          label="LM decode step")
+    print("LM (c) decode", json.dumps(rec["decode"]), flush=True)
+    phase("LM serving (c) decode", t0)
+
+    # (d) every K3 launch of one prefill call and one decode step
+    checks, operands = [], {}
+    real = layers.moe_gemm
+    try:
+        layers.moe_gemm = k3_checked(checks, operands, "prefill")
+        logits, cache = prefill(params, batch)
+        layers.moe_gemm = k3_checked(checks, operands, "decode")
+        decode(params, cache, logits.argmax(-1)[:, None])
+    finally:
+        layers.moe_gemm = real
+    for label in ("prefill", "decode"):
+        mine = [c for c in checks if c["call"] == label]
+        if len(mine) != 3 * LM_LAYERS or any(c["launches"] != {"expert_wgmma": 1} for c in mine):
+            fail(f"LM (d): {label} K3 calls {[(c['x'], c['launches']) for c in mine]}")
+    rec["k3_checks"] = checks
+    k3 = {}
+    for label, launches in (("prefill", prefill_launches), ("decode", decode_launches)):
+        err = max(c["max_abs_err"] for c in checks if c["call"] == label)
+        k3[label] = k3_record_at(*operands[label], launches, err)
+        print(f"LM (d) K3 {label}", json.dumps(k3[label]), flush=True)
+    rec["k3"] = k3
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if rec["peak_bytes"] > LM_PEAK_BYTES:
+        fail(f"LM: peak memory {rec['peak_bytes'] / 1e9:.2f} GB over {LM_PEAK_BYTES / 1e9:.0f} GB")
+    del params, cache, logits, operands, batch, tokens, start
+    torch.cuda.empty_cache()
+    phase("LM serving (d) K3 checks", t0)
+
+    # (e) prefill against token-by-token decode, fp32, full width, 2 layers
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=E / K))
+    params = init_params(cfg32, 1, device=device)
+    toks = torch.as_tensor(SyntheticTokens(cfg.vocab, 64, 1, seed=1).batch(0)["tokens"],
+                           device=device)
+    want, _ = make_prefill_step(cfg32)(params, {"tokens": toks})
+    cache = init_kv_cache(cfg32, 1, 64, device=device)
+    decode32 = make_decode_step(cfg32)
+    for i in range(64):
+        got, cache = decode32(params, cache, toks[:, i:i + 1])
+    rec["prefill_vs_decode"] = {
+        "n_layers": 2, "dtype": "float32", "batch": 1, "seq": 64,
+        "capacity_factor": E / K, "tol": 1e-3,
+        "max_abs_err": max_err_within(got, want, 1e-3, "LM (e): prefill against decode"),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+    }
+    print("LM (e) prefill vs decode", json.dumps(rec["prefill_vs_decode"]), flush=True)
+    del params, cache
+    torch.cuda.empty_cache()
+    phase("LM serving (e) prefill vs decode", t0)
+
+    # (f) the attention-family smoke configs, card against CPU
+    rec["card_vs_cpu"] = {}
+    for arch in all_arch_ids():
+        scfg = get_smoke_config(arch)
+        if scfg.layer_kind != "attn":
+            continue
+        cpu_params = init_params(scfg, 0, device="cpu")
+        card_params = _tree_to(cpu_params, device)
+        rng = np.random.default_rng(0)
+        n_front = 16 if scfg.frontend == "vision" else 0
+        b = {"tokens": rng.integers(0, scfg.vocab, (2, 64 - n_front)).astype(np.int32)}
+        if n_front:
+            b["frontend_embeds"] = rng.standard_normal((2, n_front, scfg.d_model)).astype(
+                np.float32)
+        errs = [max_err_within(g.cpu(), w, TOL["float32"], f"LM (f) {arch} forward")
+                for g, w in zip(forward(card_params, scfg, b), forward(cpu_params, scfg, b))]
+        pre, dec = make_prefill_step(scfg), make_decode_step(scfg)
+        (lg, ch), (lw, cw) = pre(card_params, b), pre(cpu_params, b)
+        errs.append(max_err_within(lg.cpu(), lw, TOL["float32"], f"LM (f) {arch} prefill"))
+        for step in range(3):
+            t = lw.argmax(-1)[:, None]
+            (lg, ch), (lw, cw) = dec(card_params, ch, t), dec(cpu_params, cw, t)
+            errs.append(max_err_within(lg.cpu(), lw, TOL["float32"], f"LM (f) {arch} decode"))
+        errs += [max_err_within(ch[k].cpu(), cw[k], TOL["float32"], f"LM (f) {arch} cache {k}")
+                 for k in cw]
+        rec["card_vs_cpu"][arch] = max(errs)
+    print("LM (f) card vs CPU", json.dumps(rec["card_vs_cpu"]), flush=True)
+    phase("LM serving (f) card vs CPU", t0)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a repository checkout")
@@ -1658,12 +2030,17 @@ def main() -> None:
                                            device, rng)
     phase("summa2d and the device partitioner", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lm = lm_serving(device)
+    phase("LM serving", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
-        "serving": served, "summa_device": summa_device,
+        "serving": served, "summa_device": summa_device, "lm_serve": lm,
     }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",
@@ -1682,6 +2059,8 @@ def main() -> None:
         ("moe_gemm/expert_split", "moe_gemm.cu", k3, moe["up_fp32"]),
         ("moe_gemm/split3_bf16", "moe_gemm.cu", k3, moe["split_fp32"]),
         ("moe_gemm/stage16", "moe_gemm.cu", k3, moe["stage_misaligned"]),
+        ("moe_gemm/expert_wgmma@lm_prefill", "moe_gemm.cu", k3, lm["k3"]["prefill"]),
+        ("moe_gemm/expert_wgmma@lm_decode", "moe_gemm.cu", k3, lm["k3"]["decode"]),
     ]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -1,6 +1,12 @@
 """Core paper library: SpGEMM hypergraph models, partitioning, comm bounds
 (numpy/scipy copies of ``repro.core``, pinned equal to it by the tests)."""
-from repro_torch.core.hypergraph import Hypergraph, build_hypergraph_flat
+from repro_torch.core.hypergraph import (
+    Hypergraph,
+    build_hypergraph,
+    build_hypergraph_flat,
+    coalesce_identical_nets,
+    remove_singleton_nets,
+)
 from repro_torch.core.spgemm_models import (
     MODELS,
     MODELS_1D,
@@ -14,12 +20,16 @@ from repro_torch.core.comm import (
     evaluate,
     memory_dependent_bound,
     memory_independent_bound,
+    sequential_io_estimate,
 )
 from repro_torch.core.partition import PartitionResult, partition
 
 __all__ = [
     "Hypergraph",
+    "build_hypergraph",
     "build_hypergraph_flat",
+    "coalesce_identical_nets",
+    "remove_singleton_nets",
     "MODELS",
     "MODELS_1D",
     "MODELS_2D",
@@ -30,6 +40,7 @@ __all__ = [
     "evaluate",
     "memory_dependent_bound",
     "memory_independent_bound",
+    "sequential_io_estimate",
     "PartitionResult",
     "partition",
 ]

@@ -106,6 +106,35 @@ class Hypergraph:
         )
 
 
+def build_hypergraph(
+    nets: list[np.ndarray],
+    n_vertices: int,
+    w_comp: np.ndarray,
+    w_mem: np.ndarray,
+    net_cost: np.ndarray,
+    **meta,
+) -> Hypergraph:
+    """Assemble from a list of per-net pin arrays."""
+    sizes = np.array([len(n) for n in nets], dtype=np.int64)
+    net_ptr = np.concatenate([[0], np.cumsum(sizes)])
+    net_pins = (
+        np.concatenate(nets).astype(np.int64)
+        if nets
+        else np.empty(0, dtype=np.int64)
+    )
+    hg = Hypergraph(
+        n_vertices=n_vertices,
+        net_ptr=net_ptr,
+        net_pins=net_pins,
+        w_comp=np.asarray(w_comp, dtype=np.int64),
+        w_mem=np.asarray(w_mem, dtype=np.int64),
+        net_cost=np.asarray(net_cost, dtype=np.int64),
+        **meta,
+    )
+    hg.validate()
+    return hg
+
+
 def build_hypergraph_flat(
     net_ids: np.ndarray,
     pin_vertices: np.ndarray,
@@ -136,3 +165,53 @@ def build_hypergraph_flat(
     )
     hg.validate()
     return hg
+
+
+def remove_singleton_nets(hg: Hypergraph) -> Hypergraph:
+    """Singleton nets cannot be cut (Sec. 5.1) — drop them."""
+    sizes = hg.net_sizes()
+    keep = sizes > 1
+    if keep.all():
+        return hg
+    nets = [hg.pins_of(n) for n in np.flatnonzero(keep)]
+    return build_hypergraph(
+        nets,
+        hg.n_vertices,
+        hg.w_comp,
+        hg.w_mem,
+        hg.net_cost[keep],
+        vertex_kind=hg.vertex_kind,
+        net_kind=hg.net_kind[keep] if hg.net_kind is not None else None,
+        name=hg.name,
+    )
+
+
+def coalesce_identical_nets(hg: Hypergraph) -> Hypergraph:
+    """Combine nets with identical pin sets; coarse cost = sum of costs
+    (Sec. 5.1 'coalesced nets')."""
+    keys: dict[bytes, int] = {}
+    new_nets: list[np.ndarray] = []
+    new_cost: list[int] = []
+    new_kind: list[int] = []
+    has_kind = hg.net_kind is not None
+    for n in range(hg.n_nets):
+        pins = np.sort(hg.pins_of(n))
+        key = pins.tobytes()
+        if key in keys:
+            new_cost[keys[key]] += int(hg.net_cost[n])
+        else:
+            keys[key] = len(new_nets)
+            new_nets.append(pins)
+            new_cost.append(int(hg.net_cost[n]))
+            if has_kind:
+                new_kind.append(int(hg.net_kind[n]))
+    return build_hypergraph(
+        new_nets,
+        hg.n_vertices,
+        hg.w_comp,
+        hg.w_mem,
+        np.array(new_cost, dtype=np.int64),
+        vertex_kind=hg.vertex_kind,
+        net_kind=np.array(new_kind, dtype=np.int8) if has_kind else None,
+        name=hg.name,
+    )

@@ -51,7 +51,28 @@ _EXPORT_TO_MODULE = {name: mod for mod, names in _HOME.items() for name in names
 __all__ = sorted(_EXPORT_TO_MODULE)
 
 
+_DEPRECATION_WARNED = False
+
+
 def __getattr__(name: str):
+    # deprecation shim (warn once), as the reference's: the loop reference is
+    # not on the public surface, but the package-level name keeps working
+    if name == "build_rowwise_plan_loop":
+        global _DEPRECATION_WARNED
+        if not _DEPRECATION_WARNED:
+            import warnings
+
+            warnings.warn(
+                "repro_torch.distributed.build_rowwise_plan_loop is deprecated; "
+                "import it from repro_torch.distributed.plan (it is a loop-based "
+                "reference implementation, not a supported entry point)",
+                DeprecationWarning,
+                stacklevel=2,
+            )
+            _DEPRECATION_WARNED = True
+        from repro_torch.distributed.plan import build_rowwise_plan_loop
+
+        return build_rowwise_plan_loop
     module = _EXPORT_TO_MODULE.get(name)
     if module is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,273 @@
+"""Layer primitives of the attention family (the port of
+``repro.models.layers``): norms, RoPE, chunked causal attention (GQA and a
+sliding window), decode attention, the SwiGLU/GeGLU/GeLU MLP and the
+capacity-dropping MoE layer.
+
+Plain functions on tensors; parameters live in the dict trees that
+``transformer.init_params`` makes.  Each keeps the reference's dtype flow
+(which products round to the activation type, which sums run in fp32).
+The MoE layer's three expert products go through K3,
+``repro_torch.kernels.moe_gemm.moe_gemm``: the CUDA kernel for tensors on
+the card, its plain version for tensors on the CPU.  Attention and the
+dense products are torch ops: no Pallas kernel computes them in the
+reference either.  The reference's expert-parallel ``_moe_ep`` waits for
+the multi-card collective (ROADMAP.md Queue 1 item 6): on one card
+``moe_layer`` takes the plain path, as the reference does with no mesh.
+The Mamba layers wait for ROADMAP.md Queue 1 item 8c.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.moe_gemm import moe_gemm
+
+SSM_ROADMAP = "ROADMAP.md Queue 1 item 8c (Mamba and hybrid layers)"
+
+
+def not_ported(layer_kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"layer_kind={layer_kind!r} is not ported yet: the port runs attention "
+        f"layers only; see {SSM_ROADMAP}"
+    )
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def apply_norm(kind: str, x, w):
+    return rms_norm(x, w) if kind == "rms" else layer_norm(x, w)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(d_head: int, theta: float, positions: torch.Tensor) -> tuple:
+    """positions: (...,) -> cos/sin of shape (..., d_head//2), fp32."""
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=positions.device) / d_head
+    inv = 1.0 / (theta**exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, Dh); cos/sin: (B?, S, Dh//2) broadcastable."""
+    x1, x2 = x.chunk(2, dim=-1)
+    c = cos[..., None, :]  # (B, S, 1, Dh//2)
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked causal attention (online softmax over kv chunks)
+# ---------------------------------------------------------------------------
+def chunked_attention(
+    q: torch.Tensor,  # (B, S, H, Dh)
+    k: torch.Tensor,  # (B, S, KVH, Dh)
+    v: torch.Tensor,  # (B, S, KVH, Dh)
+    window: int = 0,  # 0 = full causal
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """The reference's flash-style causal attention, chunk for chunk.
+
+    The reference scans every kv chunk for every q chunk; a chunk that lies
+    wholly in a query chunk's future (or wholly past its window) adds
+    exactly nothing there (its probabilities are 0 and its correction 1),
+    so this loop skips it."""
+    B, S, H, Dh = q.shape
+    KVH = k.shape[2]
+    G = H // KVH  # query groups per kv head
+    scale = 1.0 / math.sqrt(Dh)
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, S)
+    if S % q_chunk or S % kv_chunk:
+        raise ValueError(f"S={S} not divisible by chunks {q_chunk}/{kv_chunk}")
+    nq, nk = S // q_chunk, S // kv_chunk
+    dev = q.device
+
+    qr = q.reshape(B, nq, q_chunk, KVH, G, Dh)
+    kr = k.reshape(B, nk, kv_chunk, KVH, Dh)
+    vr = v.reshape(B, nk, kv_chunk, KVH, Dh)
+    outs = []
+    for qi in range(nq):
+        q_blk = qr[:, qi]
+        q_lo, q_hi = qi * q_chunk, (qi + 1) * q_chunk - 1
+        m = torch.full((B, KVH, G, q_chunk), -math.inf, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, KVH, G, q_chunk), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, KVH, G, q_chunk, Dh), dtype=torch.float32, device=dev)
+        q_pos = q_lo + torch.arange(q_chunk, device=dev)
+        for ki in range(nk):
+            k_lo, k_hi = ki * kv_chunk, (ki + 1) * kv_chunk - 1
+            if k_lo > q_hi or (window and q_lo - k_hi >= window):
+                continue  # wholly masked for every query of the chunk
+            k_blk, v_blk = kr[:, ki], vr[:, ki]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
+            k_pos = k_lo + torch.arange(kv_chunk, device=dev)
+            mask = q_pos[:, None] >= k_pos[None, :]
+            if window:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            s = s.masked_fill(~mask, -math.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # guard fully-masked rows
+            m_inf = torch.isinf(m_new)
+            m_safe = m_new.masked_fill(m_inf, 0.0)
+            p = torch.exp(s - m_safe[..., None]).masked_fill(m_inf[..., None], 0.0)
+            corr = torch.exp(m.masked_fill(torch.isinf(m), 0.0) - m_safe)
+            corr = corr.masked_fill(torch.isinf(m), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(v_blk.dtype), v_blk
+            )
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-20)[..., None])  # (B, KVH, G, qc, Dh)
+    out = torch.stack(outs, dim=1)  # (B, nq, KVH, G, qc, Dh)
+    out = out.permute(0, 2, 3, 1, 4, 5)  # (B, KVH, G, nq, qc, Dh)
+    return out.reshape(B, KVH * G, S, Dh).transpose(1, 2).to(q.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, Dh)
+    k_cache: torch.Tensor,  # (B, C, KVH, Dh)
+    v_cache: torch.Tensor,  # (B, C, KVH, Dh)
+    cache_pos: torch.Tensor,  # (C,) absolute positions, -1 = empty slot
+    cur_pos: torch.Tensor,  # () current absolute position
+    window: int = 0,
+) -> torch.Tensor:
+    B, _, H, Dh = q.shape
+    KVH = k_cache.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(Dh)
+    qr = q.reshape(B, KVH, G, Dh)
+    s = torch.einsum("bhgd,bchd->bhgc", qr, k_cache).float() * scale
+    valid = (cache_pos >= 0) & (cache_pos <= cur_pos)
+    if window:
+        valid &= cur_pos - cache_pos < window
+    s = s.masked_fill(~valid, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgc,bchd->bhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, Dh)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ params["wi"]
+    if act in ("swiglu", "geglu"):
+        g = x @ params["wg"]
+        gate = F.silu(g) if act == "swiglu" else gelu(g)
+        h = h * gate
+    else:
+        h = gelu(h)
+    return h @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MoE: top-k routing with capacity, experts on the grouped GEMM (K3)
+# ---------------------------------------------------------------------------
+def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``out[e] = x[e] @ w[e]`` on K3, with tiles the whole of each dim (the
+    TPU tiles' contract would refuse C = 160 or 1; these always divide)."""
+    E, C, d = x.shape
+    return moe_gemm(x, w, b_c=C, b_f=w.shape[2], b_d=d)
+
+
+def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype):
+    """Dispatch -> grouped GEMM (three K3 calls) -> combine on sorted
+    (expert, token, gate) pair lists.  fe must be sorted ascending; fe ==
+    n_experts marks dropped/foreign pairs.  Each slot below the sink row
+    takes at most one pair; the combine sums K contributions per token in
+    the activation dtype (in no fixed order on the card)."""
+    T, d = xt.shape
+    n = fe.numel()
+    pos_in_e = torch.arange(n, device=fe.device) - torch.searchsorted(fe, fe, side="left")
+    keep = (pos_in_e < cap) & (fe < n_experts)
+    slot = torch.where(keep, fe * cap + pos_in_e, n_experts * cap)
+    buf = torch.zeros((n_experts * cap + 1, d), dtype=act_dtype, device=xt.device)
+    buf.index_add_(0, slot, (xt[ft] * keep[:, None]).to(act_dtype))
+    expert_in = buf[:-1].reshape(n_experts, cap, d)
+
+    h = expert_gemm(expert_in, wi)
+    g = expert_gemm(expert_in, wg)
+    h = h * F.silu(g)
+    expert_out = expert_gemm(h, wo)  # (E, cap, d)
+
+    flat_out = expert_out.reshape(n_experts * cap, d)
+    contrib = flat_out[torch.clamp(slot, max=n_experts * cap - 1)] * (fg * keep)[:, None]
+    out = torch.zeros((T, d), dtype=act_dtype, device=xt.device)
+    return out.index_add_(0, ft, contrib.to(act_dtype))
+
+
+def _sorted_pairs(gate_idx, gate_vals, T, K):
+    """Pairs sorted by expert, stably: which pairs a full expert drops
+    depends on this order, as in the reference's stable ``argsort``."""
+    flat_expert = gate_idx.reshape(-1)
+    flat_token = torch.arange(T, device=gate_idx.device).repeat_interleave(K)
+    flat_gate = gate_vals.reshape(-1)
+    order = torch.argsort(flat_expert, stable=True)
+    return flat_expert[order], flat_token[order], flat_gate[order]
+
+
+@functools.lru_cache(maxsize=16)
+def _placement_perm(placement: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The expert placement as an index tensor on ``device``, built once:
+    a copy from the host waits for the card, so no step may make one."""
+    return torch.tensor(placement, dtype=torch.int64, device=device)
+
+
+def moe_layer(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (output, aux_loss).
+
+    Token-dropping capacity MoE with sort-based dispatch (no (T, E, C)
+    one-hot tensor), on the reference's plain path: every expert on this
+    device, ``cap = ceil(T K / E * capacity_factor)`` rows each.  With
+    ``cfg.moe.expert_placement`` (from ``core.moe_planner``) the routed
+    expert ids are permuted first, as in the reference."""
+    moe = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, K = moe.n_experts, moe.top_k
+    xt = x.reshape(T, d)
+
+    # the router is fp32: the reference promotes xt @ router to fp32
+    logits = xt.float() @ params["router"]  # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)  # (T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    # aux load-balancing loss (Switch): E * sum_e f_e * p_e
+    me = probs.mean(dim=0)
+    ce = torch.zeros(E, dtype=probs.dtype, device=x.device)
+    ce = ce.index_add_(0, gate_idx.reshape(-1), torch.ones_like(gate_vals).reshape(-1)) / (T * K)
+    aux = E * torch.sum(me * ce) * moe.router_aux_coef
+
+    if moe.expert_placement is not None:
+        gate_idx = _placement_perm(tuple(moe.expert_placement), x.device)[gate_idx]
+
+    cap = int(math.ceil(T * K / E * moe.capacity_factor))
+    fe, ft, fg = _sorted_pairs(gate_idx, gate_vals, T, K)
+    out = _moe_dispatch_combine(
+        xt, fe, ft, fg, params["wi"], params["wg"], params["wo"], E, cap, xt.dtype
+    )
+    return out.reshape(B, S, d), aux

@@ -1,0 +1,382 @@
+"""Full decoder model (the port of ``repro.models.transformer``): init,
+forward (prefill), decode step, KV cache.
+
+Parameters are the reference's tree (nested dicts of tensors), layers
+stacked on a leading ``n_layers`` axis.  Where the reference scans that
+axis with ``lax.scan``, the port runs a Python loop over it.  Every entry
+point takes its device explicitly and runs on the card unless told
+otherwise (``device="cpu"``); a step runs where its parameters lie.
+"""
+from __future__ import annotations
+
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def _dtype(name) -> torch.dtype:
+    return name if isinstance(name, torch.dtype) else getattr(torch, str(name))
+
+
+def _check_kind(cfg: ModelConfig) -> None:
+    if cfg.layer_kind != "attn":
+        raise L.not_ported(cfg.layer_kind)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_params(
+    cfg: ModelConfig,
+    generator: torch.Generator | int = 0,
+    device=None,
+) -> dict:
+    """Materialize parameters: the reference's tree, shapes, dtypes and
+    scales (normal draws times the reference's scale, cast to ``cfg.dtype``;
+    the router in fp32), drawn from ``generator`` (or a generator on
+    ``device`` seeded with it) on ``device`` (the card unless named).  On
+    the ``meta`` device only shapes and dtypes are made (``param_count``).
+    Stacked weights are drawn one layer at a time, so no fp32 copy of a
+    whole stack is ever held."""
+    device = torch.device("meta") if device == "meta" else resolve_device(device)
+    meta = device.type == "meta"
+    if not meta and not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=device).manual_seed(int(generator))
+    dt = _dtype(cfg.dtype)
+    d, H, KVH, Dh, F, V, Ln = (
+        cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
+        cfg.n_layers,
+    )
+
+    def draw(shape, scale, dtype=dt, stacked=False):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        if meta:
+            return out
+        for piece in (out if stacked else (out,)):
+            piece.copy_(torch.randn(piece.shape, generator=generator, device=device) * scale)
+        return out
+
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    s_embed = 1.0 / np.sqrt(d)
+    params: dict = {
+        "embed": {"tokens": draw((V, d), s_embed)},
+        "final_norm": full((d,), 1.0),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = draw((d, V), s_embed)
+    layer: dict = {"ln1": full((Ln, d), 1.0), "ln2": full((Ln, d), 1.0)}
+    if cfg.layer_kind in ("attn", "hybrid"):
+        attn = {
+            "wq": draw((Ln, d, H, Dh), s_embed, stacked=True),
+            "wk": draw((Ln, d, KVH, Dh), s_embed, stacked=True),
+            "wv": draw((Ln, d, KVH, Dh), s_embed, stacked=True),
+            "wo": draw((Ln, H, Dh, d), 1.0 / np.sqrt(H * Dh), stacked=True),
+        }
+        if cfg.qkv_bias:
+            attn["bq"] = full((Ln, H, Dh), 0.0)
+            attn["bk"] = full((Ln, KVH, Dh), 0.0)
+            attn["bv"] = full((Ln, KVH, Dh), 0.0)
+        layer["attn"] = attn
+    if cfg.layer_kind in ("mamba", "hybrid"):
+        Di = cfg.d_inner
+        N = cfg.ssm.d_state if cfg.ssm else 16
+        Kc = cfg.ssm.d_conv if cfg.ssm else 4
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=device))
+        layer["ssm"] = {
+            "in_proj": draw((Ln, d, Di), s_embed, stacked=True),
+            "gate_proj": draw((Ln, d, Di), s_embed, stacked=True),
+            "conv_w": draw((Ln, Kc, Di), 0.5, stacked=True),
+            "x_proj_b": draw((Ln, Di, N), s_embed, stacked=True),
+            "x_proj_c": draw((Ln, Di, N), s_embed, stacked=True),
+            "dt_proj": full((Ln, Di), 1.0) * 0.1,
+            "a_log": a_log[None, None].repeat(Ln, Di, 1).to(dt),
+            "d_skip": full((Ln, Di), 1.0),
+            "out_proj": draw((Ln, Di, d), 1.0 / np.sqrt(Di), stacked=True),
+        }
+    if cfg.moe is not None:
+        E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        layer["moe"] = {
+            "router": draw((Ln, d, E), s_embed, torch.float32, stacked=True),
+            "wi": draw((Ln, E, d, Fe), s_embed, stacked=True),
+            "wg": draw((Ln, E, d, Fe), s_embed, stacked=True),
+            "wo": draw((Ln, E, Fe, d), 1.0 / np.sqrt(Fe), stacked=True),
+        }
+        if cfg.moe.n_shared_experts:
+            layer["shared_mlp"] = {
+                "wi": draw((Ln, d, F), s_embed, stacked=True),
+                "wg": draw((Ln, d, F), s_embed, stacked=True),
+                "wo": draw((Ln, F, d), 1.0 / np.sqrt(F), stacked=True),
+            }
+    elif F > 0:  # F == 0: no FFN sub-block (pure-Mamba archs)
+        mlp = {
+            "wi": draw((Ln, d, F), s_embed, stacked=True),
+            "wo": draw((Ln, F, d), 1.0 / np.sqrt(F), stacked=True),
+        }
+        if cfg.act in ("swiglu", "geglu"):
+            mlp["wg"] = draw((Ln, d, F), s_embed, stacked=True)
+        layer["mlp"] = mlp
+    params["layers"] = layer
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(t.numel() for t in _leaves(init_params(cfg, device="meta")))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k of n_experts)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    moe = init_params(cfg, device="meta")["layers"]["moe"]
+    expert = sum(moe[k].numel() for k in ("wi", "wg", "wo"))
+    active_frac = cfg.moe.top_k / cfg.moe.n_experts
+    return total - expert + int(expert * active_frac)
+
+
+def _index(tree: dict, i: int) -> dict:
+    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked layer tree (views, no copy)."""
+    return _index(params["layers"], i)
+
+
+# ---------------------------------------------------------------------------
+# layer body (shared by prefill and decode)
+# ---------------------------------------------------------------------------
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matmul."""
+    d, h, k = w.shape
+    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+
+
+def _out_project(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matmul."""
+    h, k, d = w.shape
+    return o.flatten(-2) @ w.reshape(h * k, d)
+
+
+def _qkv(lp, x, cfg: ModelConfig, positions):
+    a = lp["attn"]
+    q, k, v = _project(x, a["wq"]), _project(x, a["wk"]), _project(x, a["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+    if cfg.use_rope:
+        cos, sin = L.rope_freqs(cfg.head_dim, cfg.rope_theta, positions)
+        q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def _attn_branch(lp, x, cfg: ModelConfig, positions, window):
+    q, k, v = _qkv(lp, x, cfg, positions)
+    o = L.chunked_attention(q, k, v, window=window)
+    return _out_project(o, lp["attn"]["wo"]), (k, v)
+
+
+def _ffn(lp, h, cfg: ModelConfig):
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.moe is not None:
+        out, aux = L.moe_layer(lp["moe"], h, cfg)
+        if cfg.moe.n_shared_experts:
+            out = out + L.mlp(lp["shared_mlp"], h, cfg.act)
+    elif "mlp" in lp:
+        out = L.mlp(lp["mlp"], h, cfg.act)
+    else:  # no FFN sub-block (pure-Mamba archs)
+        out = torch.zeros_like(h)
+    return out, aux
+
+
+def _residual(lp, x, h, mix, cfg: ModelConfig):
+    """The block's FFN and residuals around the mixer's output ``mix``."""
+    if cfg.parallel_block:
+        # command-r style: MLP on the same normalized input, single residual
+        ff, aux = _ffn(lp, h, cfg)
+        return x + mix + ff, aux
+    x = x + mix
+    ff, aux = _ffn(lp, L.apply_norm(cfg.norm, x, lp["ln2"]), cfg)
+    return x + ff, aux
+
+
+def _layer_fwd(lp, x, cfg: ModelConfig, positions):
+    """One decoder layer (prefill).  Returns (y, aux_loss)."""
+    _check_kind(cfg)
+    h = L.apply_norm(cfg.norm, x, lp["ln1"])
+    mix, _ = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
+    return _residual(lp, x, h, mix, cfg)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def _on(t, dtype, device) -> torch.Tensor:
+    """``t`` (a tensor or array) as a tensor on ``device``."""
+    if isinstance(t, torch.Tensor):
+        return t.to(device=device, dtype=dtype or t.dtype)
+    return torch.as_tensor(np.asarray(t), device=device, dtype=dtype)
+
+
+def embed_inputs(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """tokens and/or precomputed frontend embeddings -> (B, S, d)."""
+    table = params["embed"]["tokens"]
+    parts = []
+    if "frontend_embeds" in batch:  # vlm/audio stub: modality frontend output
+        parts.append(_on(batch["frontend_embeds"], _dtype(cfg.dtype), table.device))
+    if "tokens" in batch:
+        parts.append(table[_on(batch["tokens"], torch.int64, table.device)])
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    table = params["embed"]["tokens"].T if cfg.tie_embeddings else params["unembed"]
+    return x @ table
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    batch: dict,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), aux_loss)."""
+    _check_kind(cfg)
+    x = embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = _layer_fwd(layer_params(params, i), x, cfg, positions)
+        aux = aux + a
+    x = L.apply_norm(cfg.norm, x, params["final_norm"])
+    return _unembed(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------------------
+# prefill (serve) path: forward + cache construction
+# ---------------------------------------------------------------------------
+def _ring_align(x: torch.Tensor, S: int, C: int, axis: int) -> torch.Tensor:
+    """Trim the last C of S positions and rotate so position p sits at ring
+    slot p % C (matches decode's ``slot = pos % C``)."""
+    trimmed = x.narrow(axis, S - C, C)
+    return torch.roll(trimmed, (S - C) % C, dims=axis)
+
+
+def prefill_step(
+    params: dict,
+    cfg: ModelConfig,
+    batch: dict,
+) -> tuple[torch.Tensor, dict]:
+    """Run the full prompt, return (last-token logits (B, V), KV cache).
+
+    The cache is a ring of C = ``kv_cache_len(cfg, S)`` slots; with no
+    sliding window C = S, so the first decode step after it overwrites the
+    oldest position, as in the reference."""
+    _check_kind(cfg)
+    x = embed_inputs(params, cfg, batch)
+    B, S, _ = x.shape
+    C = kv_cache_len(cfg, S)
+    dev = x.device
+    positions = torch.arange(S, device=dev)[None].expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        h = L.apply_norm(cfg.norm, x, lp["ln1"])
+        mix, (k, v) = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
+        ks.append(_ring_align(k, S, C, axis=1))
+        vs.append(_ring_align(v, S, C, axis=1))
+        x, _ = _residual(lp, x, h, mix, cfg)
+    x = L.apply_norm(cfg.norm, x[:, -1:], params["final_norm"])
+    logits = _unembed(params, cfg, x)[:, 0]
+    cache_pos = _ring_align(torch.arange(S, dtype=torch.int32, device=dev), S, C, axis=0)
+    cache = {
+        "pos": torch.full((), S, dtype=torch.int32, device=dev),
+        "k": torch.stack(ks),
+        "v": torch.stack(vs),
+        "cache_pos": cache_pos[None].repeat(cfg.n_layers, 1),
+    }
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# decode (serve) path
+# ---------------------------------------------------------------------------
+def kv_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    return min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device=None) -> dict:
+    """Cache tree.  Attention: ring-buffer K/V (window-capped).  SSM:
+    (conv_state, h).  Hybrid: both.  On the card unless ``device`` names
+    another (``"meta"`` for shapes alone)."""
+    device = torch.device("meta") if device == "meta" else resolve_device(device)
+    dt = _dtype(dtype or cfg.dtype)
+    C = kv_cache_len(cfg, seq_len)
+    Ln = cfg.n_layers
+    cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.layer_kind in ("attn", "hybrid"):
+        kv = (Ln, batch, C, cfg.n_kv_heads, cfg.head_dim)
+        cache["k"] = torch.zeros(kv, dtype=dt, device=device)
+        cache["v"] = torch.zeros(kv, dtype=dt, device=device)
+        cache["cache_pos"] = torch.full((Ln, C), -1, dtype=torch.int32, device=device)
+    if cfg.layer_kind in ("mamba", "hybrid"):
+        ssm = cfg.ssm
+        Kc = ssm.d_conv if ssm else 4
+        N = ssm.d_state if ssm else 16
+        cache["conv"] = torch.zeros((Ln, batch, Kc - 1, cfg.d_inner), dtype=dt, device=device)
+        cache["h"] = torch.zeros((Ln, batch, cfg.d_inner, N), dtype=torch.float32, device=device)
+    return cache
+
+
+def _layer_decode(lp, x, cache: dict, i: int, cfg: ModelConfig, pos):
+    """One layer, one token; writes the token's K/V into layer ``i`` of
+    ``cache`` in place (slot ``pos % C``, with no host sync)."""
+    _check_kind(cfg)
+    h = L.apply_norm(cfg.norm, x, lp["ln1"])
+    k_cache, v_cache, cache_pos = cache["k"][i], cache["v"][i], cache["cache_pos"][i]
+    C = k_cache.shape[1]
+    q, k, v = _qkv(lp, h, cfg, pos.view(1, 1).expand(h.shape[0], 1))
+    slot = torch.remainder(pos, C).view(1).long()
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    cache_pos.index_copy_(0, slot, pos.view(1).to(cache_pos.dtype))
+    o = L.decode_attention(q, k_cache, v_cache, cache_pos, pos, cfg.sliding_window)
+    mix = _out_project(o, lp["attn"]["wo"])
+    return _residual(lp, x, h, mix, cfg)[0]
+
+
+def decode_step(
+    params: dict,
+    cfg: ModelConfig,
+    cache: dict,
+    tokens,  # (B, 1) current token ids
+) -> tuple[torch.Tensor, dict]:
+    """One serve step: returns (logits (B, V), cache).
+
+    Unlike the reference, which returns a new cache, this updates
+    ``cache``'s K/V tensors in place and returns the same dict with
+    ``"pos"`` advanced by one: a caller that needs the old cache copies it
+    first."""
+    _check_kind(cfg)
+    table = params["embed"]["tokens"]
+    x = table[_on(tokens, torch.int64, table.device)]
+    pos = cache["pos"]
+    for i in range(cfg.n_layers):
+        x = _layer_decode(layer_params(params, i), x, cache, i, cfg, pos)
+    x = L.apply_norm(cfg.norm, x, params["final_norm"])
+    logits = _unembed(params, cfg, x)[:, 0]
+    cache["pos"] = pos + 1
+    return logits, cache

@@ -193,3 +193,8 @@ def nontrivial_multiplications(
         jj[pos : pos + n] = np.tile(cols, na)
         pos += n
     return ii[:pos], kk[:pos], jj[:pos]
+
+
+def flops(a: SparseStructure, b: SparseStructure) -> int:
+    """|V^m| = number of nontrivial multiplications."""
+    return int((a.col_counts() * b.row_counts()).sum())

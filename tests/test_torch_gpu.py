@@ -5,7 +5,9 @@ the other six models and ``model="auto"`` against their CPU path and scipy,
 and every model's batched executor against its unbatched one; the Sparse
 SUMMA baseline (one K1 launch a stage) and ``spsumma``; the device
 partitioner's labels on the card equal to its CPU labels; a session whose
-K1 fails to load raises.
+K1 fails to load raises; the LM stack's serving path on the card against
+the CPU, its K3 launches, and a decode step with an expert placement that
+never waits for the card.
 
 Marked ``gpu``; every test skips where no CUDA device exists (decided in
 the ``cuda`` fixture, never at import).  On a card:
@@ -688,3 +690,127 @@ def test_session_raises_when_k1_fails_to_load(cuda, monkeypatch):
     with pytest.raises(KernelError, match="bsr_spgemm_absent"):
         s.multiply((a_s, av), (a_s.transpose(), av))
     assert [e.kind for e in s.events] == ["cold_replan"]
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "internlm2-1.8b", "phi3-mini-3.8b",
+                                  "command-r-35b", "llava-next-34b", "qwen3-moe-235b-a22b",
+                                  "dbrx-132b", "musicgen-large"])
+def test_lm_serving_on_the_card_equals_the_cpu(cuda, arch):
+    """``forward``, ``prefill_step`` and three greedy ``decode_step``s of the
+    smoke config in fp32, on the card and on the CPU with the same weights,
+    within 1e-4; the MoE configs' expert products launch K3."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    cfg = get_smoke_config(arch)
+    cpu_params = init_params(cfg, 0, device="cpu")
+    params = _to(cpu_params, cuda)
+    rng = np.random.default_rng(0)
+    n_front = 16 if cfg.frontend == "vision" else 0
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 64 - n_front)).astype(np.int32)}
+    if n_front:
+        batch["frontend_embeds"] = rng.standard_normal((2, n_front, cfg.d_model)).astype(np.float32)
+    before = dict(moe_gemm.launches)
+    close = lambda got, want: torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)  # noqa: E731
+    for got, want in zip(forward(params, cfg, batch), forward(cpu_params, cfg, batch)):
+        close(got, want)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    (logits, cache), (cpu_logits, cpu_cache) = prefill(params, batch), prefill(cpu_params, batch)
+    close(logits, cpu_logits)
+    for _ in range(3):
+        tok = cpu_logits.argmax(-1)[:, None]
+        logits, cache = decode(params, cache, tok)
+        cpu_logits, cpu_cache = decode(cpu_params, cpu_cache, tok)
+        close(logits, cpu_logits)
+    for k in cpu_cache:
+        close(cache[k], cpu_cache[k])
+    launches = sum(v - before[k] for k, v in moe_gemm.launches.items() if k == "expert_split")
+    # fp32 experts take expert_split: three products a layer in each of five calls
+    assert launches == (3 * cfg.n_layers * 5 if cfg.moe else 0)
+
+
+@pytest.mark.parametrize("tokens", [(8, 1), (8, 1024)])
+def test_moe_layer_k3_launches_match_the_plain_version(cuda, monkeypatch, tokens):
+    """The MoE layer at Qwen3-MoE's routing (128 experts, top 8) and
+    narrowed widths, in bf16: B x S tokens give C = 1 (decode) and C = 640
+    (prefill); each of its three K3 calls launches ``expert_wgmma`` once and
+    matches ``moe_gemm_ref`` on the same inputs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import layer_params
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").scaled_down(
+        d_model=256, dtype="bfloat16"), n_layers=1)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=128, top_k=8, d_ff_expert=192))
+    calls = []
+
+    def spy(x, w, b_c=128, b_f=128, b_d=512):
+        before = dict(moe_gemm.launches)
+        out = moe_gemm(x, w, b_c, b_f, b_d)
+        calls.append((x, w, out, {k: v - before[k] for k, v in moe_gemm.launches.items()
+                                  if v != before[k]}))
+        return out
+
+    monkeypatch.setattr(layers, "moe_gemm", spy)
+    lp = layer_params(init_params(cfg, 0, device=cuda), 0)["moe"]
+    x = torch.randn((*tokens, 256), generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).bfloat16()
+    out, _ = layers.moe_layer(lp, x, cfg)
+    assert out.shape == x.shape and bool(out.isfinite().all())
+    cap = 1 if tokens[1] == 1 else 640
+    assert [tuple(c[0].shape) for c in calls] == [(128, cap, 256)] * 2 + [(128, cap, 192)]
+    for xi, wi, got, moved in calls:
+        assert moved == {"expert_wgmma": 1}
+        torch.testing.assert_close(got.float(), moe_gemm_ref(xi, wi).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+def test_decode_step_with_a_placement_never_waits_for_the_card(cuda):
+    """A bf16 decode step of the Qwen3-MoE smoke config with an expert
+    placement installed runs under ``torch.cuda.set_sync_debug_mode("error")``
+    after a warm-up step: no operation of the step (the placement's index
+    tensor included) makes the host wait for the card, and its expert
+    products launch K3 three times a layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    cfg = get_smoke_config("qwen3-moe-235b-a22b")
+    E = cfg.moe.n_experts
+    placement = tuple(int(e) for e in np.random.default_rng(0).permutation(E))
+    assert placement != tuple(range(E))
+    cfg = dataclasses.replace(cfg, dtype="bfloat16", moe=dataclasses.replace(
+        cfg.moe, expert_placement=placement))
+    params = init_params(cfg, 0, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 32)),
+                             device=cuda)
+    logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+    decode = make_decode_step(cfg)
+    logits, cache = decode(params, cache, logits.argmax(-1)[:, None])  # warm-up
+    tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    cap = int(np.ceil(2 * cfg.moe.top_k / E * cfg.moe.capacity_factor))
+    x = torch.zeros((E, cap, cfg.d_model), dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros((E, cfg.d_model, cfg.moe.d_ff_expert), dtype=torch.bfloat16, device=cuda)
+    want = {k: 3 * cfg.n_layers * v for k, v in launch_plan(x, w).items()}
+    before = dict(moe_gemm.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = decode(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    moved = {k: v - before[k] for k, v in moe_gemm.launches.items() if v != before[k]}
+    assert moved == want
+    assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all())
+    assert int(cache["pos"]) == 34

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing and running it — the front door,
-the kernel entry point, a session with a plan store and the serving loop —
-loads neither jax nor any module of the JAX package ``repro``."""
+the kernel entry point, a session with a plan store, the serving loop, the
+rest of the planning and the LM stack's prefill and decode — loads neither
+jax nor any module of the JAX package ``repro``."""
 import os
 import subprocess
 import sys
@@ -22,6 +23,9 @@ import repro_torch.resilience, repro_torch.testing.faults, repro_torch.checkpoin
 import repro_torch.distributed.session, repro_torch.launch.serve
 import repro_torch.distributed.summa, repro_torch.distributed
 import repro_torch.core.refine_device, repro_torch.core.coarsen_device, repro_torch._device
+import repro_torch.models, repro_torch.configs, repro_torch.data, repro_torch.training
+import repro_torch.core.coarsen, repro_torch.core.moe_planner, repro_torch.distributed.plan
+import repro_torch.models.convert, repro_torch.configs.shapes
 from repro_torch.core import matrices
 from repro_torch.kernels import ops
 from repro_torch.sparse.bsr import to_bsr
@@ -63,6 +67,22 @@ with tempfile.TemporaryDirectory() as store:
     assert [e.kind for e in sess.events] == ["cold_replan", "saved"], sess.events
 requests, report = serve_spgemm([(a, b)] * 3, p=2, model="monoC", device="cpu")
 assert report["completed"] == 3 and report["dispatches"] == 1, report
+import dataclasses
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.moe_planner import plan_expert_placement, routing_counts
+from repro_torch.data import SyntheticTokens
+from repro_torch.models import init_params
+from repro_torch.training import make_decode_step, make_prefill_step
+cfg = get_smoke_config("qwen3-moe-235b-a22b")
+gate = rng.integers(0, cfg.moe.n_experts, (256, cfg.moe.top_k))
+plan = plan_expert_placement(routing_counts(gate, cfg.moe.n_experts, 8), n_columns=2)
+cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+    cfg.moe, expert_placement=tuple(int(e) for e in plan.placement)))
+params = init_params(cfg, 0, device="cpu")
+tokens = SyntheticTokens(cfg.vocab, 32, 2).batch(0)["tokens"]
+logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+logits, cache = make_decode_step(cfg)(params, cache, logits.argmax(-1)[:, None])
+assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all()) and int(cache["pos"]) == 33
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
