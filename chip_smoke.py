@@ -74,6 +74,15 @@ Phases, each printing its seconds:
      launch of one prefill and one decode step against its plain version;
      prefill against token-by-token decode in fp32 at 2 layers; the eight
      attention-family smoke configs, card against CPU.
+ 13. ranks in processes (``ranks_in_processes``): 4 processes on the one
+     card (``launch.ranks.run_ranks``), one rank each, over a gloo group
+     that moves the bytes through the host: (a) the seven models and
+     summa2d on 27-PTAP and LP-pds100 through ``compile(group=...)``, each
+     rank's items against the plan's, C against the one-process result and
+     scipy, a call's time, K1 at rank 0's monoC inputs; (b)
+     ``compressed_psum_mean`` on 64 M bf16 gradient elements; (c)
+     Qwen3-MoE-235B-A22B prefill, 2 x 1024 tokens, 2 layers, with its
+     experts split over the ranks, against the one-process prefill.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -83,11 +92,13 @@ the fp32 and bf16 ones at 12 x 12, ``expert_wgmma``
 on the bf16 up projection, ``expert_split`` and ``split3_bf16`` on the
 fp32 one, ``stage16`` on the misaligned bf16 up projection, and
 ``expert_wgmma`` again at the LM path's prefill (C = 640) and decode
-(C = 1) up projections, with their launches on that path; bounds at the
+(C = 1) up projections, with their launches on that path, and phase 13's
+``scalar_runs`` and ``expert_wgmma`` with the launches the ranks counted
+in their processes (timed on rank 0 while the others wait); bounds at the
 peak of each route's arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
 ``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``, 11 under
-``summa_device``, 12 under ``lm_serve``).
+``summa_device``, 12 under ``lm_serve``, 13 under ``ranks``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -416,7 +427,11 @@ def kernel_record_at(exe, a, b, library_ms):
     """K1's numbers at the shapes the main path gave it: the same inputs
     through the kernel and through its plain version."""
     a_own, b_own = exe.runtime.pack(*exe.pack(a, b))
-    args = exe.runtime.step.kernel_inputs(a_own, b_own)
+    return kernel_record(exe.runtime.step.kernel_inputs(a_own, b_own), library_ms)
+
+
+def kernel_record(args, library_ms):
+    """K1's numbers on one launch's arguments (``kernel_record_at``)."""
     a_tab, b_tab, pa, pb, pc, rs, rc, n_c = args
     err, ms, call_ms, plain_ms = check_kernel(args, TOL[dtype_name(a_tab.dtype)])
     bound_ms, bound_by, n_bytes, ops, peak = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
@@ -1067,6 +1082,7 @@ def every_model(ap, ptap, ptap_stats, device, rng):
     from repro_torch.core.matrices import lp_instance
 
     records = {ptap.name: {"monoC": ptap_stats}}
+    handles = {}  # (instance, model) -> planned handle, for phase 13
 
     def run(inst, model, handle=None):
         t0 = time.perf_counter()
@@ -1074,6 +1090,8 @@ def every_model(ap, ptap, ptap_stats, device, rng):
         rec["seconds"] = round(time.perf_counter() - t0, 3)
         key = "auto" if handle is not None else model
         records.setdefault(inst.name, {})[key] = rec
+        if handle is None:
+            handles[(inst, model)] = exe.planned
         print(f"every model {inst.name} {key}", json.dumps(rec), flush=True)
         torch.cuda.empty_cache()
         return exe, last, rec
@@ -1116,7 +1134,7 @@ def every_model(ap, ptap, ptap_stats, device, rng):
                                           label=f"27-AP {model}")
             torch.cuda.empty_cache()
     phase("every model (c) 27-AP, 1D", t0)
-    return records, lp
+    return records, lp, {k: h for k, h in handles.items() if k[0] is not ap}
 
 
 def drifted(structure, frac: float, rng):
@@ -1924,6 +1942,420 @@ def lm_serving(device):
     return rec
 
 
+RANKS = 4  # phase 13: one rank a process, every process on the one card
+RANK_REPS = 3
+EP_LAYERS, EP_BATCH, EP_PROMPT = 2, 2, 1024  # phase 13 (c): 2 of the published 94 layers
+GRAD_ELEMS = 64 * 2**20  # phase 13 (b)
+K1_MODELS = ("monoC", "summa2d")  # local compute on K1 alone: bit for bit on the card
+
+
+def _slim(handle):
+    """``handle`` without its hypergraph and partition: what a rank needs to
+    compile it, sent to the ranks once."""
+    import repro_torch
+
+    return repro_torch.PlannedSpGEMM(instance=handle.instance, model=handle.model,
+                                     hypergraph=None, partition=None,
+                                     execution_plan=handle.execution_plan)
+
+
+def rank_csr_operands(handle, a, b, rank: int, device):
+    """The A and B nonzeros in ``rank``'s monoC K1 tables (the ones it owns
+    and the ones its two expands bring), each a CSR matrix on ``device``
+    with its values from the 1-D vectors ``a`` and ``b``, and the multiply
+    pairs their CSR @ CSR does: the library's reading of that rank's
+    launch, which also forms the pairs of C entries other ranks own."""
+    import torch
+
+    plan = handle.execution_plan
+    mats, inner = [], []
+    for name, s, v in (("a", handle.instance.a, a), ("b", handle.instance.b, b)):
+        own = plan.local_ids[f"{name}_nz"][rank]
+        recv = plan.routes[f"expand_{name}"].recv_key[:, rank]
+        ids = np.unique(np.concatenate([own[own >= 0], recv[recv >= 0]]))
+        rows, cols = s.coo()
+        idx = torch.as_tensor(np.stack([rows[ids], cols[ids]]), device=device)
+        vals = v[torch.as_tensor(ids, device=device)]
+        with warnings.catch_warnings():  # CSR is "beta" in PyTorch; not our concern
+            warnings.simplefilter("ignore", UserWarning)
+            mats.append(torch.sparse_coo_tensor(idx, vals, s.shape).coalesce().to_sparse_csr())
+        inner.append(cols[ids] if name == "a" else rows[ids])
+    k = handle.instance.a.shape[1]
+    pairs = int((np.bincount(inner[0], minlength=k) * np.bincount(inner[1], minlength=k)).sum())
+    return mats[0], mats[1], pairs
+
+
+def _c_values(handle, c):
+    """The dense C's values at C's coordinates (CSR order), as numpy, and
+    the count of nonzeros outside them."""
+    import torch
+
+    crow, ccol = handle.instance.c.coo()
+    vals = c[torch.as_tensor(crow, device=c.device), torch.as_tensor(ccol, device=c.device)]
+    outside = int(torch.count_nonzero(c)) - int(torch.count_nonzero(vals))
+    return vals.cpu().numpy(), outside
+
+
+def _k1_launches_per_rank(plan) -> np.ndarray:
+    """K1 launches a call makes in each rank of a monoC or summa2d plan: one
+    per pair list (monoC's one, summa2d's one a stage) with a real pair."""
+    stages = [""] if plan.model == "monoC" else [f"_s{t}" for t in range(plan.n_stages)]
+    return sum((plan.compute[f"pair_c{s}"] != plan.n_c_slots - 1).any(axis=1).astype(int)
+               for s in stages)
+
+
+def _ep_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=EP_LAYERS)
+
+
+def _ep_batch(cfg, device):
+    import torch
+    from repro_torch.data import SyntheticTokens
+
+    tokens = SyntheticTokens(cfg.vocab, EP_PROMPT, EP_BATCH, seed=0).batch(0)["tokens"]
+    return {"tokens": torch.as_tensor(tokens, device=device)}
+
+
+def _rank_products(group, device, products) -> dict:
+    """Phase 13 (a) on one rank: every product compiled over the group, one
+    warm-up call, the main run (one call each, the launch counts reset just
+    before and read just after), ``RANK_REPS`` timed calls of the counted
+    phases (pack and step, a barrier before each), and K1 at this rank's
+    monoC 27-PTAP inputs against its plain version and against CSR @ CSR
+    of the A and B nonzeros in its tables (``rank_csr_operands``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    exes = []
+    for key, handle, a, b in products:
+        exe = handle.compile(device=device, group=group)
+        a, b = dev(a), dev(b)
+        exe(a, b)  # warm-up
+        exes.append((key, handle, exe, a, b))
+    torch.cuda.synchronize()
+    out = {}
+    reset_launches()
+    for key, handle, exe, a, b in exes:
+        exe.runtime.comm.reset()
+        c = exe(a, b)
+        torch.cuda.synchronize()
+        vals, outside = _c_values(handle, c)
+        out[key] = {"items": exe.runtime.comm.items_moved, "vals": vals, "outside": outside}
+        del c
+    k1_launches = dict(bsr_spgemm_local.launches)
+    for key, handle, exe, a, b in exes:
+        times = []
+        for _ in range(RANK_REPS):
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            exe.runtime(*exe.pack(a, b))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[key]["call_ms"] = times
+    key, handle, exe, a, b = next(e for e in exes if "PTAP" in e[0] and e[0].endswith("/monoC"))
+    # every rank expands (kernel_inputs is collective); rank 0 alone then
+    # times K1 on its inputs while the others wait, so no rank shares the card
+    args = exe.runtime.step.kernel_inputs(*exe.runtime.pack(*exe.pack(a, b)))
+    k1 = None
+    if dist.get_rank(group) == 0:
+        a_csr, b_csr, library_pairs = rank_csr_operands(handle, a, b, 0, device)
+        k1 = kernel_record(args, library_csr_ms(a_csr, b_csr))
+        k1["library_pairs"] = library_pairs
+    dist.barrier(group)
+    return {"products": out, "k1_launches": k1_launches, "k1": k1}
+
+
+def _rank_psum(group, device) -> dict:
+    """Phase 13 (b) on one rank: ``compressed_psum_mean`` of a seeded bf16
+    gradient of ``GRAD_ELEMS`` (a warm-up round, then one timed round),
+    held to the rounding of the shared scale against the exact mean."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.comm import all_reduce
+    from repro_torch.training.compression import compressed_psum_mean
+
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    gen = torch.Generator(device=device).manual_seed(1000 + rank)
+    x = torch.randn(GRAD_ELEMS, generator=gen, device=device).to(torch.bfloat16)
+    err = torch.zeros(GRAD_ELEMS, device=device)
+    compressed_psum_mean(x, err, group)
+    dist.barrier(group)
+    t0 = time.perf_counter()
+    mean, new_err = compressed_psum_mean(x, err, group)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    # the checks' own reductions, after the timed round
+    exact = all_reduce(x.float(), group) / n
+    smax = float(all_reduce(torch.clamp(x.float().abs().max(), min=1e-12) / 127.0, group, "max"))
+    return {
+        "ms": ms, "elements": GRAD_ELEMS, "scale": smax,
+        "max_err_mean": float((mean - exact).abs().max()),
+        "max_new_err": float(new_err.abs().max()),
+        "finite": bool(mean.isfinite().all()),
+        "mean_sha1": hashlib.sha1(mean.cpu().numpy().tobytes()).hexdigest(),
+        "wire_bytes": GRAD_ELEMS * 4 + 4,  # one int32 sum and one fp32 max a rank
+    }
+
+
+def _rank_ep(group, device) -> dict:
+    """Phase 13 (c) on one rank: Qwen3-MoE prefill with its experts split
+    over the group (``expert_shard``, ``make_prefill_step(cfg, ep_group)``).
+    The ranks build the full tree from the seed on the card one at a time
+    and keep their shard (a full 2-layer tree is 12 GB).  A warm-up call,
+    the main run with the launch counts reset, 3 timed calls, then one call
+    with every K3 launch held to its plain version."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import convert, init_params, layers
+    from repro_torch.training import make_prefill_step
+
+    rank, tp = dist.get_rank(group), dist.get_world_size(group)
+    cfg = _ep_config()
+    torch.cuda.reset_peak_memory_stats()
+    for r in range(tp):
+        if r == rank:
+            full = init_params(cfg, 0, device=device)
+            params = convert.expert_shard(full, rank, tp)
+            del full
+            torch.cuda.empty_cache()
+        dist.barrier(group)
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batch = _ep_batch(cfg, device)
+    prefill = make_prefill_step(cfg, ep_group=group)
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, _ = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    calls = timed_ms(lambda: prefill(params, batch), 3)
+    records, keep = [], {}
+    real = layers.moe_gemm
+    try:
+        layers.moe_gemm = k3_checked(records, keep, "ep prefill")
+        prefill(params, batch)
+    finally:
+        layers.moe_gemm = real
+    x, w = keep["ep prefill"]
+    k3 = None
+    if rank == 0:  # timed alone on the card: the other ranks wait
+        k3 = k3_record_at(x, w, launches.get("expert_wgmma", 0),
+                          max(r["max_abs_err"] for r in records))
+    dist.barrier(group)
+    return {
+        "logits": logits.float().cpu().numpy(), "launches": launches, "ms": calls,
+        "experts_held": int(params["layers"]["moe"]["wi"].shape[1]),
+        "peak_bytes": torch.cuda.max_memory_allocated(), "init_peak_bytes": init_peak,
+        "param_bytes": _tree_bytes(params), "k3_checked": len(records), "k3": k3,
+    }
+
+
+def _phase13_rank(group, device, payload: str) -> dict:
+    """What each of phase 13's processes runs: (a), (b) and (c) in turn."""
+    import pickle
+
+    import torch
+
+    with open(payload, "rb") as f:
+        products = pickle.load(f)
+    out = _rank_products(group, device, products)
+    del products
+    torch.cuda.empty_cache()
+    out["psum"] = _rank_psum(group, device)
+    torch.cuda.empty_cache()
+    out["ep"] = _rank_ep(group, device)
+    return out
+
+
+def ranks_in_processes(handles, device, rng):
+    """Phase 13: ranks in their own processes — ``RANKS`` processes on the
+    one card (``launch.ranks.run_ranks``), one rank each, over a gloo group
+    that moves the bytes through the host (NCCL refuses two ranks on one
+    card).  The parent plans nothing new but summa2d, sends the planned
+    handles once (a pickle under ``build/``), holds the results and stops
+    every process.
+
+    (a) the seven models (phases 4 and 9's plans) and summa2d on 27-PTAP and
+        LP-pds100 at full size, ``compile(group=...)`` in every rank: each
+        rank's items a call and their sum against ``moved_items`` and the
+        one-process ``Loopback`` count, C on every rank (the same bits on
+        all) against the one-process ``Loopback`` result (bit for bit for
+        the K1 models monoC and summa2d; within 1e-4 + 1e-4 |want| for the
+        rest: the fine family's ``index_add_`` sums in no fixed order on
+        the card, and cuBLAS may pick another algorithm for one rank's
+        product) and against scipy in float64, a call's time (pack and step,
+        each rank's median; the slowest rank), K1 launched once a monoC
+        call and once a summa2d stage in every rank, and K1 at rank 0's
+        monoC 27-PTAP inputs against its plain version and against CSR @
+        CSR of the A and B nonzeros in its tables;
+    (b) ``compressed_psum_mean`` on each rank's seeded bf16 gradient of 64 M
+        elements, one timed round: the same mean on every rank, within half
+        the shared quantization scale of the exact mean;
+    (c) Qwen3-MoE-235B-A22B prefill, 2 x 1024 ``SyntheticTokens``, at its
+        published widths, bf16, ``n_layers`` cut to 2, with its 128 experts
+        split over the 4 ranks (32 each, ``ep_group``): the last-token
+        logits of every rank (the same bits on all) within
+        ``TOL["bfloat16"]`` (2e-2 + 2e-2 |want|) of the one-process prefill
+        in the parent, 3 K3 launches a layer in every rank, every K3 launch
+        of one call against its plain version, each rank's peak memory.
+    A failing rank fails the phase."""
+    import pickle
+    import shutil
+
+    import torch
+    import repro_torch
+    from repro_torch.distributed import runtime
+    from repro_torch.distributed.plan_ir import moved_items
+    from repro_torch.launch.ranks import run_ranks
+    from repro_torch.models import init_params
+    from repro_torch.training import make_prefill_step
+
+    t0 = time.perf_counter()
+    for inst in {inst for inst, _ in handles}:
+        handles[(inst, "summa2d")] = repro_torch.plan(inst, p=RANKS, model="summa2d")
+    products, refs = [], {}
+    for (inst, model), handle in sorted(handles.items(), key=lambda kv: (kv[0][0].name,
+                                                                          kv[0][1])):
+        key = f"{inst.name}/{model}"
+        a = rng.standard_normal(inst.a.nnz).astype(np.float32)
+        b = rng.standard_normal(inst.b.nnz).astype(np.float32)
+        exe = handle.compile(device=device)
+        exe.runtime.comm.reset()
+        c = exe(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
+        torch.cuda.synchronize()
+        loop, outside = _c_values(handle, c)
+        want = (scipy_csr(inst.a, a) @ scipy_csr(inst.b, b)).tocsr()
+        want.sum_duplicates()
+        want.sort_indices()
+        if outside or not (np.array_equal(want.indptr, inst.c.indptr)
+                           and np.array_equal(want.indices, inst.c.indices)):
+            fail(f"ranks (a) {key}: the one-process result or scipy's structure is off C's")
+        refs[key] = {"loop": loop, "want": want.data, "items": exe.runtime.comm.items_moved,
+                     "moved": moved_items(handle.execution_plan)}
+        if model in K1_MODELS:
+            refs[key]["k1"] = _k1_launches_per_rank(handle.execution_plan)
+        products.append((key, _slim(handle), a, b))
+        del c, exe
+    # the one-process prefill the EP ranks are held to, and how far a second
+    # call of it moves (the card's atomics sum in no fixed order)
+    cfg = _ep_config()
+    params = init_params(cfg, 0, device=device)
+    prefill = make_prefill_step(cfg)
+    ep_want = prefill(params, _ep_batch(cfg, device))[0].float()
+    repeat_diff = float((prefill(params, _ep_batch(cfg, device))[0].float() - ep_want)
+                        .abs().max())
+    del params, prefill
+    runtime.cache_clear()
+    torch.cuda.empty_cache()
+    workdir = ROOT / "build" / "ranks"
+    workdir.mkdir(parents=True, exist_ok=True)
+    payload = workdir / "products.pkl"
+    with open(payload, "wb") as f:
+        pickle.dump(products, f, protocol=pickle.HIGHEST_PROTOCOL)
+    phase("ranks (set-up)", t0)
+
+    t1 = time.perf_counter()
+    try:
+        results = run_ranks(_phase13_rank, RANKS, device=device, workdir=workdir,
+                            args=(str(payload),), timeout=900)
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"ranks: {exc}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    run_s = time.perf_counter() - t1
+    phase("ranks (processes)", t1)
+
+    rec = {"ranks": RANKS, "transport": "gloo through the host, 4 processes on one card",
+           "run_s": run_s, "products": {}}
+    per_rank = [r.result for r in results]
+    expected_k1 = np.zeros(RANKS, dtype=int)
+    for key, ref in refs.items():
+        model = key.rsplit("/", 1)[1]
+        got = [r["products"][key] for r in per_rank]
+        items = [g["items"] for g in got]
+        if sum(items) != ref["moved"] or ref["items"] != ref["moved"]:
+            fail(f"ranks (a) {key}: items a rank {items} sum to {sum(items)}, the plan moves "
+                 f"{ref['moved']}, one process counted {ref['items']}")
+        if any(g["outside"] for g in got) or any(
+                not np.array_equal(g["vals"], got[0]["vals"]) for g in got):
+            fail(f"ranks (a) {key}: the ranks' C differ, or hold nonzeros outside C")
+        vals = got[0]["vals"]
+        diff = float(np.abs(vals - ref["loop"]).max(initial=0.0))
+        bitwise = bool(np.array_equal(vals, ref["loop"]))
+        if model in K1_MODELS and not bitwise:
+            fail(f"ranks (a) {key}: not bit for bit the one-process result (max diff {diff})")
+        if not (np.abs(vals - ref["loop"]) <= 1e-4 + 1e-4 * np.abs(ref["loop"])).all():
+            fail(f"ranks (a) {key}: max diff {diff} from the one-process result")
+        err = np.abs(vals.astype(np.float64) - ref["want"])
+        if not (err <= 1e-4 + 1e-4 * np.abs(ref["want"])).all():
+            fail(f"ranks (a) {key}: max abs err {err.max()} against scipy")
+        medians = [statistics.median(g["call_ms"]) for g in got]
+        rec["products"][key] = {
+            "items_per_rank": items, "items_sum": sum(items), "moved_items": ref["moved"],
+            "bitwise_loopback": bitwise, "max_diff_loopback": diff,
+            "max_abs_err": float(err.max(initial=0.0)), "call_ms_per_rank": medians,
+            "call_ms": max(medians),
+        }
+        if model in K1_MODELS:
+            expected_k1 += ref["k1"]
+        print(f"ranks (a) {key}: items {items} sum {sum(items)} == moved_items "
+              f"{ref['moved']}; vs Loopback bitwise={bitwise} max_diff={diff:.3g}; "
+              f"vs scipy {err.max(initial=0.0):.3g}; call {max(medians):.3f} ms", flush=True)
+    k1_launches = [r["k1_launches"] for r in per_rank]
+    if [k["scalar_runs"] for k in k1_launches] != expected_k1.tolist() or any(
+            sum(k.values()) != k["scalar_runs"] for k in k1_launches) or not all(expected_k1):
+        fail(f"ranks (a): K1 launches {k1_launches} in the ranks, not {expected_k1.tolist()} "
+             f"scalar_runs")
+    rec["k1"] = dict(per_rank[0]["k1"], launches=sum(k["scalar_runs"] for k in k1_launches))
+
+    psum = [r["psum"] for r in per_rank]
+    if len({q["mean_sha1"] for q in psum}) != 1 or not all(q["finite"] for q in psum):
+        fail(f"ranks (b): the ranks' means differ or are not finite: {psum}")
+    for q in psum:
+        if q["max_err_mean"] > q["scale"] / 2 + 1e-5 or q["max_new_err"] > q["scale"] / 2 + 1e-5:
+            fail(f"ranks (b): error {q['max_err_mean']} / {q['max_new_err']} past half the "
+                 f"scale {q['scale']}")
+    rec["psum"] = {"ms_per_rank": [q["ms"] for q in psum], "ms": max(q["ms"] for q in psum),
+                   **{k: psum[0][k] for k in ("elements", "scale", "wire_bytes")},
+                   "max_err_mean": max(q["max_err_mean"] for q in psum)}
+    print("ranks (b) compressed_psum_mean", json.dumps(rec["psum"]), flush=True)
+
+    ep = [r["ep"] for r in per_rank]
+    want_logits = ep_want.to(device)
+    for rank, e in enumerate(ep):
+        if e["launches"] != {"expert_wgmma": 3 * EP_LAYERS} or e["experts_held"] != \
+                cfg.moe.n_experts // RANKS or e["k3_checked"] != 3 * EP_LAYERS:
+            fail(f"ranks (c) rank {rank}: K3 launches {e['launches']}, "
+                 f"{e['experts_held']} experts, {e['k3_checked']} checked")
+        if not np.array_equal(e["logits"], ep[0]["logits"]):
+            fail("ranks (c): the ranks' logits differ")
+    ep_err = max_err_within(torch.from_numpy(ep[0]["logits"]).to(device), want_logits,
+                            TOL["bfloat16"], "ranks (c): EP prefill against one process")
+    rec["ep"] = {
+        "config": LM_ARCH, "n_layers": EP_LAYERS, "batch": EP_BATCH, "prompt": EP_PROMPT,
+        "experts_per_rank": ep[0]["experts_held"], "max_abs_err": ep_err,
+        "one_process_repeat_max_diff": repeat_diff,
+        "ms_per_rank": [statistics.median(e["ms"]) for e in ep],
+        "peak_bytes_per_rank": [e["peak_bytes"] for e in ep],
+        "init_peak_bytes_per_rank": [e["init_peak_bytes"] for e in ep],
+        "param_bytes_per_rank": [e["param_bytes"] for e in ep],
+    }
+    rec["k3"] = dict(ep[0]["k3"], launches=sum(e["launches"]["expert_wgmma"] for e in ep))
+    print("ranks (c) EP prefill", json.dumps(rec["ep"]), flush=True)
+    print("ranks K1", json.dumps(rec["k1"]), "K3", json.dumps(rec["k3"]), flush=True)
+    return rec
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a repository checkout")
@@ -1979,7 +2411,7 @@ def main() -> None:
     t0 = time.perf_counter()
     exe_ap, (a_last, b_last), ap_stats = main_path_block1(ap, device, rng)
     scalar_launches = bsr_spgemm_local.launches["scalar_runs"]
-    _, _, ptap_stats = main_path_block1(ptap, device, rng)
+    exe_ptap, _, ptap_stats = main_path_block1(ptap, device, rng)
     scalar_launches += bsr_spgemm_local.launches["scalar_runs"]
     phase("main path block 1", t0)
 
@@ -2016,7 +2448,9 @@ def main() -> None:
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    models, lp = every_model(ap, ptap, ptap_stats, device, rng)
+    models, lp, handles = every_model(ap, ptap, ptap_stats, device, rng)
+    handles[(ptap, "monoC")] = exe_ptap.planned
+    del exe_ptap
     phase("every model", t0)
 
     t0 = time.perf_counter()
@@ -2035,12 +2469,17 @@ def main() -> None:
     lm = lm_serving(device)
     phase("LM serving", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ranks = ranks_in_processes(handles, device, rng)
+    phase("ranks in processes", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
-        "serving": served, "summa_device": summa_device, "lm_serve": lm,
+        "serving": served, "summa_device": summa_device, "lm_serve": lm, "ranks": ranks,
     }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",
@@ -2061,6 +2500,8 @@ def main() -> None:
         ("moe_gemm/stage16", "moe_gemm.cu", k3, moe["stage_misaligned"]),
         ("moe_gemm/expert_wgmma@lm_prefill", "moe_gemm.cu", k3, lm["k3"]["prefill"]),
         ("moe_gemm/expert_wgmma@lm_decode", "moe_gemm.cu", k3, lm["k3"]["decode"]),
+        ("bsr_spgemm/scalar_runs@ranks", "bsr_spgemm.cu", k1, ranks["k1"]),
+        ("moe_gemm/expert_wgmma@ranks_ep", "moe_gemm.cu", k3, ranks["k3"]),
     ]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -23,17 +23,22 @@ __all__ = [
     "MODELS",
     "MODEL_SPECS",
     "CompiledSpGEMM",
+    "FaultPolicy",
     "ModelSpec",
     "PlannedSpGEMM",
     "SpGEMMInstance",
+    "SpGEMMSession",
+    "device_count",
     "executable_models",
     "plan",
     "session",
 ]
 
-_FROM_API = ("plan", "session", "PlannedSpGEMM", "CompiledSpGEMM")
+_FROM_API = ("plan", "session", "PlannedSpGEMM", "CompiledSpGEMM", "device_count")
 _FROM_REGISTRY = ("ModelSpec", "MODEL_SPECS", "executable_models")
 _FROM_CORE = ("MODELS", "SpGEMMInstance")
+_FROM_RESILIENCE = ("FaultPolicy",)
+_FROM_SESSION = ("SpGEMMSession",)
 
 
 def __getattr__(name: str):
@@ -49,6 +54,14 @@ def __getattr__(name: str):
         from repro_torch.core import spgemm_models
 
         return getattr(spgemm_models, name)
+    if name in _FROM_RESILIENCE:
+        from repro_torch import resilience
+
+        return getattr(resilience, name)
+    if name in _FROM_SESSION:
+        from repro_torch.distributed import session
+
+        return getattr(session, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -25,6 +25,10 @@ V-cycle on the card (``core/partition.py``).
 ``compile(batch=n)`` streams batches of same-structure values through one
 executor per capacity bucket, and ``session(...)`` is the long-lived handle
 for loops whose structure drifts (``distributed/session.py``).
+``compile(group=g)`` runs this process's rank of a ``torch.distributed``
+process group of p processes (``launch.ranks.run_ranks`` starts them): each
+process holds its own rank's tables, and the handle still returns the
+whole dense C on every rank.
 """
 from __future__ import annotations
 
@@ -50,7 +54,13 @@ from repro_torch.distributed.plan_ir import (
 )
 from repro_torch.distributed.registry import ModelSpec, executable_models, get_spec
 
-__all__ = ["CompiledSpGEMM", "PlannedSpGEMM", "plan", "session"]
+__all__ = ["CompiledSpGEMM", "PlannedSpGEMM", "device_count", "plan", "session"]
+
+
+def device_count() -> int:
+    """CUDA devices visible to this process (the reference counts jax's
+    devices; the port's executors run on CUDA devices)."""
+    return torch.cuda.device_count()
 
 
 # ---------------------------------------------------------------------------
@@ -91,6 +101,11 @@ class CompiledSpGEMM:
     def batch_capacity(self) -> int | None:
         """Batch slots the executor was built for (None: unbatched)."""
         return self.runtime.batch
+
+    @property
+    def cost_model_words(self) -> tuple[int, int]:
+        """(ideal, padded) words per call, from the plan's routes."""
+        return self.runtime.cost_model_words
 
     def pack(self, a_values, b_values) -> tuple[torch.Tensor, torch.Tensor]:
         """Canonical 1-D nonzero vectors -> the executor's value layout.
@@ -262,7 +277,9 @@ class PlannedSpGEMM:
         report["planned_messages"] = route_messages(plan_obj)
         return report
 
-    def compile(self, device=None, dtype=torch.float32, batch: int | None = None) -> CompiledSpGEMM:
+    def compile(
+        self, device=None, dtype=torch.float32, batch: int | None = None, group=None
+    ) -> CompiledSpGEMM:
         """Build the pipeline's executor on ``device``.
 
         ``device=None`` means the card (CUDA) and raises when there is none;
@@ -274,6 +291,14 @@ class PlannedSpGEMM:
         chains).  ``n`` is rounded up to a geometric capacity bucket
         (``runtime.batch_bucket``) so ragged request batches share one
         executor; the handle pads and trims transparently.
+
+        ``group=g`` (a ``torch.distributed`` process group of ``p``
+        processes, each calling ``compile`` with it) builds this process's
+        rank of the plan alone (``comm.GroupComm``).  Every rank must hold
+        the same plan — have rank 0 plan and hand the plan to the others;
+        the ranks compare ``runtime.plan_fingerprint`` with rank 0's and all
+        raise on a mismatch.  A group whose size is not ``p`` raises, and so
+        does ``batch`` with a group.
         """
         if self.execution_plan is None:
             raise ValueError(
@@ -283,6 +308,8 @@ class PlannedSpGEMM:
             )
         from repro_torch.distributed.runtime import batch_bucket, compile_spgemm
 
+        if group is not None:
+            _check_same_plan(self.execution_plan, group)
         inst = self.instance
         runtime_exe = compile_spgemm(
             self.execution_plan,
@@ -293,6 +320,7 @@ class PlannedSpGEMM:
             block=1,
             c_structure=inst.c,
             batch=None if batch is None else batch_bucket(batch),
+            group=group,
         )
         return CompiledSpGEMM(self, runtime_exe, self.spec)
 
@@ -302,6 +330,23 @@ class PlannedSpGEMM:
         return self.compile(**compile_kwargs)(a_values, b_values)
 
     __call__ = execute
+
+
+def _check_same_plan(plan: ExecutionPlan, group) -> None:
+    """Every rank of ``group`` holds a plan with rank 0's fingerprint, or all
+    of them raise (one all-gather of the fingerprints)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.runtime import plan_fingerprint
+
+    fingerprints = [None] * dist.get_world_size(group)
+    dist.all_gather_object(fingerprints, plan_fingerprint(plan), group=group)
+    differ = [r for r, fp in enumerate(fingerprints) if fp != fingerprints[0]]
+    if differ:
+        raise ValueError(
+            f"ranks {differ} of the group hold another plan than rank 0; every "
+            f"rank must compile the same plan (have rank 0 plan and send it)"
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,12 @@ from repro_torch.core.comm import (
     memory_independent_bound,
     sequential_io_estimate,
 )
-from repro_torch.core.partition import PartitionResult, partition
+from repro_torch.core.partition import (
+    PartitionResult,
+    partition,
+    partition_block,
+    partition_random,
+)
 
 __all__ = [
     "Hypergraph",
@@ -43,4 +48,6 @@ __all__ = [
     "sequential_io_estimate",
     "PartitionResult",
     "partition",
+    "partition_block",
+    "partition_random",
 ]

@@ -91,6 +91,38 @@ def amg_instances(n: int, flavor: str = "model") -> tuple[SpGEMMInstance, SpGEMM
     return inst1, inst2
 
 
+def geometric_row_partition(n: int, p: int) -> np.ndarray:
+    """Geometric partition of grid rows into p ~cubical subdomains (the
+    'Geometric-row' baseline of Fig. 7).  p need not be a cube; we factor it
+    into three near-equal factors."""
+    f = _factor3(p)
+    bounds = [np.linspace(0, n, fi + 1).astype(int) for fi in f]
+    part_of = np.empty(n**3, dtype=np.int64)
+    x, y, z = np.unravel_index(np.arange(n**3), (n, n, n))
+    px = np.searchsorted(bounds[0], x, side="right") - 1
+    py = np.searchsorted(bounds[1], y, side="right") - 1
+    pz = np.searchsorted(bounds[2], z, side="right") - 1
+    part_of[:] = (px * f[1] + py) * f[2] + pz
+    return part_of
+
+
+def _factor3(p: int) -> tuple[int, int, int]:
+    best = (1, 1, p)
+    for a in range(1, int(round(p ** (1 / 3))) + 2):
+        if p % a:
+            continue
+        q = p // a
+        for b in range(a, int(np.sqrt(q)) + 2):
+            if q % b:
+                continue
+            c = q // b
+            if c >= b:
+                cand = (a, b, c)
+                if max(cand) - min(cand) < max(best) - min(best):
+                    best = cand
+    return best
+
+
 # ---------------------------------------------------------------------------
 # LP normal equations (Sec. 6.2)
 # ---------------------------------------------------------------------------

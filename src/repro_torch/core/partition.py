@@ -908,3 +908,31 @@ def partition(
     conn = evaluate(hg, parts, p).connectivity
     return PartitionResult(parts=parts, p=p, connectivity=conn)
 
+
+
+def partition_random(hg: Hypergraph, p: int, seed: int = 0) -> PartitionResult:
+    """Balanced random partition (baseline)."""
+    from repro_torch.core.comm import evaluate
+
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(hg.n_vertices)
+    w = hg.w_comp[order].astype(np.float64)
+    cum = np.cumsum(w)
+    total = cum[-1] if len(cum) else 1.0
+    parts = np.empty(hg.n_vertices, dtype=np.int64)
+    parts[order] = np.minimum((cum / total * p).astype(np.int64), p - 1)
+    conn = evaluate(hg, parts, p).connectivity
+    return PartitionResult(parts=parts, p=p, connectivity=conn)
+
+
+def partition_block(hg: Hypergraph, p: int) -> PartitionResult:
+    """Contiguous block partition by vertex order balanced on w_comp (the
+    'natural' ordering baseline)."""
+    from repro_torch.core.comm import evaluate
+
+    w = hg.w_comp.astype(np.float64)
+    cum = np.cumsum(w)
+    total = cum[-1] if len(cum) else 1.0
+    parts = np.minimum((cum / total * p).astype(np.int64), p - 1)
+    conn = evaluate(hg, parts, p).connectivity
+    return PartitionResult(parts=parts, p=p, connectivity=conn)

@@ -1,13 +1,46 @@
-"""Collectives of the executors.
+"""Collectives of the executors: two transports, one contract.
 
-``Loopback`` runs all p ranks of a plan on one device, stacked along a
-leading rank axis — the port's counterpart of XLA's forced host devices, and
-enough to drive every rank of a plan through one card.  A
-``torch.distributed`` backend for one rank per card comes in a later slice.
+``Loopback`` runs all p ranks of a plan in one process, stacked along a
+leading rank axis on one device — the port's counterpart of XLA's forced
+host devices, and enough to drive every rank of a plan through one card.
+``GroupComm`` runs one rank per process over a ``torch.distributed``
+process group, so each process holds only its own rank's tables: a route
+that left out an item some rank reads gives a wrong product there, where
+``Loopback`` would still find the item in the stack.
+
+Every stack an executor hands a collective leads with the ranks its
+process holds (``comm.ranks``: all p under ``Loopback``, one under
+``GroupComm``); where a buffer is addressed to peers, the next axis is the
+peer rank.  ``items_moved`` counts the items this process sends, so the
+counts of a group's processes sum to ``Loopback``'s for the same calls.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+
+def _on_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where gloo can read it.  gloo moves host memory, so a card
+    tensor is copied to a pinned host buffer: this is the one copy to the
+    host, and each caller's ``.to(device)`` the one back (NCCL takes the
+    card's tensors and drops both).  A CPU tensor is returned as it is."""
+    if t.device.type != "cuda":
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
+
+
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``x`` reduced over the ranks of ``group`` (``op`` "sum" or "max"), as a
+    new tensor on ``x``'s device: one ``torch.distributed.all_reduce``."""
+    import torch.distributed as dist
+
+    ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+    buf = _on_host(x) if x.device.type == "cuda" else x.clone()  # reduced in place
+    dist.all_reduce(buf, op=ops[op], group=group)
+    return buf.to(x.device)
 
 
 class Loopback:
@@ -21,6 +54,7 @@ class Loopback:
     def __init__(self, p: int, batch: int | None = None):
         self.p = p
         self.batch = batch
+        self.ranks = tuple(range(p))  # every rank lives in this process
         self.items_moved = 0  # items exchanged since ``reset``
         # the leading dims every stack has: (sets,) when batched, then ranks
         self._want = (p, p) if batch is None else (batch, p, p)
@@ -39,8 +73,8 @@ class Loopback:
         slot ``[s, d]`` of every sender s — ``jax.lax.all_to_all(...,
         split_axis=1, concat_axis=1, tiled=False)`` on each rank's
         ``(p, T, ...)`` buffer.  ``n_items`` is the number of slots of one
-        value set that are not padding, a constant of the route the caller
-        counts once.
+        value set that are not padding, summed over the ranks held, a
+        constant of the route the caller counts once.
         """
         axis = self._rank_axis(buf, "T")
         self.items_moved += n_items * (self.batch or 1)
@@ -75,5 +109,118 @@ class Loopback:
         self.items_moved += self.p * (members.shape[1] - 1) * block * (self.batch or 1)
         return buf[members] if self.batch is None else buf[:, members]
 
+    def gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``(p, ...)`` stack of every rank's shard: here, ``x`` itself."""
+        return x
+
     def reset(self) -> None:
         self.items_moved = 0
+
+
+class GroupComm:
+    """One rank of a ``torch.distributed`` process group in this process.
+
+    Rank r of the group is rank r of the plan, and the group's size must be
+    the plan's p (``make_comm`` checks it).  Each collective is one
+    ``all_to_all_single`` of raw bytes, so the contract is the backend's:
+    gloo through the host today, NCCL on the card later, with nothing to
+    change but the staging in ``_on_host``.  It runs unbatched executors
+    only (``make_comm`` refuses a ``batch``).
+    """
+
+    def __init__(self, group):
+        import torch.distributed as dist
+
+        self.group = group
+        self.p = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.ranks = (self.rank,)
+        self.batch = None
+        self.items_moved = 0  # items this rank sent since ``reset``
+
+    def _exchange(self, send: torch.Tensor, to: list[int] | None = None,
+                  frm: list[int] | None = None) -> torch.Tensor:
+        """One ``all_to_all_single`` of the rows of ``send`` (leading axis):
+        ``to[d]`` rows (in order) for rank d and ``frm[s]`` rows from rank
+        s, returned in source order on ``send``'s device; equal splits when
+        neither is given.  The rows travel as bytes, whatever their type."""
+        import torch.distributed as dist
+
+        item = send.shape[1:]
+        row_bytes = math.prod(item) * send.element_size()
+        src = send.contiguous().view(torch.uint8).reshape(send.shape[0], row_bytes)
+        n_out = send.shape[0] if frm is None else sum(frm)
+        on_card = send.device.type == "cuda"
+        out = torch.empty((n_out, row_bytes), dtype=torch.uint8, pin_memory=on_card)
+        dist.all_to_all_single(out, _on_host(src), frm, to, group=self.group)
+        return out.to(send.device).view(send.dtype).reshape(n_out, *item)
+
+    def _check(self, buf: torch.Tensor, what: str) -> None:
+        if tuple(buf.shape[:2]) != (1, self.p):
+            raise ValueError(f"expected a (1, {self.p}, {what}, ...) buffer; got {tuple(buf.shape)}")
+
+    def all_to_all(self, buf: torch.Tensor, n_items: int) -> torch.Tensor:
+        """``Loopback.all_to_all`` for this rank: its ``(1, p_dst, T, ...)``
+        send buffer in, the ``(1, p_src, T, ...)`` buffer it receives out,
+        ordered by source; ``n_items`` is this rank's valid slots."""
+        self._check(buf, "T")
+        self.items_moved += n_items
+        return self._exchange(buf[0])[None]
+
+    def psum_scatter(self, buf: torch.Tensor) -> torch.Tensor:
+        """``Loopback.psum_scatter`` for this rank: one all_to_all of its
+        ``(1, p, rows, ...)`` chunks, then the sum over sources in source
+        order, as ``Loopback`` sums the stack (not the backend's
+        reduce-scatter, whose order is its own).  Counts the p - 1 chunks
+        this rank ships."""
+        self._check(buf, "rows")
+        self.items_moved += buf.numel() // self.p * (self.p - 1)
+        return self._exchange(buf[0]).sum(0)[None]
+
+    def all_gather(self, buf: torch.Tensor, members) -> torch.Tensor:
+        """``Loopback.all_gather`` for this rank: ``buf`` is its ``(1, ...)``
+        block and ``members`` the whole ``(p, g)`` table.  One all_to_all
+        with uneven splits sends the block to each rank whose group holds
+        this one and receives the blocks of its own group's ranks, returned
+        as ``(1, g, ...)`` in ``members``' order.  Counts the blocks sent to
+        other ranks."""
+        members = np.asarray(torch.as_tensor(members).cpu())
+        if buf.shape[0] != 1 or members.shape[0] != self.p:
+            raise ValueError(f"expected this rank's (1, ...) block and a ({self.p}, g) "
+                             f"member table; got {tuple(buf.shape)} and {members.shape}")
+        mine = members[self.rank]
+        to = [int(self.rank in members[d]) for d in range(self.p)]
+        frm = [int(s in mine) for s in range(self.p)]
+        self.items_moved += (sum(to) - 1) * buf[0].numel()
+        recv = self._exchange(buf.expand(sum(to), *buf.shape[1:]), to, frm)
+        by_source = np.flatnonzero(frm)  # ranks of recv's rows, ascending
+        order = torch.as_tensor(np.searchsorted(by_source, mine), device=buf.device)
+        return recv[order][None]
+
+    def gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``(p, ...)`` stack of every rank's ``(1, ...)`` shard, on every
+        rank: one all_to_all of p copies of ``x``.  Assembles a result, so
+        it is not counted in ``items_moved``."""
+        return self._exchange(x.expand(self.p, *x.shape[1:]))
+
+    def reset(self) -> None:
+        self.items_moved = 0
+
+
+def make_comm(p: int, batch: int | None = None, group=None):
+    """The collective of an executor for a p-rank plan: ``Loopback`` (all
+    ranks in this process) without a group, else ``GroupComm`` over it,
+    whose size must be p."""
+    if group is None:
+        return Loopback(p, batch)
+    if batch is not None:
+        raise ValueError(
+            "a batched executor over a process group is not supported yet "
+            "(ROADMAP.md Queue 1); compile with batch=None or without a group"
+        )
+    comm = GroupComm(group)
+    if comm.p != p:
+        raise ValueError(
+            f"a plan for p = {p} ranks cannot run over a process group of {comm.p}"
+        )
+    return comm

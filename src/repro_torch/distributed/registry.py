@@ -19,7 +19,10 @@ Sparse SUMMA baseline (``"summa2d"``, ``distributed/summa.py``) is
 partition-free (``build=None``) and executable, but never auto-selected.
 Ranks are stacked in plan order: rank d is row d of every rank-major table,
 which is the row-major flattening of the reference's meshes, so a plan's
-rank d is the same rank in both executors.
+rank d is the same rank in both executors.  A runner factory given a
+process ``group`` (``comm.GroupComm``) builds the tables of this process's
+rank alone: its pack scatters the full value vectors into that rank's row
+only, and its step holds only that rank's routes and pair lists.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 
 from repro_torch.core.spgemm_models import MODELS, SpGEMMInstance, build_model
 from repro_torch.distributed import spgemm_exec as _exec
+from repro_torch.distributed.comm import make_comm
 from repro_torch.distributed.plan_ir import (
     ExecutionPlan,
     build_fine_plan,
@@ -139,39 +143,55 @@ def _setup(pack, step, a_shape, b_shape, out_shape, batch) -> RunnerSetup:
     return RunnerSetup(pack, step, (*lead, *a_shape), (*lead, *b_shape), out_shape)
 
 
-def _flat_index(coords, dims) -> np.ndarray:
-    """Row-major flat int64 index of coordinate arrays into a table of shape
-    ``dims`` (the 1D models' dense tables pass 2^31 elements at the AMG
-    sizes, so never int32)."""
-    return np.ravel_multi_index(coords, dims).astype(np.int64)
+def _held_items(coords: tuple, ranks, p: int):
+    """The items of the held ``ranks``: ``coords`` are per-item coordinates
+    into rank-major tables, the owner rank first.  Returns the items' ids
+    (None when every rank is held: all of them) and their coordinates with
+    the owner replaced by its position among the held ranks."""
+    if len(ranks) == p:
+        return None, coords
+    pos = np.full(p, -1, dtype=np.int64)
+    pos[list(ranks)] = np.arange(len(ranks))
+    sel = np.flatnonzero(pos[coords[0]] >= 0)
+    return sel, (pos[coords[0][sel]], *(c[sel] for c in coords[1:]))
 
 
-def _dense_pack(a_idx, b_idx, a_dims, b_dims, dtype, device, item=(), batch=None):
+def _dense_pack(a_coords, b_coords, a_dims, b_dims, dtype, device, item=(), batch=None,
+                ranks=None):
     """``pack(a_values, b_values)`` scattering value stacks ((nnz, *item),
     or (batch, nnz, *item)) into zeroed rank-major tables
-    (``[batch,] *dims, *item``) at the flat positions ``a_idx`` / ``b_idx``
-    of ``dims`` (numpy, uploaded once, repeated per value set)."""
+    (``[batch,] *dims, *item``; the leading dim counts the held ``ranks``,
+    every rank when None) at the coordinates ``a_coords`` / ``b_coords``
+    (numpy, owner rank first; uploaded once, repeated per value set).  With
+    some ranks held, only their items' values are scattered."""
     lead = () if batch is None else (batch,)
-    sizes = (int(np.prod(a_dims)), int(np.prod(b_dims)))
-    a_idx, b_idx = (
-        torch.as_tensor(_exec.per_set(idx, n, batch), device=device)
-        for idx, n in zip((a_idx, b_idx), sizes)
-    )
-    a_rows, b_rows = (n * (batch or 1) for n in sizes)
+    p = a_dims[0]
+    ranks = range(p) if ranks is None else ranks
+    dims, flat, sel = [], [], []
+    for coords, d in ((a_coords, a_dims), (b_coords, b_dims)):
+        ids, coords = _held_items(coords, ranks, p)
+        dims.append((len(ranks), *d[1:]))
+        idx = np.ravel_multi_index(coords, dims[-1]).astype(np.int64)
+        flat.append(torch.as_tensor(_exec.per_set(idx, int(np.prod(dims[-1])), batch),
+                                    device=device))
+        sel.append(None if ids is None else torch.as_tensor(ids, device=device))
+    rows = [int(np.prod(d)) * (batch or 1) for d in dims]
 
-    def scatter(values, idx, rows, dims):
-        out = torch.zeros((rows, *item), dtype=dtype, device=device)
-        out[idx] = values.reshape(-1, *item)
-        return out.view(*lead, *dims, *item)
+    def scatter(values, i):
+        if sel[i] is not None:
+            values = values.index_select(values.ndim - 1 - len(item), sel[i])
+        out = torch.zeros((rows[i], *item), dtype=dtype, device=device)
+        out[flat[i]] = values.reshape(-1, *item)
+        return out.view(*lead, *dims[i], *item)
 
     def pack(a_values, b_values):
-        return (scatter(a_values, a_idx, a_rows, a_dims),
-                scatter(b_values, b_idx, b_rows, b_dims))
+        return scatter(a_values, 0), scatter(b_values, 1)
 
     return pack
 
 
-def _rowwise_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
+def _rowwise_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None,
+                    group=None):
     p = plan.p
     I, K = a_structure.shape
     _, J = b_structure.shape
@@ -183,17 +203,19 @@ def _rowwise_runner(plan, a_structure, b_structure, *, device, dtype, block, bat
     bdev, bslot = owner_slot(plan.local_ids["b_row"], K)
     I_max = plan.local_ids["a_row"].shape[1]
     K_max = plan.local_ids["b_row"].shape[1]
-    a_dims, b_dims = (p, I_max, K), (p, K_max, J)
+    comm = make_comm(p, batch, group)
+    # flat indices are int64: the 1D models' dense tables pass 2^31
+    # elements at the AMG sizes
     pack = _dense_pack(
-        _flat_index((rdev[ar], rslot[ar], ac), a_dims),
-        _flat_index((bdev[br], bslot[br], bc), b_dims),
-        a_dims, b_dims, dtype, device, batch=batch,
+        (rdev[ar], rslot[ar], ac), (bdev[br], bslot[br], bc),
+        (p, I_max, K), (p, K_max, J), dtype, device, batch=batch, ranks=comm.ranks,
     )
-    step = _exec.make_rowwise_step(plan, K, J, device, batch)
+    step = _exec.make_rowwise_step(plan, K, J, device, batch, comm)
     return _setup(pack, step, (a_structure.nnz,), (b_structure.nnz,), (I, J), batch)
 
 
-def _outer_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
+def _outer_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None,
+                  group=None):
     p = plan.p
     I, K = a_structure.shape
     _, J = b_structure.shape
@@ -203,21 +225,21 @@ def _outer_runner(plan, a_structure, b_structure, *, device, dtype, block, batch
     br, bc = b_structure.coo()
     kdev, kslot = owner_slot(plan.local_ids["k"], K)
     K_max = plan.local_ids["k"].shape[1]
-    a_dims, b_dims = (p, I, K_max), (p, K_max, J)
+    comm = make_comm(p, batch, group)
     pack = _dense_pack(
-        _flat_index((kdev[ac], ar, kslot[ac]), a_dims),
-        _flat_index((kdev[br], kslot[br], bc), b_dims),
-        a_dims, b_dims, dtype, device, batch=batch,
+        (kdev[ac], ar, kslot[ac]), (kdev[br], kslot[br], bc),
+        (p, I, K_max), (p, K_max, J), dtype, device, batch=batch, ranks=comm.ranks,
     )
-    step = _exec.make_outer_step(plan, I, J, batch)
+    step = _exec.make_outer_step(plan, I, J, batch, comm)
     return _setup(pack, step, (a_structure.nnz,), (b_structure.nnz,), (I, J), batch)
 
 
-def _owned_pack(plan, nA: int, nB: int, item: tuple[int, ...], dtype, device, batch=None):
+def _owned_pack(plan, nA: int, nB: int, item: tuple[int, ...], dtype, device, batch=None,
+                ranks=None):
     """``pack(a_values, b_values)`` scattering value stacks (``(nnz, *item)``)
-    into rank-major owned tables (p, N_max, *item) by the plan's
-    ``a_nz`` / ``b_nz`` ownership (a leading batch axis on both when
-    batched)."""
+    into rank-major owned tables (held, N_max, *item) of the held ``ranks``
+    (every rank when None) by the plan's ``a_nz`` / ``b_nz`` ownership (a
+    leading batch axis on both when batched)."""
     if nA != len(plan.a_part) or nB != len(plan.b_part):
         raise ValueError("plan was built for a different nonzero structure")
     p = plan.p
@@ -226,29 +248,30 @@ def _owned_pack(plan, nA: int, nB: int, item: tuple[int, ...], dtype, device, ba
     N_a = plan.local_ids["a_nz"].shape[1]
     N_b = plan.local_ids["b_nz"].shape[1]
     return _dense_pack(
-        _flat_index((adev, aslot), (p, N_a)),
-        _flat_index((bdev, bslot), (p, N_b)),
-        (p, N_a), (p, N_b), dtype, device, item, batch,
+        (adev, aslot), (bdev, bslot), (p, N_a), (p, N_b), dtype, device, item, batch, ranks,
     )
 
 
-def _fine_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
+def _fine_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None,
+                 group=None):
     I, _ = a_structure.shape
     _, J = b_structure.shape
     nA, nB = a_structure.nnz, b_structure.nnz
-    pack = _owned_pack(plan, nA, nB, (), dtype, device, batch)
-    step = _exec.make_fine_step(plan, device, batch)
+    comm = make_comm(plan.p, batch, group)
+    pack = _owned_pack(plan, nA, nB, (), dtype, device, batch, comm.ranks)
+    step = _exec.make_fine_step(plan, device, batch, comm)
     return _setup(pack, step, (nA,), (nB,), (I, J), batch)
 
 
-def _columnwise_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
+def _columnwise_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None,
+                       group=None):
     # run rowwise on the transposed operands: the plan was lowered from the
     # C^T = B^T A^T instance, so the inner runner sees A' = B^T, B' = A^T
     # and produces C^T shards; values arrive in the *original* CSR orders
     # and are permuted into the transposed (col-major) orders on the device
     inner = _rowwise_runner(
         plan, b_structure.transpose(), a_structure.transpose(),
-        device=device, dtype=dtype, block=block, batch=batch,
+        device=device, dtype=dtype, block=block, batch=batch, group=group,
     )
     ar, ac = a_structure.coo()
     br, bc = b_structure.coo()
@@ -264,14 +287,16 @@ def _columnwise_runner(plan, a_structure, b_structure, *, device, dtype, block, 
     return _setup(pack, inner.step, (a_structure.nnz,), (b_structure.nnz,), (I, J), batch)
 
 
-def _monoC_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
+def _monoC_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None,
+                  group=None):
     # a_structure / b_structure are the BLOCK structures here; values are
     # (nnz, block, block) stacks in block CSR (= to_bsr) order
     I, _ = a_structure.shape
     _, J = b_structure.shape
     nA, nB = a_structure.nnz, b_structure.nnz
-    pack = _owned_pack(plan, nA, nB, (block, block), dtype, device, batch)
-    step = _exec.make_monoC_step(plan, device, block=block, batch=batch)
+    comm = make_comm(plan.p, batch, group)
+    pack = _owned_pack(plan, nA, nB, (block, block), dtype, device, batch, comm.ranks)
+    step = _exec.make_monoC_step(plan, device, block=block, batch=batch, comm=comm)
     return _setup(
         pack, step, (nA, block, block), (nB, block, block), (I * block, J * block), batch
     )
@@ -329,7 +354,7 @@ class ModelSpec:
     family: str  # "1D" | "2D" | "3D" (paper Sec. 5 classification)
     build: Callable | None  # (inst, include_nz=False) -> Hypergraph; None: no hypergraph
     lower: Callable  # (inst, parts, p) -> ExecutionPlan
-    # (plan, a_s, b_s, *, device, dtype, block, batch=None) -> RunnerSetup
+    # (plan, a_s, b_s, *, device, dtype, block, batch=None, group=None) -> RunnerSetup
     make_runner: Callable
     make_unpack: Callable  # (plan, c_structure, shape, device) -> unpack fn
     # (vals, block) -> executor layout, vals (nnz,) or a (sets, nnz) stack

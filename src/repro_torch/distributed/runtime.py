@@ -11,7 +11,11 @@ no host structure work.  PyTorch runs eagerly, so there is no trace or
 compile step; capturing the call as a CUDA graph is later work.
 
 ``compile_spgemm`` memoizes executors in a bounded LRU keyed like the
-reference's, with its mesh replaced by ``(p, device)``.  ``batch=n`` builds
+reference's, with its mesh replaced by ``(p, device)`` and the process
+group, if any.  With ``group=`` (a ``torch.distributed`` process group of
+``plan.p`` processes) the executor is this process's rank alone
+(``comm.GroupComm``): it holds only that rank's tables, and its collective
+counts only what that rank sends.  ``batch=n`` builds
 the batched executor for a fixed capacity of n value sets a dispatch (one
 more key dimension); callers bucket n through ``batch_bucket`` so ragged
 request batches share one executor — the LRU's ``misses`` (``cache_info``)
@@ -48,6 +52,7 @@ from repro_torch.testing import faults
 __all__ = [
     "CompiledSpGEMM",
     "batch_bucket",
+    "cache_clear",
     "cache_info",
     "compile_spgemm",
     "plan_fingerprint",
@@ -110,9 +115,16 @@ class CompiledSpGEMM:
     """One SpGEMM executor with its structure work done: values only.
 
     ``__call__`` takes the value stacks (tensors or numpy arrays, never
-    written to) and returns the executor's rank-major C shards on the
-    executor's device; ``unpack`` turns them into the dense product.  Built
-    with ``batch=n``, both carry a leading axis of n value sets.
+    written to) and returns the rank-major C shards of the ranks it holds on
+    the executor's device; ``unpack`` turns them into the dense product.
+    Built with ``batch=n``, both carry a leading axis of n value sets.
+
+    Built with ``group=`` it holds one rank: every rank of the group
+    passes the full value vectors, and ``unpack`` returns the whole dense
+    C on every rank, assembled by one gather of the ranks' C shards
+    (``comm.gather_ranks``).  That gather is outside the counted phases:
+    ``comm.items_moved`` counts the algorithm's words alone.  ``batch``
+    with a group raises.
     """
 
     def __init__(
@@ -126,6 +138,7 @@ class CompiledSpGEMM:
         block: int = 1,
         c_structure: SparseStructure | None = None,
         batch: int | None = None,
+        group=None,
     ):
         faults.fire("compile")
         if batch is not None and batch < 1:
@@ -150,6 +163,7 @@ class CompiledSpGEMM:
             dtype=self.dtype,
             block=block,
             batch=batch,
+            group=group,
         )
         self.pack, self.step = setup.pack, setup.step
         self._I, self._J = setup.out_shape
@@ -191,14 +205,21 @@ class CompiledSpGEMM:
         b = self._coerce(b_values, self._b_shape, "B")
         return self.step(*self.pack(a, b))
 
+    @property
+    def cost_model_words(self) -> tuple[int, int]:
+        """(ideal, padded) words per call — what the partition promised and
+        what the padded routes actually move."""
+        return self.plan.comm_words_ideal, self.plan.comm_words_padded
+
     def unpack(self, c_local: torch.Tensor) -> torch.Tensor:
         """Turn rank-major C shards into the dense (I, J) tensor (padded
         block-grid shape for monoC) on the executor's device.  A batched
         executor's shards (or a leading slice of them) unpack to
-        (sets, I, J) in one index pass."""
+        (sets, I, J) in one index pass.  An executor over a process group
+        gathers every rank's shards first."""
         if self._unpack is None:
             raise ValueError(f"unpacking a {self.model} result needs c_structure")
-        return self._unpack(c_local)
+        return self._unpack(self.comm.gather_ranks(c_local))
 
 
 # -- bounded LRU cache -------------------------------------------------------
@@ -207,7 +228,7 @@ _CACHE: OrderedDict[tuple, CompiledSpGEMM] = OrderedDict()
 _STATS = {"hits": 0, "misses": 0}
 
 
-def _cache_key(plan, a_structure, b_structure, device, dtype, block, batch):
+def _cache_key(plan, a_structure, b_structure, device, dtype, block, batch, group):
     return (
         plan_fingerprint(plan),
         structure_fingerprint(a_structure),
@@ -216,6 +237,7 @@ def _cache_key(plan, a_structure, b_structure, device, dtype, block, batch):
         str(dtype),
         block,
         batch,
+        None if group is None else id(group),
     )
 
 
@@ -229,13 +251,14 @@ def compile_spgemm(
     block: int = 1,
     c_structure: SparseStructure | None = None,
     batch: int | None = None,
+    group=None,
 ) -> CompiledSpGEMM:
     """Get (or build) the executor for a plan + structures + device + dtype
-    (+ batch capacity).  Cache hits return the *same* ``CompiledSpGEMM``
-    object."""
+    (+ batch capacity, + process group).  Cache hits return the *same*
+    ``CompiledSpGEMM`` object."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype)
-    key = _cache_key(plan, a_structure, b_structure, device, dtype, block, batch)
+    key = _cache_key(plan, a_structure, b_structure, device, dtype, block, batch, group)
     exe = _CACHE.get(key)
     if exe is not None:
         _CACHE.move_to_end(key)
@@ -246,7 +269,7 @@ def compile_spgemm(
     _STATS["misses"] += 1
     exe = CompiledSpGEMM(
         plan, a_structure, b_structure, device=device, dtype=dtype,
-        block=block, c_structure=c_structure, batch=batch,
+        block=block, c_structure=c_structure, batch=batch, group=group,
     )
     _CACHE[key] = exe
     while len(_CACHE) > CACHE_SIZE:
@@ -256,3 +279,8 @@ def compile_spgemm(
 
 def cache_info() -> dict:
     return {"size": len(_CACHE), "max_size": CACHE_SIZE, **_STATS}
+
+
+def cache_clear() -> None:
+    _CACHE.clear()
+    _STATS["hits"] = _STATS["misses"] = 0

@@ -1,7 +1,10 @@
 """Executor phase: the paper's SpGEMM algorithms in PyTorch.
 
-This mirrors ``repro.distributed.spgemm_exec`` with the p ranks stacked on
-one device (``comm.Loopback``):
+This mirrors ``repro.distributed.spgemm_exec``.  A step runs the ranks its
+collective holds (``comm.ranks``): all p stacked on one device under
+``comm.Loopback`` (the default), or this process's one rank under
+``comm.GroupComm``, each process holding only its own rank's tables.  The
+same loops run either way, over the held ranks:
 
 - ``RowwiseStep``: 1D row-wise (Ex. 5.1) — one padded all_to_all of dense
   B rows (exactly the cut B-nets of the partition, plus padding), then each
@@ -19,10 +22,10 @@ one device (``comm.Loopback``):
   its produced-partial-C table, and a reduce all_to_all of the cut C-nets
   into each C nonzero's owner.
 
-Structure-time vs value-time split (DESIGN.md §8): each step uploads its
-route tables, work lists and scatter indices once, with the -1 padding of
-the plan's tables dropped there; its call takes rank-major packed operand
-tables.
+Structure-time vs value-time split (DESIGN.md §8): each step uploads the
+route tables, work lists and scatter indices of its held ranks once, with
+the -1 padding of the plan's tables dropped there; its call takes
+rank-major packed operand tables of those ranks.
 
 Batched steps (``batch=m``, the counterpart of the reference's ``jax.vmap``
 over a step): every table carries one more leading axis, the m value sets
@@ -45,7 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.distributed.comm import Loopback
+from repro_torch.distributed.comm import GroupComm, Loopback, make_comm
 from repro_torch.distributed.plan_ir import FinePlan, MonoCPlan, OuterPlan, RowwisePlan
 from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, pair_runs
 
@@ -85,8 +88,8 @@ def _matmul(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor, batch: int | No
     torch.matmul(a, b, out=out)
 
 
-def _exchange(comm: Loopback, buf: torch.Tensor, n_items: int) -> torch.Tensor:
-    """``comm.all_to_all`` of a ``(sets, p, p, T, ...)`` stack."""
+def _exchange(comm: Loopback | GroupComm, buf: torch.Tensor, n_items: int) -> torch.Tensor:
+    """``comm.all_to_all`` of a ``(sets, held, p, T, ...)`` stack."""
     return _sets(comm.all_to_all(_unsets(buf, comm.batch), n_items), comm.batch)
 
 
@@ -97,34 +100,33 @@ def _int32(x: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(x.astype(np.int32), device=device)
 
 
-def _send_route(route, n_own: int, device, batch: int | None = None):
-    """A route's sends as flat indices into the rank-major stack of owned
-    tables (``(p * n_own, ...)`` a value set; -1 padding kept, so the send
-    buffer has the padded all_to_all's shape), with the number of real
-    items of one set and T."""
-    send = route.send_idx  # (p, p, T) local slots
-    p = send.shape[0]
-    src = np.arange(p, dtype=np.int64)[:, None, None]
+def _send_route(route, n_own: int, device, batch: int | None, ranks):
+    """The sends of the held ``ranks`` as flat indices into their rank-major
+    stack of owned tables (``(len(ranks) * n_own, ...)`` a value set; -1
+    padding kept, so the send buffer has the padded all_to_all's shape),
+    with the number of real items those ranks send of one set and T."""
+    send = route.send_idx[list(ranks)]  # (held, p, T) local slots
+    src = np.arange(len(ranks), dtype=np.int64)[:, None, None]
     flat = np.where(send >= 0, src * n_own + send, -1)
     return (
-        torch.as_tensor(per_set(flat, p * n_own, batch), device=device),
+        torch.as_tensor(per_set(flat, len(ranks) * n_own, batch), device=device),
         int((send >= 0).sum()),
         send.shape[2],
     )
 
 
-def _expand(comm: Loopback, own: torch.Tensor, route, lead: tuple) -> torch.Tensor:
-    """``[owned | received | zero]`` slot tables of all ranks (of all value
-    sets: ``own`` is (*lead, p, n_own, ...), ``lead`` () or (sets,)),
-    flattened set- then rank-major to ``(sets * p * table_slots, ...)``: one
-    all_to_all of the owned items each rank ships — THE cut-net traffic of
-    this operand."""
+def _expand(comm: Loopback | GroupComm, own: torch.Tensor, route, lead: tuple) -> torch.Tensor:
+    """``[owned | received | zero]`` slot tables of the held ranks (of all
+    value sets: ``own`` is (*lead, held, n_own, ...), ``lead`` () or
+    (sets,)), flattened set- then rank-major to
+    ``(sets * held * table_slots, ...)``: one all_to_all of the owned items
+    each rank ships — THE cut-net traffic of this operand."""
     flat_idx, n_items, T = route
-    p, item = own.shape[len(lead)], own.shape[len(lead) + 2:]
-    buf = _take0(own.reshape(-1, *item), flat_idx).reshape(*lead, p, p, T, *item)
+    h, p, item = own.shape[len(lead)], comm.p, own.shape[len(lead) + 2:]
+    buf = _take0(own.reshape(-1, *item), flat_idx).reshape(*lead, h, p, T, *item)
     recv = comm.all_to_all(buf, n_items)
-    zero = own.new_zeros((*lead, p, 1, *item))
-    tables = torch.cat([own, recv.reshape(*lead, p, p * T, *item), zero], len(lead) + 1)
+    zero = own.new_zeros((*lead, h, 1, *item))
+    tables = torch.cat([own, recv.reshape(*lead, h, p * T, *item), zero], len(lead) + 1)
     return tables.reshape(-1, *item)
 
 
@@ -140,23 +142,25 @@ def _flat(x: np.ndarray, device) -> torch.Tensor:
 class RowwiseStep:
     """The row-wise executor core for one plan on one device.
 
-    ``step(a_local, b_local)`` takes rank-major packed dense row tables
-    (``a_local``: (p, I_max, K), rank d's A rows; ``b_local``:
-    (p, K_max, J), its B rows) and returns rank-major C rows (p, I_max, J)
-    in plan order (``unpack_rowwise_result``); with ``batch=m`` each of
-    them has a leading axis of m value sets.  The expand is ONE all_to_all
-    of dense B rows.  Each rank's (K, J) tables of the B rows it reads are
-    built, multiplied and dropped before the next rank's, so memory holds
-    one rank's tables at a time, not p.
+    ``step(a_local, b_local)`` takes rank-major packed dense row tables of
+    the held ranks (``comm.ranks``; ``a_local``: (held, I_max, K), rank d's
+    A rows; ``b_local``: (held, K_max, J), its B rows) and returns their
+    rank-major C rows (held, I_max, J) in plan order
+    (``unpack_rowwise_result``); with ``batch=m`` each of them has a leading
+    axis of m value sets.  The expand is ONE all_to_all of dense B rows.
+    Each rank's (K, J) tables of the B rows it reads are built, multiplied
+    and dropped before the next rank's, so memory holds one rank's tables
+    at a time, not p.
     """
 
-    def __init__(self, plan: RowwisePlan, K: int, J: int, device, batch: int | None = None):
+    def __init__(self, plan: RowwisePlan, K: int, J: int, device, batch: int | None = None,
+                 comm=None):
         self.p, self.K, self.J = plan.p, K, J
         self.batch = batch
-        self.comm = Loopback(plan.p, batch)
+        self.comm = make_comm(plan.p, batch) if comm is None else comm
         route = plan.routes["expand"]
         local_b = plan.local_b_rows
-        self._route = _send_route(route, local_b.shape[1], device, batch)
+        self._route = _send_route(route, local_b.shape[1], device, batch, self.comm.ranks)
         # the send buffer is filled by one gather; its padding slots are
         # zeroed after it
         flat_idx = self._route[0]
@@ -165,7 +169,7 @@ class RowwiseStep:
         # per destination rank: which (source, slot) arrivals land on which
         # table rows, and its own rows (a prefix of its owned list)
         self._tables = []
-        for d in range(plan.p):
+        for d in self.comm.ranks:
             s_ids, t_ids = np.nonzero(route.recv_key[:, d] >= 0)
             n_own = int((local_b[d] >= 0).sum())
             self._tables.append(
@@ -179,19 +183,19 @@ class RowwiseStep:
             )
 
     def _send_buffer(self, b_local: torch.Tensor) -> torch.Tensor:
-        m, p, _, J = b_local.shape
+        m, h, _, J = b_local.shape
         T = self._route[2]
-        buf = b_local.new_empty((m * p * p * T, J))
+        buf = b_local.new_empty((m * h * self.p * T, J))
         torch.index_select(b_local.reshape(-1, J), 0, self._send_rows, out=buf)
         buf.index_fill_(0, self._send_pad, 0)
-        return buf.reshape(m, p, p, T, J)
+        return buf.reshape(m, h, self.p, T, J)
 
     def __call__(self, a_local: torch.Tensor, b_local: torch.Tensor) -> torch.Tensor:
         a_local, b_local = _sets(a_local, self.batch), _sets(b_local, self.batch)
         m = a_local.shape[0]
-        # THE cut-B-net traffic: (sets, p_dst, p_src, T, J) rows from each source
+        # THE cut-B-net traffic: (sets, held dst, p_src, T, J) rows from each source
         recv = _exchange(self.comm, self._send_buffer(b_local), self._route[1])
-        c = a_local.new_empty((m, self.p, a_local.shape[2], self.J))
+        c = a_local.new_empty((m, len(self._tables), a_local.shape[2], self.J))
         for d, (s_ids, t_ids, keys, n_own, own_keys) in enumerate(self._tables):
             table = b_local.new_zeros((m, self.K, self.J))
             table.index_copy_(1, keys, recv[:, d, s_ids, t_ids])
@@ -202,11 +206,11 @@ class RowwiseStep:
 
 
 def make_rowwise_step(
-    plan: RowwisePlan, K: int, J: int, device, batch: int | None = None
+    plan: RowwisePlan, K: int, J: int, device, batch: int | None = None, comm=None
 ) -> RowwiseStep:
     """The row-wise executor core (``repro``'s ``make_rowwise_step``), with
-    the plan's tables uploaded to ``device`` once."""
-    return RowwiseStep(plan, K, J, device, batch)
+    the held ranks' tables uploaded to ``device`` once."""
+    return RowwiseStep(plan, K, J, device, batch, comm)
 
 
 def _dense_call_1d(plan, a_dense, b_dense, device) -> torch.Tensor:
@@ -266,35 +270,37 @@ def unpack_rowwise_result(c_local: torch.Tensor, plan: RowwisePlan, I: int) -> t
 class OuterStep:
     """The outer-product executor core for one plan on one device.
 
-    ``step(a_cols, b_rows)`` takes rank-major packed operand tables
-    (``a_cols``: (p, I, K_max), rank d's A columns; ``b_rows``:
-    (p, K_max, J), its B rows) and returns C by row blocks of ceil(I / p),
-    rank-major (p, ceil(I / p), J): each rank's dense partial C, zero-padded
-    to p row blocks, folded by one reduce-scatter.  With ``batch=m`` each
-    has a leading axis of m value sets.
+    ``step(a_cols, b_rows)`` takes rank-major packed operand tables of the
+    held ranks (``a_cols``: (held, I, K_max), rank d's A columns;
+    ``b_rows``: (held, K_max, J), its B rows) and returns their C row
+    blocks of ceil(I / p), rank-major (held, ceil(I / p), J): each rank's
+    dense partial C, zero-padded to p row blocks, folded by one
+    reduce-scatter.  With ``batch=m`` each has a leading axis of m value
+    sets.
     """
 
-    def __init__(self, plan: OuterPlan, I: int, J: int, batch: int | None = None):
+    def __init__(self, plan: OuterPlan, I: int, J: int, batch: int | None = None, comm=None):
         self.p, self.J = plan.p, J
         self.I_pad = (I + plan.p - 1) // plan.p * plan.p
         self.batch = batch
-        self.comm = Loopback(plan.p, batch)
+        self.comm = make_comm(plan.p, batch) if comm is None else comm
 
     def __call__(self, a_cols: torch.Tensor, b_rows: torch.Tensor) -> torch.Tensor:
         a_cols, b_rows = _sets(a_cols, self.batch), _sets(b_rows, self.batch)
-        m, p, I = a_cols.shape[0], self.p, a_cols.shape[2]
-        partial = a_cols.new_zeros((m, p, self.I_pad, self.J))
-        for d in range(p):
+        m, h, p, I = a_cols.shape[0], a_cols.shape[1], self.p, a_cols.shape[2]
+        partial = a_cols.new_zeros((m, h, self.I_pad, self.J))
+        for d in range(h):
             _matmul(a_cols[:, d], b_rows[:, d], partial[:, d, :I], self.batch)
         # fold phase: reduce-scatter C row blocks
-        blocks = partial.reshape(m, p, p, self.I_pad // p, self.J)
+        blocks = partial.reshape(m, h, p, self.I_pad // p, self.J)
         return self.comm.psum_scatter(_unsets(blocks, self.batch))
 
 
-def make_outer_step(plan: OuterPlan, I: int, J: int, batch: int | None = None) -> OuterStep:
+def make_outer_step(plan: OuterPlan, I: int, J: int, batch: int | None = None,
+                    comm=None) -> OuterStep:
     """The outer-product executor core (``repro``'s ``make_outer_step``); it
     uploads nothing."""
-    return OuterStep(plan, I, J, batch)
+    return OuterStep(plan, I, J, batch, comm)
 
 
 def outer_product_spgemm(a_dense, b_dense, plan: OuterPlan, device=None) -> torch.Tensor:
@@ -310,21 +316,25 @@ def spsumma(
     b_dense,
     grid: tuple[int, int] = (2, 2),
     device=None,
-    comm: Loopback | None = None,
+    comm: Loopback | GroupComm | None = None,
 ) -> torch.Tensor:
     """Dense SUMMA (2D, stationary C) on a ``(pr, pc)`` grid of ranks: rank
     ``(r, c)`` holds block ``(r, c)`` of the zero-padded A and B, gathers
     the A blocks of its grid row and the B blocks of its grid column (the
     volume of the SUMMA panel broadcasts) and multiplies them into its C
     block.  Returns the dense (I, J) product on ``device`` (the card unless
-    named); ``comm`` (a ``Loopback`` over pr * pc ranks) counts the items
-    the two all-gathers move."""
+    named); ``comm`` (a ``Loopback`` or ``GroupComm`` over pr * pc ranks,
+    default ``Loopback``) runs the ranks it holds and counts the items the
+    two all-gathers move.  The C blocks are assembled on every rank by one
+    gather that is not counted."""
     from repro_torch.distributed.runtime import resolve_device
 
     pr, pc = grid
     p = pr * pc
     device = resolve_device(device)
-    comm = Loopback(p) if comm is None else comm
+    comm = make_comm(p) if comm is None else comm
+    if comm.p != p:
+        raise ValueError(f"a ({pr}, {pc}) grid needs {p} ranks; the collective has {comm.p}")
     a = torch.as_tensor(np.asarray(a_dense))
     b = torch.as_tensor(np.asarray(b_dense))
     I, K = a.shape
@@ -339,15 +349,17 @@ def spsumma(
     b_pad[:K, :J] = b.to(device)
     # rank r * pc + c holds A block (r, c) of (I_p/pr, K_p/pc) and B block
     # (r, c) of (K_p/pr, J_p/pc)
+    held = list(comm.ranks)
     a_blk = a_pad.reshape(pr, I_p // pr, pc, K_p // pc).transpose(1, 2).reshape(p, I_p // pr, -1)
     b_blk = b_pad.reshape(pr, K_p // pr, pc, J_p // pc).transpose(1, 2).reshape(p, K_p // pr, -1)
     r, c = np.divmod(np.arange(p), pc)
     row_ranks = torch.as_tensor(r[:, None] * pc + np.arange(pc)[None, :], device=device)
     col_ranks = torch.as_tensor(np.arange(pr)[None, :] * pc + c[:, None], device=device)
-    # (p, pc, I_p/pr, K_p/pc) -> each rank's (I_p/pr, K_p) A panel row
-    a_row = comm.all_gather(a_blk, row_ranks).transpose(1, 2).reshape(p, I_p // pr, K_p)
-    b_col = comm.all_gather(b_blk, col_ranks).reshape(p, K_p, J_p // pc)
-    c_blk = torch.matmul(a_row, b_col)  # (p, I_p/pr, J_p/pc)
+    # (held, pc, I_p/pr, K_p/pc) -> each held rank's (I_p/pr, K_p) A panel row
+    h = len(held)
+    a_row = comm.all_gather(a_blk[held], row_ranks).transpose(1, 2).reshape(h, I_p // pr, K_p)
+    b_col = comm.all_gather(b_blk[held], col_ranks).reshape(h, K_p, J_p // pc)
+    c_blk = comm.gather_ranks(torch.matmul(a_row, b_col))  # (p, I_p/pr, J_p/pc)
     out = c_blk.reshape(pr, pc, I_p // pr, J_p // pc).transpose(1, 2).reshape(I_p, J_p)
     return out[:I, :J]
 
@@ -358,13 +370,13 @@ def spsumma(
 class MonoCStep:
     """The monochrome-C executor core for one plan on one device.
 
-    ``step(a_own, b_own)`` takes rank-major packed block tables
-    ((p, N_max, b, b)) and returns rank-major C block slots
-    (p, C_max + 1, b, b); the trailing slot per rank is the padding sink
-    and stays zero.  Local compute is ONE kernel launch over all p ranks'
-    pairs: rank d's table slots are offset by d times the per-rank table
-    size, and the padding pairs (which only ever hit the all-zero operand
-    slots and the garbage C slot) are dropped.
+    ``step(a_own, b_own)`` takes rank-major packed block tables of the held
+    ranks ((held, N_max, b, b)) and returns their rank-major C block slots
+    (held, C_max + 1, b, b); the trailing slot per rank is the padding sink
+    and stays zero.  Local compute is ONE kernel launch over the held
+    ranks' pairs: the i-th held rank's table slots are offset by i times
+    the per-rank table size, and the padding pairs (which only ever hit the
+    all-zero operand slots and the garbage C slot) are dropped.
 
     With ``batch=m`` the tables and the result have a leading axis of m
     value sets, and the one launch runs m copies of the pair lists, the
@@ -373,28 +385,31 @@ class MonoCStep:
     bit for bit the unbatched step's on the same values.
     """
 
-    def __init__(self, plan: MonoCPlan, block: int, device, batch: int | None = None):
+    def __init__(self, plan: MonoCPlan, block: int, device, batch: int | None = None,
+                 comm=None):
         p = plan.p
         self.p, self.block, self.device = p, block, torch.device(device)
         self.batch = batch
         self._lead = () if batch is None else (batch,)
-        self.comm = Loopback(p, batch)
+        self.comm = make_comm(p, batch) if comm is None else comm
+        held = list(self.comm.ranks)
+        self.n_held = h = len(held)
         self.n_c_slots = plan.n_c_slots
         self._routes = [
             _send_route(plan.routes[f"expand_{op}"], plan.local_ids[f"{op}_nz"].shape[1],
-                        self.device, batch)
+                        self.device, batch, held)
             for op in ("a", "b")
         ]
         # one pair list over the stacked tables, without the padding pairs
-        rank = np.arange(p, dtype=np.int64)[:, None]
-        pc_local = plan.compute["pair_c"]
+        rank = np.arange(h, dtype=np.int64)[:, None]
+        pc_local = plan.compute["pair_c"][held]
         keep = (pc_local != plan.n_c_slots - 1).ravel()
-        pa = (plan.compute["pair_a"] + rank * plan.a_table_slots).ravel()[keep]
-        pb = (plan.compute["pair_b"] + rank * plan.b_table_slots).ravel()[keep]
+        pa = (plan.compute["pair_a"][held] + rank * plan.a_table_slots).ravel()[keep]
+        pb = (plan.compute["pair_b"][held] + rank * plan.b_table_slots).ravel()[keep]
         pc = (pc_local + rank * plan.n_c_slots).ravel()[keep]
-        # one copy of the lists per value set, offset by the p ranks' tables
+        # one copy of the lists per value set, offset by the held ranks' tables
         m = batch or 1
-        slots = [p * n for n in (plan.a_table_slots, plan.b_table_slots, plan.n_c_slots)]
+        slots = [h * n for n in (plan.a_table_slots, plan.b_table_slots, plan.n_c_slots)]
         if m * max(slots) > np.iinfo(np.int32).max:
             raise ValueError(
                 f"a batch of {m} puts {m} x {max(slots)} table slots past the "
@@ -407,7 +422,7 @@ class MonoCStep:
         )
         self.run_start = _int32(run_start, self.device)
         self.run_c = _int32(run_c, self.device)
-        self.n_c_blocks = m * p * plan.n_c_slots
+        self.n_c_blocks = m * h * plan.n_c_slots
 
     def kernel_inputs(self, a_own: torch.Tensor, b_own: torch.Tensor) -> tuple:
         """The arguments of the step's one ``bsr_spgemm_local`` launch."""
@@ -424,15 +439,15 @@ class MonoCStep:
 
     def __call__(self, a_own: torch.Tensor, b_own: torch.Tensor) -> torch.Tensor:
         c = bsr_spgemm_local(*self.kernel_inputs(a_own, b_own))
-        return c.reshape(*self._lead, self.p, self.n_c_slots, self.block, self.block)
+        return c.reshape(*self._lead, self.n_held, self.n_c_slots, self.block, self.block)
 
 
 def make_monoC_step(
-    plan: MonoCPlan, device, block: int = 8, batch: int | None = None
+    plan: MonoCPlan, device, block: int = 8, batch: int | None = None, comm=None
 ) -> MonoCStep:
     """The monoC executor core (``repro``'s ``make_monoC_step``), with the
-    plan's tables uploaded to ``device`` once."""
-    return MonoCStep(plan, block, device, batch)
+    held ranks' tables uploaded to ``device`` once."""
+    return MonoCStep(plan, block, device, batch, comm)
 
 
 def monoC_spgemm(
@@ -511,13 +526,14 @@ class FineStep:
     """The fine-grained executor core (expand-expand-reduce) for one plan on
     one device.
 
-    ``step(a_own, b_own)`` takes rank-major packed scalar tables
-    ((p, N_max)) and returns rank-major owned-C slot values (p, C_max + 1);
-    the trailing slot per rank is the padding sink and stays zero.  Local
-    compute is two gathers, a product and ONE ``index_add_`` over all p
-    ranks' multiplications into their produced-partial-C tables (rank d's
-    slots offset by d times the per-rank table size, the padding pairs
-    dropped); the reduce all_to_all then folds foreign partials into each C
+    ``step(a_own, b_own)`` takes rank-major packed scalar tables of the held
+    ranks ((held, N_max)) and returns their rank-major owned-C slot values
+    (held, C_max + 1); the trailing slot per rank is the padding sink and
+    stays zero.  Local compute is two gathers, a product and ONE
+    ``index_add_`` over the held ranks' multiplications into their
+    produced-partial-C tables (the i-th held rank's slots offset by i times
+    the per-rank table size, the padding pairs dropped); the reduce
+    all_to_all then folds foreign partials into each C
     nonzero's owner, and the partials a rank both produced and owns fold
     locally (``prod_to_owned``).  With ``batch=m`` tables and result have a
     leading axis of m value sets, and the gathers, the product and the one
@@ -525,36 +541,39 @@ class FineStep:
     offset by i times one set's table size.
     """
 
-    def __init__(self, plan: FinePlan, device, batch: int | None = None):
+    def __init__(self, plan: FinePlan, device, batch: int | None = None, comm=None):
         p = plan.p
         self.p = p
         self.batch = batch
         self._lead = () if batch is None else (batch,)
-        self.comm = Loopback(p, batch)
+        self.comm = make_comm(p, batch) if comm is None else comm
+        held = list(self.comm.ranks)
+        self.n_held = h = len(held)
         self.n_prod = plan.n_prod_slots
         self.n_c = plan.n_c_slots
         self._routes = [
             _send_route(plan.routes[f"expand_{op}"], plan.local_ids[f"{op}_nz"].shape[1],
-                        device, batch)
+                        device, batch, held)
             for op in ("a", "b")
         ]
-        self._reduce = _send_route(plan.routes["reduce_c"], self.n_prod, device, batch)
-        rank = np.arange(p, dtype=np.int64)[:, None]
-        pc = plan.compute["pair_c"]
+        self._reduce = _send_route(plan.routes["reduce_c"], self.n_prod, device, batch, held)
+        rank = np.arange(h, dtype=np.int64)[:, None]
+        pc = plan.compute["pair_c"][held]
         keep = (pc != self.n_prod - 1).ravel()
         pairs = (
-            ((plan.compute["pair_a"] + rank * plan.a_table_slots).ravel()[keep],
-             p * plan.a_table_slots),
-            ((plan.compute["pair_b"] + rank * plan.b_table_slots).ravel()[keep],
-             p * plan.b_table_slots),
-            ((pc + rank * self.n_prod).ravel()[keep], p * self.n_prod),
+            ((plan.compute["pair_a"][held] + rank * plan.a_table_slots).ravel()[keep],
+             h * plan.a_table_slots),
+            ((plan.compute["pair_b"][held] + rank * plan.b_table_slots).ravel()[keep],
+             h * plan.b_table_slots),
+            ((pc + rank * self.n_prod).ravel()[keep], h * self.n_prod),
         )
         self.pair_a, self.pair_b, self.pair_c = (
             _flat(per_set(x, n, batch), device) for x, n in pairs
         )
         # arrivals of the reduce: slot [s, d, t] folds into d's owned C slot
-        # (read as recv[d, s, t], or recv[set, d, s, t] when batched)
-        recv_slot = plan.compute["reduce_recv_slot"]
+        # (read as recv[i, s, t] for the i-th held d, or recv[set, i, s, t]
+        # when batched)
+        recv_slot = plan.compute["reduce_recv_slot"][:, held]
         s_ids, d_ids, t_ids = np.nonzero(recv_slot >= 0)
         arrivals = (d_ids, s_ids, t_ids)
         if batch is not None:
@@ -562,36 +581,37 @@ class FineStep:
             arrivals = (sets, *(np.tile(x, batch) for x in arrivals))
         self._arrivals = tuple(_flat(x, device) for x in arrivals)
         self._arrival_dst = _flat(
-            per_set(d_ids * self.n_c + recv_slot[s_ids, d_ids, t_ids], p * self.n_c, batch),
+            per_set(d_ids * self.n_c + recv_slot[s_ids, d_ids, t_ids], h * self.n_c, batch),
             device,
         )
-        own = plan.compute["prod_to_owned"]
+        own = plan.compute["prod_to_owned"][held]
         d_ids, r_ids = np.nonzero(own >= 0)
-        self._own_src = _flat(per_set(d_ids * self.n_prod + r_ids, p * self.n_prod, batch),
+        self._own_src = _flat(per_set(d_ids * self.n_prod + r_ids, h * self.n_prod, batch),
                               device)
-        self._own_dst = _flat(per_set(d_ids * self.n_c + own[d_ids, r_ids], p * self.n_c,
+        self._own_dst = _flat(per_set(d_ids * self.n_c + own[d_ids, r_ids], h * self.n_c,
                                        batch), device)
 
     def __call__(self, a_own: torch.Tensor, b_own: torch.Tensor) -> torch.Tensor:
-        p, lead, m = self.p, self._lead, self.batch or 1
+        h, lead, m = self.n_held, self._lead, self.batch or 1
         a_tab = _expand(self.comm, a_own, self._routes[0], lead)
         b_tab = _expand(self.comm, b_own, self._routes[1], lead)
         # local compute: exactly this rank's multiplication vertices
         prods = a_tab[self.pair_a] * b_tab[self.pair_b]
-        partial = prods.new_zeros(m * p * self.n_prod).index_add_(0, self.pair_c, prods)
+        partial = prods.new_zeros(m * h * self.n_prod).index_add_(0, self.pair_c, prods)
         # reduce phase: ship foreign partials to their C owners
         flat_idx, n_items, T = self._reduce
-        recv = self.comm.all_to_all(_take0(partial, flat_idx).reshape(*lead, p, p, T), n_items)
-        c = partial.new_zeros(m * p * self.n_c)
+        recv = self.comm.all_to_all(_take0(partial, flat_idx).reshape(*lead, h, self.p, T),
+                                    n_items)
+        c = partial.new_zeros(m * h * self.n_c)
         c.index_add_(0, self._arrival_dst, recv[self._arrivals])
         c.index_add_(0, self._own_dst, partial[self._own_src])
-        return c.reshape(*lead, p, self.n_c)
+        return c.reshape(*lead, h, self.n_c)
 
 
-def make_fine_step(plan: FinePlan, device, batch: int | None = None) -> FineStep:
+def make_fine_step(plan: FinePlan, device, batch: int | None = None, comm=None) -> FineStep:
     """The fine-grained executor core (``repro``'s ``make_fine_step``), with
-    the plan's tables uploaded to ``device`` once."""
-    return FineStep(plan, device, batch)
+    the held ranks' tables uploaded to ``device`` once."""
+    return FineStep(plan, device, batch, comm)
 
 
 def fine_spgemm(a, b, plan: FinePlan, device=None) -> torch.Tensor:

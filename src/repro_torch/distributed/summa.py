@@ -2,7 +2,8 @@
 
 The port of ``repro.distributed.summa``: the planning is a numpy copy (the
 plan equals the reference's array for array), and the executor runs the
-p ranks of the ``(pr, pc)`` grid stacked on one device (``comm.Loopback``).
+ranks of the ``(pr, pc)`` grid its collective holds: all of them stacked on
+one device (``comm.Loopback``) or one a process (``comm.GroupComm``).
 
 The seven hypergraph models ship exactly the cut-net traffic of a partition
 tuned to the instance's sparsity.  The classic competitor — Sparse SUMMA
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.spgemm_models import SpGEMMInstance
-from repro_torch.distributed.comm import Loopback
+from repro_torch.distributed.comm import make_comm
 from repro_torch.distributed.plan_ir import (
     ExecutionPlan,
     _table_slots,
@@ -240,52 +241,56 @@ def _lower_summa(inst: SpGEMMInstance, parts, p: int) -> SummaPlan:
 class SummaStep:
     """The Sparse SUMMA executor core for one plan on one device.
 
-    ``step(a_own, b_own)`` takes rank-major packed block tables
-    ((p, N_max, b, b)) and returns rank-major C block slots
-    (p, C_max + 1, b, b), monoC's layout.  The ``n_stages`` stages run in
-    the reference's order; each expands the owned A and B tables through
+    ``step(a_own, b_own)`` takes rank-major packed block tables of the held
+    ranks ((held, N_max, b, b)) and returns their rank-major C block slots
+    (held, C_max + 1, b, b), monoC's layout.  The ``n_stages`` stages run
+    in the reference's order; each expands the owned A and B tables through
     its two broadcast routes (one all_to_all each, as ``MonoCStep`` expands)
-    and then launches K1 once over all p ranks' pairs of that stage — rank
-    d's table slots offset by d times that stage's per-rank table size, the
-    padding pairs dropped — and adds the stage's product into C.
+    and then launches K1 once over the held ranks' pairs of that stage —
+    the i-th held rank's table slots offset by i times that stage's
+    per-rank table size, the padding pairs dropped — and adds the stage's
+    product into C.
 
     With ``batch=m`` tables and result have a leading axis of m value sets,
     and each stage's one launch runs m copies of its pair lists, the copy of
     set i offset by i times the p ranks' tables (as ``MonoCStep``).
     """
 
-    def __init__(self, plan: SummaPlan, block: int, device, batch: int | None = None):
+    def __init__(self, plan: SummaPlan, block: int, device, batch: int | None = None,
+                 comm=None):
         p = plan.p
         self.p, self.block, self.device = p, block, torch.device(device)
         self.batch = batch
         self._lead = () if batch is None else (batch,)
-        self.comm = Loopback(p, batch)
+        self.comm = make_comm(p, batch) if comm is None else comm
+        held = list(self.comm.ranks)
+        self.n_held = h = len(held)
         self.n_c_slots = plan.n_c_slots
         m = batch or 1
-        self.n_c_blocks = m * p * self.n_c_slots
-        rank = np.arange(p, dtype=np.int64)[:, None]
+        self.n_c_blocks = m * h * self.n_c_slots
+        rank = np.arange(h, dtype=np.int64)[:, None]
         n_own = {op: plan.local_ids[f"{op}_nz"].shape[1] for op in ("a", "b")}
         self._stages = []
         for t in range(plan.n_stages):
             routes = {op: plan.routes[f"bcast_{op}_s{t}"] for op in ("a", "b")}
             # [owned | received | zero] slots a rank's stage-t table has
             table = {op: n_own[op] + p * routes[op].T + 1 for op in ("a", "b")}
-            slots = [p * table["a"], p * table["b"], p * self.n_c_slots]
+            slots = [h * table["a"], h * table["b"], h * self.n_c_slots]
             if m * max(slots) > np.iinfo(np.int32).max:
                 raise ValueError(
                     f"a batch of {m} puts {m} x {max(slots)} table slots past the "
                     f"kernel's int32 indices; split the batch"
                 )
-            pc_local = plan.compute[f"pair_c_s{t}"]
+            pc_local = plan.compute[f"pair_c_s{t}"][held]
             keep = (pc_local != self.n_c_slots - 1).ravel()
-            pa = (plan.compute[f"pair_a_s{t}"] + rank * table["a"]).ravel()[keep]
-            pb = (plan.compute[f"pair_b_s{t}"] + rank * table["b"]).ravel()[keep]
+            pa = (plan.compute[f"pair_a_s{t}"][held] + rank * table["a"]).ravel()[keep]
+            pb = (plan.compute[f"pair_b_s{t}"][held] + rank * table["b"]).ravel()[keep]
             pc = (pc_local + rank * self.n_c_slots).ravel()[keep]
             pa, pb, pc = (per_set(x, n, batch) for x, n in zip((pa, pb, pc), slots))
             run_start, run_c = pair_runs(pc)
             self._stages.append((
                 tuple(
-                    _send_route(routes[op], n_own[op], self.device, batch)
+                    _send_route(routes[op], n_own[op], self.device, batch, held)
                     for op in ("a", "b")
                 ),
                 *(_int32(x, self.device) for x in (pa, pb, pc, run_start, run_c)),
@@ -315,18 +320,19 @@ class SummaStep:
         for t in range(self.n_stages):
             stage = bsr_spgemm_local(*self.kernel_inputs(a_own, b_own, t))
             c = stage if c is None else c.add_(stage)
-        return c.reshape(*self._lead, self.p, self.n_c_slots, self.block, self.block)
+        return c.reshape(*self._lead, self.n_held, self.n_c_slots, self.block, self.block)
 
 
 def make_summa_step(
-    plan: SummaPlan, device, block: int = 1, batch: int | None = None
+    plan: SummaPlan, device, block: int = 1, batch: int | None = None, comm=None
 ) -> SummaStep:
     """The SUMMA executor core (``repro``'s ``make_summa_step``), with the
-    plan's tables uploaded to ``device`` once."""
-    return SummaStep(plan, block, device, batch)
+    held ranks' tables uploaded to ``device`` once."""
+    return SummaStep(plan, block, device, batch, comm)
 
 
-def _summa_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None):
+def _summa_runner(plan, a_structure, b_structure, *, device, dtype, block, batch=None,
+                  group=None):
     """Registry runner factory (monoC's value layout: ``(nnz, b, b)`` blocks
     scattered into rank-major owned tables)."""
     from repro_torch.distributed.registry import _owned_pack, _setup
@@ -334,8 +340,9 @@ def _summa_runner(plan, a_structure, b_structure, *, device, dtype, block, batch
     I, _ = a_structure.shape
     _, J = b_structure.shape
     nA, nB = a_structure.nnz, b_structure.nnz
-    pack = _owned_pack(plan, nA, nB, (block, block), dtype, device, batch)
-    step = make_summa_step(plan, device, block=block, batch=batch)
+    comm = make_comm(plan.p, batch, group)
+    pack = _owned_pack(plan, nA, nB, (block, block), dtype, device, batch, comm.ranks)
+    step = make_summa_step(plan, device, block=block, batch=batch, comm=comm)
     return _setup(
         pack, step, (nA, block, block), (nB, block, block), (I * block, J * block), batch
     )

@@ -1,7 +1,7 @@
 """Model stack (the port of ``repro.models``): the attention-family decoder
 — init, prefill forward, decode step, KV cache — on one device.  The
 reference's ``train_loss`` waits for the training slice (ROADMAP.md Queue 1
-item 8b)."""
+item 3)."""
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.transformer import (
     init_params,

@@ -10,7 +10,7 @@ A copy of ``repro.models.config``: every field is kept.  ``scan_unroll``,
 ``kv_shard_mode`` are the reference's sharding and compile settings; they
 do not change results on one card, and the port accepts and ignores them.
 The port runs ``layer_kind="attn"``; ``"mamba"`` and ``"hybrid"`` layers
-raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 8c).
+raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 4).
 """
 from __future__ import annotations
 

@@ -10,10 +10,13 @@ The MoE layer's three expert products go through K3,
 ``repro_torch.kernels.moe_gemm.moe_gemm``: the CUDA kernel for tensors on
 the card, its plain version for tensors on the CPU.  Attention and the
 dense products are torch ops: no Pallas kernel computes them in the
-reference either.  The reference's expert-parallel ``_moe_ep`` waits for
-the multi-card collective (ROADMAP.md Queue 1 item 6): on one card
-``moe_layer`` takes the plain path, as the reference does with no mesh.
-The Mamba layers wait for ROADMAP.md Queue 1 item 8c.
+reference either.  With no ``ep_group`` ``moe_layer`` takes the plain path,
+every expert in this process, as the reference does with no mesh; with a
+``torch.distributed`` group of tp ranks (``ep_group``, handed down by
+``transformer.forward`` and ``prefill_step``) it runs the reference's
+expert-parallel ``_moe_ep``: each rank holds E / tp experts
+(``convert.expert_shard``) and one fp32 all-reduce combines them.  The
+Mamba layers wait for ROADMAP.md Queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -21,11 +24,13 @@ import functools
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed.comm import all_reduce
 from repro_torch.kernels.moe_gemm import moe_gemm
 
-SSM_ROADMAP = "ROADMAP.md Queue 1 item 8c (Mamba and hybrid layers)"
+SSM_ROADMAP = "ROADMAP.md Queue 1 item 4 (Mamba and hybrid layers)"
 
 
 def not_ported(layer_kind: str) -> NotImplementedError:
@@ -197,8 +202,13 @@ def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype)
     """Dispatch -> grouped GEMM (three K3 calls) -> combine on sorted
     (expert, token, gate) pair lists.  fe must be sorted ascending; fe ==
     n_experts marks dropped/foreign pairs.  Each slot below the sink row
-    takes at most one pair; the combine sums K contributions per token in
-    the activation dtype (in no fixed order on the card)."""
+    takes at most one pair.  Returns the combine's (T, d) sums in fp32:
+    each gated contribution rounded to the activation dtype, as the
+    reference rounds it, and a token's K of them summed in fp32, so the
+    caller rounds once (the reference sums them in the activation dtype).
+    In 16-bit types the sums are then exact whatever their order (the
+    card's atomics, or the expert-parallel ranks' partials), where bf16
+    sums taken in another order differ by bf16 ulps."""
     T, d = xt.shape
     n = fe.numel()
     pos_in_e = torch.arange(n, device=fe.device) - torch.searchsorted(fe, fe, side="left")
@@ -215,8 +225,8 @@ def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype)
 
     flat_out = expert_out.reshape(n_experts * cap, d)
     contrib = flat_out[torch.clamp(slot, max=n_experts * cap - 1)] * (fg * keep)[:, None]
-    out = torch.zeros((T, d), dtype=act_dtype, device=xt.device)
-    return out.index_add_(0, ft, contrib.to(act_dtype))
+    out = torch.zeros((T, d), dtype=torch.float32, device=xt.device)
+    return out.index_add_(0, ft, contrib.to(act_dtype).float())
 
 
 def _sorted_pairs(gate_idx, gate_vals, T, K):
@@ -236,14 +246,47 @@ def _placement_perm(placement: tuple[int, ...], device: torch.device) -> torch.T
     return torch.tensor(placement, dtype=torch.int64, device=device)
 
 
-def moe_layer(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+def _moe_ep(xt, gate_idx, gate_vals, params, cfg, group):
+    """Expert-parallel dispatch over ``group`` (the reference's ``_moe_ep``
+    body on one column of its ``model`` axis): this rank holds experts
+    ``[rank E_loc, (rank + 1) E_loc)`` of ``E = E_loc tp`` and every token.
+    Its pairs are the ones routed to those experts, sorted stably by local
+    expert (the others sink past ``E_loc``), dispatched at the global
+    ``cap = ceil(T K / E * capacity_factor)`` through K3, and the ranks'
+    fp32 partial sums are summed by one all-reduce before the one cast."""
+    moe = cfg.moe
+    T, _ = xt.shape
+    E, K = moe.n_experts, moe.top_k
+    tp, col = dist.get_world_size(group), dist.get_rank(group)
+    if E % tp:
+        raise ValueError(f"{E} experts do not split over {tp} expert-parallel ranks")
+    E_loc = E // tp
+    cap = int(math.ceil(max(T, 1) * K / E * moe.capacity_factor))
+    local_e = gate_idx - col * E_loc
+    mine = (local_e >= 0) & (local_e < E_loc)
+    fe_all = torch.where(mine, local_e, E_loc).reshape(-1)
+    order = torch.argsort(fe_all, stable=True)
+    fe = fe_all[order]
+    ft = torch.arange(T, device=xt.device).repeat_interleave(K)[order]
+    fg = gate_vals.reshape(-1)[order]
+    out = _moe_dispatch_combine(
+        xt, fe, ft, fg, params["wi"], params["wg"], params["wo"], E_loc, cap, xt.dtype
+    )
+    # combine across expert columns: one all-reduce over the group
+    return all_reduce(out, group).to(xt.dtype)
+
+
+def moe_layer(params: dict, x: torch.Tensor, cfg, ep_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss).
 
     Token-dropping capacity MoE with sort-based dispatch (no (T, E, C)
-    one-hot tensor), on the reference's plain path: every expert on this
-    device, ``cap = ceil(T K / E * capacity_factor)`` rows each.  With
-    ``cfg.moe.expert_placement`` (from ``core.moe_planner``) the routed
-    expert ids are permuted first, as in the reference."""
+    one-hot tensor).  With no ``ep_group``, the reference's plain path:
+    every expert on this device, ``cap = ceil(T K / E * capacity_factor)``
+    rows each.  With a group of tp ranks, its expert-parallel path
+    (``_moe_ep``): ``params`` hold this rank's E / tp experts
+    (``convert.expert_shard``).  With ``cfg.moe.expert_placement`` (from
+    ``core.moe_planner``) the routed expert ids are permuted first, as in
+    the reference."""
     moe = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -265,9 +308,20 @@ def moe_layer(params: dict, x: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.T
     if moe.expert_placement is not None:
         gate_idx = _placement_perm(tuple(moe.expert_placement), x.device)[gate_idx]
 
+    held = params["wi"].shape[0]
+    tp = 1 if ep_group is None else dist.get_world_size(ep_group)
+    if held * tp != E:
+        raise ValueError(
+            f"the MoE layer holds {held} experts a rank over {tp} rank(s), not "
+            f"{E}: expert-sharded parameters need their ep_group"
+        )
+    if ep_group is not None:
+        out = _moe_ep(xt, gate_idx, gate_vals, params, cfg, ep_group)
+        return out.reshape(B, S, d), aux
+
     cap = int(math.ceil(T * K / E * moe.capacity_factor))
     fe, ft, fg = _sorted_pairs(gate_idx, gate_vals, T, K)
     out = _moe_dispatch_combine(
         xt, fe, ft, fg, params["wi"], params["wg"], params["wo"], E, cap, xt.dtype
     )
-    return out.reshape(B, S, d), aux
+    return out.to(xt.dtype).reshape(B, S, d), aux

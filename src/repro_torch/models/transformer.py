@@ -189,10 +189,10 @@ def _attn_branch(lp, x, cfg: ModelConfig, positions, window):
     return _out_project(o, lp["attn"]["wo"]), (k, v)
 
 
-def _ffn(lp, h, cfg: ModelConfig):
+def _ffn(lp, h, cfg: ModelConfig, ep_group=None):
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.moe is not None:
-        out, aux = L.moe_layer(lp["moe"], h, cfg)
+        out, aux = L.moe_layer(lp["moe"], h, cfg, ep_group)
         if cfg.moe.n_shared_experts:
             out = out + L.mlp(lp["shared_mlp"], h, cfg.act)
     elif "mlp" in lp:
@@ -202,23 +202,23 @@ def _ffn(lp, h, cfg: ModelConfig):
     return out, aux
 
 
-def _residual(lp, x, h, mix, cfg: ModelConfig):
+def _residual(lp, x, h, mix, cfg: ModelConfig, ep_group=None):
     """The block's FFN and residuals around the mixer's output ``mix``."""
     if cfg.parallel_block:
         # command-r style: MLP on the same normalized input, single residual
-        ff, aux = _ffn(lp, h, cfg)
+        ff, aux = _ffn(lp, h, cfg, ep_group)
         return x + mix + ff, aux
     x = x + mix
-    ff, aux = _ffn(lp, L.apply_norm(cfg.norm, x, lp["ln2"]), cfg)
+    ff, aux = _ffn(lp, L.apply_norm(cfg.norm, x, lp["ln2"]), cfg, ep_group)
     return x + ff, aux
 
 
-def _layer_fwd(lp, x, cfg: ModelConfig, positions):
+def _layer_fwd(lp, x, cfg: ModelConfig, positions, ep_group=None):
     """One decoder layer (prefill).  Returns (y, aux_loss)."""
     _check_kind(cfg)
     h = L.apply_norm(cfg.norm, x, lp["ln1"])
     mix, _ = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
-    return _residual(lp, x, h, mix, cfg)
+    return _residual(lp, x, h, mix, cfg, ep_group)
 
 
 # ---------------------------------------------------------------------------
@@ -251,15 +251,19 @@ def forward(
     params: dict,
     cfg: ModelConfig,
     batch: dict,
+    ep_group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux_loss)."""
+    """Returns (logits (B, S, V), aux_loss).  ``ep_group`` (a
+    ``torch.distributed`` group) runs the MoE layers expert-parallel over
+    its ranks, ``params`` holding this rank's experts
+    (``convert.expert_shard``); every rank returns the same logits."""
     _check_kind(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
-        x, a = _layer_fwd(layer_params(params, i), x, cfg, positions)
+        x, a = _layer_fwd(layer_params(params, i), x, cfg, positions, ep_group)
         aux = aux + a
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return _unembed(params, cfg, x), aux
@@ -279,12 +283,14 @@ def prefill_step(
     params: dict,
     cfg: ModelConfig,
     batch: dict,
+    ep_group=None,
 ) -> tuple[torch.Tensor, dict]:
     """Run the full prompt, return (last-token logits (B, V), KV cache).
 
     The cache is a ring of C = ``kv_cache_len(cfg, S)`` slots; with no
     sliding window C = S, so the first decode step after it overwrites the
-    oldest position, as in the reference."""
+    oldest position, as in the reference.  ``ep_group`` as in
+    ``forward``."""
     _check_kind(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
@@ -298,7 +304,7 @@ def prefill_step(
         mix, (k, v) = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
         ks.append(_ring_align(k, S, C, axis=1))
         vs.append(_ring_align(v, S, C, axis=1))
-        x, _ = _residual(lp, x, h, mix, cfg)
+        x, _ = _residual(lp, x, h, mix, cfg, ep_group)
     x = L.apply_norm(cfg.norm, x[:, -1:], params["final_norm"])
     logits = _unembed(params, cfg, x)[:, 0]
     cache_pos = _ring_align(torch.arange(S, dtype=torch.int32, device=dev), S, C, axis=0)

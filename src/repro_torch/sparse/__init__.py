@@ -10,7 +10,7 @@ from repro_torch.sparse.structure import (
     structure_and_values,
     nontrivial_multiplications,
 )
-from repro_torch.sparse.bsr import BlockSparse, to_bsr, bsr_to_dense
+from repro_torch.sparse.bsr import BlockSparse, to_bsr, bsr_to_dense, pad_blocks
 
 __all__ = [
     "SparseStructure",
@@ -24,4 +24,5 @@ __all__ = [
     "BlockSparse",
     "to_bsr",
     "bsr_to_dense",
+    "pad_blocks",
 ]

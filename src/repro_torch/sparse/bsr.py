@@ -71,3 +71,20 @@ def bsr_to_dense(bsr: BlockSparse) -> np.ndarray:
         out[i * b_r : (i + 1) * b_r, j * b_c : (j + 1) * b_c] += blk
     return out
 
+
+
+def pad_blocks(bsr: BlockSparse, n_blocks: int) -> BlockSparse:
+    """Pad the block list to a static count (inspector-executor: a fixed
+    shape; padding blocks are all-zero at block-coord (0, 0))."""
+    if n_blocks < bsr.n_blocks:
+        raise ValueError(f"cannot shrink {bsr.n_blocks} -> {n_blocks}")
+    extra = n_blocks - bsr.n_blocks
+    if extra == 0:
+        return bsr
+    b_r, b_c = bsr.block_shape
+    blocks = np.concatenate(
+        [bsr.blocks, np.zeros((extra, b_r, b_c), dtype=bsr.blocks.dtype)]
+    )
+    brows = np.concatenate([bsr.brows, np.zeros(extra, dtype=np.int64)])
+    bcols = np.concatenate([bsr.bcols, np.zeros(extra, dtype=np.int64)])
+    return BlockSparse(blocks, brows, bcols, bsr.shape)

@@ -66,6 +66,24 @@ class SparseStructure:
         c = self.csr.tocoo()
         return c.row.astype(np.int64), c.col.astype(np.int64)
 
+    # nnz are identified by their CSR position: nz_id(i, k) = position of
+    # (i, k) within the CSR data array.  This is the canonical net/vertex
+    # numbering used by the hypergraph builders.
+    def nz_ids(self, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+        """Map (row, col) coordinate arrays to CSR nonzero positions."""
+        out = np.empty(len(rows), dtype=np.int64)
+        indptr, indices = self.csr.indptr, self.csr.indices
+        for n, (i, k) in enumerate(zip(rows, cols)):
+            lo, hi = indptr[i], indptr[i + 1]
+            pos = lo + np.searchsorted(indices[lo:hi], k)
+            if pos >= hi or indices[pos] != k:
+                raise KeyError(f"({i},{k}) not a nonzero")
+            out[n] = pos
+        return out
+
+    def has_empty_rows_or_cols(self) -> bool:
+        return bool((self.row_counts() == 0).any() or (self.col_counts() == 0).any())
+
     def __eq__(self, other: object) -> bool:  # structural equality
         if not isinstance(other, SparseStructure):
             return NotImplemented

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing and running it — the front door,
 the kernel entry point, a session with a plan store, the serving loop, the
-rest of the planning and the LM stack's prefill and decode — loads neither
-jax nor any module of the JAX package ``repro``."""
+rest of the planning, the LM stack's prefill and decode, and the modules
+of ranks in their own processes — loads neither jax nor any module of the
+JAX package ``repro``."""
 import os
 import subprocess
 import sys
@@ -26,6 +27,7 @@ import repro_torch.core.refine_device, repro_torch.core.coarsen_device, repro_to
 import repro_torch.models, repro_torch.configs, repro_torch.data, repro_torch.training
 import repro_torch.core.coarsen, repro_torch.core.moe_planner, repro_torch.distributed.plan
 import repro_torch.models.convert, repro_torch.configs.shapes
+import repro_torch.launch.ranks, repro_torch.training.compression
 from repro_torch.core import matrices
 from repro_torch.kernels import ops
 from repro_torch.sparse.bsr import to_bsr

@@ -2,7 +2,8 @@
 smoke size: a sliding window through prefill and decode, the chunked and
 decode attention alone, an MoE with a planner placement installed, an MoE
 whose capacity drops pairs, the expert products on K3 with tiles that
-divide, and prefill against token-by-token decode on an MoE, within 1e-4."""
+divide, and prefill against token-by-token decode on an MoE, within 1e-4;
+and the MoE layer in bf16 within the repo's bf16 rule."""
 import dataclasses
 
 import jax
@@ -119,6 +120,31 @@ def test_moe_dropping_pairs_equals_jax():
     batch = _batch(tcfg)
     jlog, _ = jax_tf.forward(jp, jcfg, {"tokens": jnp.asarray(batch["tokens"])})
     _close(tf.forward(tp, tcfg, batch)[0], jlog, "logits")
+
+
+BF16_TOL = 2e-2  # chip_smoke.py's bf16 rule: |got - want| <= 2e-2 + 2e-2 |want|
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "dbrx-132b"])
+def test_moe_in_bf16_within_the_bf16_rule_of_jax(arch):
+    """In bf16 the port's combine sums a token's K contributions, each
+    rounded to bf16 as the reference rounds it, in fp32 and rounds once;
+    the reference sums them in bf16.  The layer's output stays within the
+    repo's bf16 rule of the reference's on the same bf16 weights and input."""
+    jcfg, tcfg = _cfgs(arch, dtype="bfloat16")
+    jp, tp = _params(jcfg)
+    assert tf.layer_params(tp, 0)["moe"]["wi"].dtype == torch.bfloat16
+    x = np.random.default_rng(6).standard_normal((2, 64, tcfg.d_model)).astype(np.float32)
+    lp_j = jax.tree.map(lambda a: a[0], jp["layers"]["moe"])
+    jout, jaux = jax_layers.moe_layer(lp_j, jnp.asarray(x, jnp.bfloat16), jcfg)
+    tout, taux = layers.moe_layer(tf.layer_params(tp, 0)["moe"],
+                                  torch.from_numpy(x).bfloat16(), tcfg)
+    assert tout.dtype == torch.bfloat16
+    want = np.asarray(jout.astype(jnp.float32))
+    got = tout.float().numpy()
+    assert np.all(np.abs(got - want) <= BF16_TOL + BF16_TOL * np.abs(want)), \
+        np.abs(got - want).max()
+    _close(taux, jaux, "moe aux")
 
 
 def test_moe_experts_run_on_k3_with_whole_dim_tiles(monkeypatch):

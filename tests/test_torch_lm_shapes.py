@@ -112,7 +112,7 @@ def test_ssm_layers_raise_not_implemented(arch):
     for call in (lambda: tf.forward(params, cfg, batch),
                  lambda: make_prefill_step(cfg)(params, batch),
                  lambda: make_decode_step(cfg)(params, cache, batch["tokens"][:, :1])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8c"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
             call()
 
 
