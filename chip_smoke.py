@@ -83,6 +83,20 @@ Phases, each printing its seconds:
      ``compressed_psum_mean`` on 64 M bf16 gradient elements; (c)
      Qwen3-MoE-235B-A22B prefill, 2 x 1024 tokens, 2 layers, with its
      experts split over the ranks, against the one-process prefill.
+ 14. training (``training``): (a) Qwen3-MoE-235B-A22B at its published
+     width, bf16, 2 of its 94 layers, Adafactor, 4 x 1024 tokens a step
+     (K3 at C = 320), 6 steps through ``launch.train.build_trainer`` and
+     ``launch.elastic.run_loop`` with activation checkpointing: 12 K3
+     launches a MoE layer a step (3 forward, 3 recomputed, 3
+     ``expert_wgmma_dx`` and 3 ``expert_wgmma_dw``), step and optimizer
+     ms, tokens/s, peak memory under 75 GB, a profile, every K3 launch of
+     a step against its plain version (dx and dw by the bf16 rule scaled
+     to the gradient's size), the gradient products beside ``torch.bmm``;
+     (b) the eight smoke configs' loss, gradients and one step of each
+     optimizer, card against CPU, fp32, every K3 launch on the card
+     against its plain version; (c) ``launch.train.main`` resumed after an
+     injected failure and after a restart (internlm2), and after a
+     restart (Qwen3-MoE), against the uninterrupted run.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -94,11 +108,16 @@ fp32 one, ``stage16`` on the misaligned bf16 up projection, and
 ``expert_wgmma`` again at the LM path's prefill (C = 640) and decode
 (C = 1) up projections, with their launches on that path, and phase 13's
 ``scalar_runs`` and ``expert_wgmma`` with the launches the ranks counted
-in their processes (timed on rank 0 while the others wait); bounds at the
-peak of each route's arithmetic, ``PEAK_FLOPS``; a time under its bound
+in their processes (timed on rank 0 while the others wait), and phase 14's
+``expert_wgmma``, ``expert_wgmma_dx`` and ``expert_wgmma_dw`` with their
+launches in one training step, and ``split3_bf16_t`` and the backward's
+two ``expert_split`` products (dx, dw) with their launches in 14 (b),
+timed at (b)'s own operands; bounds at the peak of each route's
+arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
 ``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``, 11 under
-``summa_device``, 12 under ``lm_serve``, 13 under ``ranks``).
+``summa_device``, 12 under ``lm_serve``, 13 under ``ranks``, 14 under
+``train``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -268,12 +287,46 @@ def reset_launches() -> None:
             counts[kernel] = 0
 
 
-def max_err_within(got, want, tol: float, what: str) -> float:
-    """max |got - want|; fails unless every element is within tol + tol |want|."""
+def within(got, want, tol: float, scale: float = 1.0) -> tuple[bool, float]:
+    """(every element within tol scale + tol |want|, max |got - want|)."""
     err = (got.float() - want.float()).abs()
-    if not bool((err <= tol + tol * want.float().abs()).all()):
-        fail(f"{what}: max abs err {err.max().item()}")
-    return float(err.max().item())
+    return bool((err <= tol * scale + tol * want.float().abs()).all()), float(err.max().item())
+
+
+def max_err_within(got, want, tol: float, what: str, scale: float = 1.0) -> float:
+    """max |got - want|; fails unless every element is within
+    tol scale + tol |want|."""
+    ok, err = within(got, want, tol, scale)
+    if not ok:
+        fail(f"{what}: max abs err {err}")
+    return err
+
+
+def grad_scale(want) -> float:
+    """min(1, max |want|): the absolute part of ``grad_err_within``'s rule,
+    over tol."""
+    return min(1.0, float(want.float().abs().max().item()))
+
+
+def grad_err_within(got, want, tol: float, what: str) -> float:
+    """``max_err_within`` with the absolute part scaled to the gradient's
+    own size, tol min(1, max|want|) + tol |want| (never looser than tol +
+    tol |want|): a loss averaged over thousands of tokens has gradients far
+    below 1, where tol + tol |want| would pass a result of zeros."""
+    return max_err_within(got, want, tol, what, grad_scale(want))
+
+
+def grad_rule_rejects(want, tol: float, what: str) -> None:
+    """Fails unless ``grad_err_within``'s rule refuses three wrong results
+    for ``want`` (E, m, n): zeros, the next expert's, and one 10% too
+    large."""
+    import torch
+
+    scale = grad_scale(want)
+    for name, bad in (("zeros", torch.zeros_like(want)), ("the next expert's",
+                      want.roll(1, 0)), ("10% too large", want.float() * 1.1)):
+        if within(bad, want, tol, scale)[0]:
+            fail(f"{what}: the gradient rule accepts {name}")
 
 
 def check_kernel(args, tol: float, garbage_slot: bool = True):
@@ -1616,13 +1669,13 @@ def timed_ms(fn, calls: int) -> list[float]:
     return out
 
 
-def k3_checked(records: list, keep: dict, label: str):
-    """A stand-in for the MoE layer's ``moe_gemm`` that holds every launch
-    against ``moe_gemm_ref`` on the same inputs (bf16 tolerance), records
-    its shapes, launches and error, and keeps the first call's operands
-    under ``keep[label]``."""
+def k3_checked(records: list, keep: dict, label: str, moe_gemm):
+    """A stand-in for ``kernels.moe_gemm.moe_gemm`` (what the MoE layer's
+    ``GroupedGemm`` calls), around the real ``moe_gemm``, that holds every
+    launch against ``moe_gemm_ref`` on the same inputs (bf16 tolerance),
+    records its shapes, launches and error, and keeps the first call's
+    operands under ``keep[label]``."""
     import torch
-    from repro_torch.kernels.moe_gemm import moe_gemm
     from repro_torch.kernels.ref import moe_gemm_ref
 
     def checked(x, w, b_c=128, b_f=128, b_d=512):
@@ -1673,14 +1726,15 @@ def replay_decode(decode, params, cache: dict, tok) -> None:
         tok = logits.argmax(-1)[:, None]
 
 
-def experts_with_rows(layers, run, n_layers: int) -> list[list[int]]:
+def experts_with_rows(run, n_layers: int) -> list[list[int]]:
     """Runs ``run`` with the MoE layer's K3 calls watched and returns, for
     each decode step and layer, how many experts K3 got a row for: the
     experts whose rows of the up projection's input are not all zero (an
     expert that no kept pair reached has only zero rows)."""
     import torch
+    import repro_torch.kernels.moe_gemm as k3
 
-    real, counts = layers.moe_gemm, []
+    real, counts = k3.moe_gemm, []
 
     def watched(x, w, *args, **tiles):
         if len(counts) % 3 == 0:  # up, gate, down: the first of a layer's three
@@ -1690,10 +1744,10 @@ def experts_with_rows(layers, run, n_layers: int) -> list[list[int]]:
         return real(x, w, *args, **tiles)
 
     try:
-        layers.moe_gemm = watched
+        k3.moe_gemm = watched
         run()
     finally:
-        layers.moe_gemm = real
+        k3.moe_gemm = real
     torch.cuda.synchronize()
     per_layer = [int(c) for c in counts if c is not None]
     return [per_layer[i:i + n_layers] for i in range(0, len(per_layer), n_layers)]
@@ -1735,9 +1789,10 @@ def lm_serving(device):
     import torch
     from repro_torch.configs import all_arch_ids, get_config, get_smoke_config
     from repro_torch.core.moe_planner import plan_expert_placement, routing_counts
+    import repro_torch.kernels.moe_gemm as k3_mod
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels.moe_gemm import moe_gemm
-    from repro_torch.models import forward, init_kv_cache, init_params, layers
+    from repro_torch.models import forward, init_kv_cache, init_params
     from repro_torch.training import make_decode_step, make_prefill_step
 
     t0 = time.perf_counter()
@@ -1834,7 +1889,7 @@ def lm_serving(device):
         fail(f"LM (c): a decode step waits for the card: {e}")
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    hit = experts_with_rows(layers, lambda: replay_decode(decode, params, *start), LM_LAYERS)
+    hit = experts_with_rows(lambda: replay_decode(decode, params, *start), LM_LAYERS)
     table = params["embed"]["tokens"]
     # every weight read once; of the embedding table, the B rows gathered
     step_bytes = (rec["param_bytes"] - table.numel() * table.element_size()
@@ -1861,14 +1916,14 @@ def lm_serving(device):
 
     # (d) every K3 launch of one prefill call and one decode step
     checks, operands = [], {}
-    real = layers.moe_gemm
+    real = k3_mod.moe_gemm
     try:
-        layers.moe_gemm = k3_checked(checks, operands, "prefill")
+        k3_mod.moe_gemm = k3_checked(checks, operands, "prefill", real)
         logits, cache = prefill(params, batch)
-        layers.moe_gemm = k3_checked(checks, operands, "decode")
+        k3_mod.moe_gemm = k3_checked(checks, operands, "decode", real)
         decode(params, cache, logits.argmax(-1)[:, None])
     finally:
-        layers.moe_gemm = real
+        k3_mod.moe_gemm = real
     for label in ("prefill", "decode"):
         mine = [c for c in checks if c["call"] == label]
         if len(mine) != 3 * LM_LAYERS or any(c["launches"] != {"expert_wgmma": 1} for c in mine):
@@ -2114,8 +2169,9 @@ def _rank_ep(group, device) -> dict:
     with every K3 launch held to its plain version."""
     import torch
     import torch.distributed as dist
+    import repro_torch.kernels.moe_gemm as k3_mod
     from repro_torch.kernels.moe_gemm import moe_gemm
-    from repro_torch.models import convert, init_params, layers
+    from repro_torch.models import convert, init_params
     from repro_torch.training import make_prefill_step
 
     rank, tp = dist.get_rank(group), dist.get_world_size(group)
@@ -2140,12 +2196,12 @@ def _rank_ep(group, device) -> dict:
     launches = {k: v for k, v in moe_gemm.launches.items() if v}
     calls = timed_ms(lambda: prefill(params, batch), 3)
     records, keep = [], {}
-    real = layers.moe_gemm
+    real = k3_mod.moe_gemm
     try:
-        layers.moe_gemm = k3_checked(records, keep, "ep prefill")
+        k3_mod.moe_gemm = k3_checked(records, keep, "ep prefill", real)
         prefill(params, batch)
     finally:
-        layers.moe_gemm = real
+        k3_mod.moe_gemm = real
     x, w = keep["ep prefill"]
     k3 = None
     if rank == 0:  # timed alone on the card: the other ranks wait
@@ -2356,6 +2412,520 @@ def ranks_in_processes(handles, device, rng):
     return rec
 
 
+TRAIN_LAYERS = 2  # phase 14 (a): of the published 94, as phase 13 (c)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6  # T = 4096: C = 320 rows an expert
+TRAIN_PEAK_BYTES = 75e9
+RESUME_TOL = 1e-5  # phase 14 (c), absolute, on every parameter after 8 steps
+
+
+def k3_train_checked(records: list, keep: dict, keep_when):
+    """Stand-ins for ``kernels.moe_gemm``'s ``moe_gemm``,
+    ``moe_gemm_backward`` (what ``GroupedGemm`` calls) and ``split3_bf16_t``
+    (what ``moe_gemm_backward`` calls on the split route) that hold every
+    launch on the card against its plain version on the same inputs: the
+    forward products by ``max_err_within`` at the type's tolerance, dx and
+    dw by ``grad_err_within``, the transposing split bit for bit.  Each
+    records its shapes, launches and error, and the operands of the first
+    backward with ``keep_when(x, w)`` are kept under ``keep["backward"]``.
+    CPU tensors pass through unchecked."""
+    import torch
+    import repro_torch.kernels.moe_gemm as k3
+    from repro_torch.kernels.ref import moe_gemm_grad_ref, moe_gemm_ref, split3_bf16_t_ref
+
+    real_fwd, real_bwd, real_split_t = k3.moe_gemm, k3.moe_gemm_backward, k3.split3_bf16_t
+
+    def moved(before):
+        return {k: v - before[k] for k, v in real_fwd.launches.items() if v != before[k]}
+
+    def fwd(x, w, b_c=128, b_f=128, b_d=512):
+        if not x.is_cuda:
+            return real_fwd(x, w, b_c, b_f, b_d)
+        before = dict(real_fwd.launches)
+        out = real_fwd(x, w, b_c, b_f, b_d)
+        torch.cuda.synchronize()
+        err = max_err_within(out, moe_gemm_ref(x, w), TOL[dtype_name(x.dtype)],
+                             f"train: K3 at {tuple(x.shape)} x {tuple(w.shape)}")
+        records.append({"call": "forward", "x": list(x.shape), "w": list(w.shape),
+                        "launches": moved(before), "max_abs_err": err})
+        return out
+
+    def bwd(x, w, dy):
+        if not x.is_cuda:
+            return real_bwd(x, w, dy)
+        before = dict(real_fwd.launches)
+        dx, dw = real_bwd(x, w, dy)
+        torch.cuda.synchronize()
+        want_dx, want_dw = moe_gemm_grad_ref(x, w, dy)
+        tol = TOL[dtype_name(x.dtype)]
+        errs = [grad_err_within(dx, want_dx, tol, f"train: K3 dx at {tuple(dy.shape)}"),
+                grad_err_within(dw, want_dw, tol, f"train: K3 dw at {tuple(x.shape)}")]
+        records.append({"call": "backward", "x": list(x.shape), "w": list(w.shape),
+                        "launches": moved(before), "max_abs_err_dx": errs[0],
+                        "max_abs_err_dw": errs[1],
+                        "max_abs_dx": float(want_dx.float().abs().max()),
+                        "max_abs_dw": float(want_dw.float().abs().max())})
+        if keep_when(x, w):
+            keep.setdefault("backward", (x, w, dy.contiguous()))
+        return dx, dw
+
+    def split_t(x, pitch):
+        out = real_split_t(x, pitch)
+        if x.is_cuda:
+            torch.cuda.synchronize()
+            if not torch.equal(out.view(torch.int16), split3_bf16_t_ref(x, pitch).view(
+                    torch.int16)):
+                fail(f"train: split3_bf16_t at {tuple(x.shape)} differs from its plain version")
+            records.append({"call": "split3_bf16_t", "x": list(x.shape), "pitch": pitch})
+        return out
+
+    return fwd, bwd, split_t
+
+
+def k3_installed(stand_ins):
+    """A context that installs ``(moe_gemm, moe_gemm_backward,
+    split3_bf16_t)`` stand-ins in ``kernels.moe_gemm`` and puts the real
+    ones back."""
+    import contextlib
+
+    import repro_torch.kernels.moe_gemm as k3
+
+    @contextlib.contextmanager
+    def installed():
+        real = k3.moe_gemm, k3.moe_gemm_backward, k3.split3_bf16_t
+        k3.moe_gemm, k3.moe_gemm_backward, k3.split3_bf16_t = stand_ins
+        try:
+            yield
+        finally:
+            k3.moe_gemm, k3.moe_gemm_backward, k3.split3_bf16_t = real
+
+    return installed()
+
+
+def k3_grad_records(x, w, dy, launches: dict, errs: dict) -> dict:
+    """K3's gradient products at operands the training path gave them:
+    ``expert_wgmma_dx`` (dy @ wᵀ) and ``expert_wgmma_dw`` (xᵀ @ dy), each
+    held to its plain version by ``grad_err_within`` (whose rule must refuse
+    wrong results, ``grad_rule_rejects``), then timed alone by events beside
+    its plain version and ``torch.bmm`` on the same operands; the bound is
+    each operand read once and the output written once, against bf16
+    operations at the tensor cores' peak."""
+    import torch
+    import repro_torch.kernels.moe_gemm as k3
+    from repro_torch.kernels.ref import moe_gemm_ref
+
+    E, C, d = x.shape
+    f = w.shape[2]
+    n_ops = 2.0 * E * C * d * f
+    size = x.element_size()
+    cases = {
+        "dx": (lambda: k3._wgmma("expert_wgmma_dx", dy, w, C, f, d),
+               lambda: moe_gemm_ref(dy, w.transpose(1, 2)),
+               lambda: torch.bmm(dy, w.transpose(1, 2)), E * C * d),
+        "dw": (lambda: k3._wgmma("expert_wgmma_dw", x, dy, d, C, f),
+               lambda: moe_gemm_ref(x.transpose(1, 2), dy),
+               lambda: torch.bmm(x.transpose(1, 2), dy), E * d * f),
+    }
+    out = {}
+    tol = TOL[dtype_name(x.dtype)]
+    for name, (kernel, plain, library, out_elems) in cases.items():
+        n_bytes = (x.numel() if name == "dw" else w.numel()) * size + dy.numel() * size + (
+            out_elems * size)
+        bound_ms, bound_by = bound(n_bytes, n_ops, dtype_name(x.dtype))
+        want = plain()
+        grad_rule_rejects(want, tol, f"train K3 {name}")
+        err = grad_err_within(kernel(), want, tol, f"train K3 {name}")
+        del want
+        out[name] = {
+            "kernel": f"expert_wgmma_{name}", "shape": [list(x.shape), list(w.shape)],
+            "launches": launches[f"expert_wgmma_{name}"],
+            "max_abs_err": max(err, errs[name]),
+            "ms": cuda_ms(kernel, reps=20), "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": n_bytes,
+            "bound_flops": n_ops, "library_ms": cuda_ms(library, reps=20),
+            "library_call": "torch.bmm",
+        }
+    return out
+
+
+def k3_split_grad_records(x, w, dy, launches: dict) -> dict:
+    """The fp32 gradient's split-route kernels at operands (b)'s path gave
+    them: ``split3_bf16_t`` (w transposed into pieces, as for dx) and the
+    two ``expert_split`` launches of ``moe_gemm_backward`` (dx = dy @ wᵀ on
+    dy's and wᵀ's pieces, dw = xᵀ @ dy on xᵀ's and dy's), launched as it
+    launches them.  Each is checked against its plain version (the split
+    bit for bit, the products by ``grad_err_within``) and timed by graph
+    replay (they take microseconds at these shapes) beside it and, for the
+    products, ``torch.bmm`` in fp32 (TF32 off).  The bounds: the split reads
+    w once and writes three bf16 pieces; a product reads its pieces once
+    and writes fp32, against fp32-accurate operations on the tensor cores.
+    ``launches``: (b)'s ``split3_bf16_t`` launches, and its backward calls
+    on the card (each launches one dx and one dw ``expert_split``)."""
+    import torch
+    import repro_torch.kernels.moe_gemm as k3
+    from repro_torch.kernels._build import DTYPE_CODE
+    from repro_torch.kernels.ref import moe_gemm_ref, split3_bf16_t_ref
+
+    E, C, d = x.shape
+    f = w.shape[2]
+    pd, pf, pc = k3._pitch(d), k3._pitch(f), k3._pitch(C)
+    tol = TOL["float32"]
+    out = {}
+    got = k3.split3_bf16_t(w, pd)
+    if not torch.equal(got.view(torch.int16), split3_bf16_t_ref(w, pd).view(torch.int16)):
+        fail("train (b): split3_bf16_t differs from its plain version")
+    n_bytes = w.numel() * 4 + got.numel() * 2  # w read once, three bf16 pieces written
+    bound_ms, bound_by = bound(n_bytes, 0.0, "float32")
+    out["split3_bf16_t"] = {
+        "kernel": "split3_bf16_t", "shape": list(w.shape), "pitch": pd,
+        "launches": launches["split3_bf16_t"], "max_abs_err": 0.0,
+        "ms": graph_ms(lambda: k3.split3_bf16_t(w, pd)),
+        "plain_ms": cuda_ms(lambda: split3_bf16_t_ref(w, pd), reps=5, warmup=1),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": n_bytes,
+        "library_ms": None}
+    dy_p = k3.split3_bf16(dy, pf)
+    wt_p, xt_p = got, k3.split3_bf16_t(x, pc)
+    dx = torch.empty((E, C, d), dtype=torch.float32, device=x.device)
+    dw = torch.empty((E, d, f), dtype=torch.float32, device=x.device)
+    code = DTYPE_CODE[torch.float32]
+    cases = {
+        "dx": (lambda: k3._launch("expert_split", x.device, dy_p.data_ptr(), wt_p.data_ptr(),
+                                  dx.data_ptr(), E, C, f, d, pf, pd, code),
+               dx, lambda: moe_gemm_ref(dy, w.transpose(1, 2)),
+               lambda: torch.bmm(dy, w.transpose(1, 2)), dy_p.numel() + wt_p.numel()),
+        "dw": (lambda: k3._launch("expert_split", x.device, xt_p.data_ptr(), dy_p.data_ptr(),
+                                  dw.data_ptr(), E, d, C, f, pc, pf, code),
+               dw, lambda: moe_gemm_ref(x.transpose(1, 2), dy),
+               lambda: torch.bmm(x.transpose(1, 2), dy), xt_p.numel() + dy_p.numel()),
+    }
+    n_ops = 2.0 * E * C * d * f
+    for name, (kernel, result, plain, library, pieces) in cases.items():
+        kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        grad_rule_rejects(want, tol, f"train (b) expert_split {name}")
+        err = grad_err_within(result, want, tol, f"train (b) expert_split {name}")
+        n_bytes = pieces * 2 + result.numel() * 4
+        bound_ms, bound_by = bound(n_bytes, n_ops, "float32_split")
+        out[f"expert_split_{name}"] = {
+            "kernel": "expert_split", "product": name, "shape": [list(x.shape), list(w.shape)],
+            "launches": launches["backward_calls"], "max_abs_err": err,
+            "ms": graph_ms(kernel), "plain_ms": cuda_ms(plain, reps=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": n_bytes,
+            "bound_flops": n_ops, "library_ms": graph_ms(library),
+            "library_call": "torch.bmm"}
+    return out
+
+
+def _clone_tree(tree):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _grad_leaves(params, cfg, batch):
+    """(loss, {path: gradient}) of ``train_loss`` at ``params``."""
+    import torch
+    from repro_torch.models import train_loss
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = train_loss(leaves, cfg, batch)
+    flat = tree_leaves(leaves)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    return loss, [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
+
+
+def training(device):
+    """Phase 14: the training path (``launch.train.build_trainer``,
+    ``launch.elastic.run_loop``, ``training.make_train_step``,
+    ``models.train_loss`` with ``remat_policy="nothing"``, K3 forward and
+    backward on every MoE layer).
+
+    (a) Qwen3-MoE-235B-A22B at its published width (phase 12's), bf16,
+        ``n_layers`` cut from 94 to ``TRAIN_LAYERS``, random weights from
+        seed 0, Adafactor, ``SyntheticTokens`` 4 x 1024 (T = 4096, C = 320
+        rows an expert): ``TRAIN_STEPS`` steps through ``run_loop``, the
+        first a warm-up; each step's K3 launches exactly 12 a MoE layer (3
+        forward, 3 recomputed, 3 ``expert_wgmma_dx`` and 3
+        ``expert_wgmma_dw``) and what ``launch_plan`` lists beside them;
+        step ms (median), tokens/s, the optimizer's ms alone (events around
+        its update in each step), peak memory (under 75 GB), loss and
+        gradient norm (finite, norm > 0), a profile of one step; then one
+        more step with every K3 launch held to its plain version (the
+        forward products by the bf16 rule, dx and dw by that rule scaled to
+        the gradient's size, ``grad_err_within``), and the gradient products
+        timed beside their plain version and ``torch.bmm``.
+    (b) the eight attention-family smoke configs in fp32: ``train_loss``,
+        every gradient leaf (by ``grad_err_within``), and one
+        ``make_train_step`` step with AdamW and one with Adafactor, card
+        against CPU, within 1e-4, with every
+        K3 launch on the card (the split route: ``split3_bf16``,
+        ``split3_bf16_t``, ``expert_split``) held to its plain version; the
+        gradient's ``split3_bf16_t`` and two ``expert_split`` launches then
+        timed at the operands of (b)'s first backward.
+    (c) ``launch.train.main`` on the card, 8 steps with ``--ckpt-dir``, at
+        the internlm2 smoke config: uninterrupted; with an
+        ``InjectedFailure`` at step 5 (``run_loop`` restarts from step 4's
+        checkpoint); and stopped after 5 steps then run again to 8 from
+        the checkpoint; and at the Qwen3-MoE smoke config uninterrupted and
+        stopped and resumed so; each against its uninterrupted run within
+        ``RESUME_TOL``."""
+    import contextlib
+    import dataclasses
+    import functools
+    import io
+    import tempfile
+
+    import torch
+    import repro_torch.kernels.moe_gemm as k3
+    import repro_torch.launch.train as train_mod
+    import repro_torch.training.optimizer as opt_mod
+    from repro_torch.configs import all_arch_ids, get_config, get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.elastic import InjectedFailure, run_loop
+    from repro_torch.models import init_params
+    from repro_torch.training import make_train_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, n_layers=TRAIN_LAYERS)
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    T = TRAIN_BATCH * TRAIN_SEQ
+    cap = int(np.ceil(T * K / E * cfg.moe.capacity_factor))
+    rec = {"config": LM_ARCH, "n_layers": TRAIN_LAYERS, "n_layers_published": base.n_layers,
+           "dtype": cfg.dtype, "remat_policy": cfg.remat_policy, "optimizer": "adafactor",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tokens_per_step": T, "capacity": cap}
+    if cfg.remat_policy != "nothing" or cap != 320:
+        fail(f"train (a): remat {cfg.remat_policy!r}, capacity {cap}")
+
+    # (a) the optimizer's own time: events around each update of the step
+    opt_events = []
+    init, update = opt_mod.OPTIMIZERS["adafactor"]
+
+    def timed_update(*args, **kw):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = update(*args, **kw)
+        ev[1].record()
+        opt_events.append(ev)
+        return out
+
+    opt_mod.OPTIMIZERS["adafactor"] = (init, timed_update)
+    try:
+        step, opt_init = train_mod.build_trainer(cfg, device, optimizer="adafactor")
+    finally:
+        opt_mod.OPTIMIZERS["adafactor"] = (init, update)
+    t_init = time.perf_counter()
+    params = init_params(cfg, 0, device=device)
+    opt_state = opt_init(params)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t_init
+    rec["param_bytes"] = _tree_bytes(params)
+    data = SyntheticTokens(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in data.batch(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    steps, metrics, launches = [], [], []
+
+    def step_fn(state, idx):
+        reset_launches()
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        p, o, m = step(*state, batches[idx])
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t_step) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        launches.append({k: v for k, v in k3.moe_gemm.launches.items() if v})
+        return p, o
+
+    (params, opt_state), stats = run_loop((params, opt_state), step_fn, TRAIN_STEPS)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # what launch_plan lists for the three products of a layer, twice forward
+    # (the recompute) and once backward, at this path's shapes
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    xs = torch.empty((E, cap, d), dtype=torch.bfloat16, device=device)
+    hs = torch.empty((E, cap, f), dtype=torch.bfloat16, device=device)
+    lp = params["layers"]["moe"]
+    want = {}
+    for x, w, dy in ((xs, lp["wi"][0], hs), (xs, lp["wg"][0], hs), (hs, lp["wo"][0], xs)):
+        for plan in (k3.launch_plan(x, w), k3.launch_plan(x, w), k3.grad_launch_plan(x, w, dy)):
+            for k, v in plan.items():
+                want[k] = want.get(k, 0) + v * TRAIN_LAYERS
+    del xs, hs
+    if want != {"expert_wgmma": 6 * TRAIN_LAYERS, "expert_wgmma_dx": 3 * TRAIN_LAYERS,
+                "expert_wgmma_dw": 3 * TRAIN_LAYERS}:
+        fail(f"train (a): launch_plan lists {want} a step")
+    for i, got in enumerate(launches):
+        if got != want:
+            fail(f"train (a): step {i} launched {got}, not {want}")
+    for m in metrics:
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
+            fail(f"train (a): loss {m['loss']}, gradient norm {m['grad_norm']}")
+    if rec["peak_bytes"] > TRAIN_PEAK_BYTES:
+        fail(f"train (a): peak memory {rec['peak_bytes'] / 1e9:.2f} GB over "
+             f"{TRAIN_PEAK_BYTES / 1e9:.0f} GB")
+    torch.cuda.synchronize()
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    timed = steps[1:]  # the first is the warm-up
+    rec["steps"] = {
+        "ms": steps, "ms_median": statistics.median(timed),
+        "tokens_per_s": T / (statistics.median(timed) / 1e3),
+        "optimizer_ms": opt_ms, "optimizer_ms_median": statistics.median(opt_ms[1:]),
+        "k3_launches_per_step": launches[-1], "k3_per_moe_layer": sum(
+            launches[-1].values()) / TRAIN_LAYERS,
+        "metrics": metrics, "restarts": stats.restarts, "stragglers": stats.stragglers,
+    }
+    print("train (a) steps", json.dumps(rec["steps"]), flush=True)
+    state = [params, opt_state]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batches[TRAIN_STEPS])
+
+    print("train (a) memory", json.dumps({k: rec[k] for k in (
+        "param_bytes", "peak_bytes", "init_s")}), flush=True)
+    rec["profile"] = profile_fn(one_step, rec["steps"]["ms_median"], calls=1,
+                                label="train step")
+    phase("training (a) steps", t0)
+
+    # (a) every K3 launch of one step against its plain version
+    checks, operands = [], {}
+    up_or_gate = lambda x, w: x.shape[2] == w.shape[1] and w.shape[1] > w.shape[2]  # d > f
+    with k3_installed(k3_train_checked(checks, operands, up_or_gate)):
+        one_step()
+    fwd = [c for c in checks if c["call"] == "forward"]
+    bwd = [c for c in checks if c["call"] == "backward"]
+    if len(fwd) != 6 * TRAIN_LAYERS or len(bwd) != 3 * TRAIN_LAYERS:
+        fail(f"train (a): {len(fwd)} forward and {len(bwd)} backward K3 calls in a step")
+    rec["k3_checks"] = checks
+    errs = {"dx": max(c["max_abs_err_dx"] for c in bwd),
+            "dw": max(c["max_abs_err_dw"] for c in bwd)}
+    rec["k3"] = k3_grad_records(*operands["backward"], launches[-1], errs)
+    x, w, _ = operands["backward"]
+    rec["k3"]["forward"] = k3_record_at(x, w, launches[-1]["expert_wgmma"],
+                                        max(c["max_abs_err"] for c in fwd))
+    for name, r in rec["k3"].items():
+        print(f"train (a) K3 {name}", json.dumps(r), flush=True)
+    del params, opt_state, state, operands, x, w, batches
+    torch.cuda.empty_cache()
+    phase("training (a) K3 checks", t0)
+
+    # (b) the attention-family smoke configs in fp32, card against CPU, with
+    # every K3 launch on the card held to its plain version
+    reset_launches()
+    rec["card_vs_cpu"], rec["card_vs_cpu_rel"] = {}, {}
+    checks, operands = [], {}
+    stand_ins = k3_train_checked(checks, operands, lambda x, w: True)
+    for arch in all_arch_ids():
+        scfg = get_smoke_config(arch)
+        if scfg.layer_kind != "attn":
+            continue
+        cpu_params = init_params(scfg, 0, device="cpu")
+        rng = np.random.default_rng(0)
+        n_front = 16 if scfg.frontend == "vision" else 0
+        b = {k: rng.integers(0, scfg.vocab, (2, 64 - n_front)).astype(np.int32)
+             for k in ("tokens", "labels")}
+        if n_front:
+            b["frontend_embeds"] = rng.standard_normal((2, n_front, scfg.d_model)).astype(
+                np.float32)
+        what = f"train (b) {arch}"
+        lc, gc = _grad_leaves(cpu_params, scfg, b)
+        with k3_installed(stand_ins):
+            lg, gg = _grad_leaves(_tree_to(cpu_params, device), scfg, b)
+        errs = [max_err_within(lg.cpu(), lc, TOL["float32"], f"{what} loss")]
+        errs += [grad_err_within(g.cpu(), c, TOL["float32"], f"{what} gradient")
+                 for g, c in zip(gg, gc)]
+        # each leaf's largest difference over its largest value (recorded)
+        rec["card_vs_cpu_rel"][arch] = max(
+            float((g.cpu() - c).abs().max() / c.abs().max().clamp(min=1e-30))
+            for g, c in zip(gg, gc) if c.numel())
+        for opt in ("adamw", "adafactor"):
+            stp = make_train_step(scfg, optimizer=opt)
+            init_fn = opt_mod.OPTIMIZERS[opt][0]
+            pc, pg = _clone_tree(cpu_params), _tree_to(cpu_params, device)
+            pc, _, mc = stp(pc, init_fn(pc), b)
+            with k3_installed(stand_ins):
+                pg, _, mg = stp(pg, init_fn(pg), b)
+            errs += [max_err_within(mg[k].cpu(), mc[k], TOL["float32"], f"{what} {opt} {k}")
+                     for k in mc]
+            errs += [max_err_within(g.cpu(), c, TOL["float32"], f"{what} {opt} parameters")
+                     for g, c in zip(opt_mod.tree_leaves(pg), opt_mod.tree_leaves(pc))]
+        rec["card_vs_cpu"][arch] = max(errs)
+    bwd = [c for c in checks if c["call"] == "backward"]
+    split_t = [c for c in checks if c["call"] == "split3_bf16_t"]
+    launched = dict(k3.moe_gemm.launches)
+    plan = {"split3_bf16": 1, "split3_bf16_t": 2, "expert_split": 2}
+    if not bwd or any(c["launches"] != plan for c in bwd):
+        fail(f"train (b): backward launches {[c['launches'] for c in bwd]}, not {plan} each")
+    if len(split_t) != launched["split3_bf16_t"] or len(split_t) != 2 * len(bwd):
+        fail(f"train (b): {len(split_t)} split3_bf16_t checked of "
+             f"{launched['split3_bf16_t']} launched, {len(bwd)} backward calls")
+    rec["k3_checks_fp32"] = {"forward": sum(c["call"] == "forward" for c in checks),
+                             "backward": len(bwd), "split3_bf16_t": len(split_t),
+                             "launches": {k: v for k, v in launched.items() if v}}
+    print("train (b) card vs CPU", json.dumps(rec["card_vs_cpu"]),
+          json.dumps(rec["card_vs_cpu_rel"]), json.dumps(rec["k3_checks_fp32"]), flush=True)
+    rec["k3"].update(k3_split_grad_records(*operands["backward"], {
+        "split3_bf16_t": launched["split3_bf16_t"], "backward_calls": len(bwd)}))
+    for name in ("split3_bf16_t", "expert_split_dx", "expert_split_dw"):
+        print(f"train (b) K3 {name}", json.dumps(rec["k3"][name]), flush=True)
+    del operands
+    torch.cuda.empty_cache()
+    phase("training (b) card vs CPU", t0)
+
+    # (c) launch.train.main end to end: uninterrupted, a failure, a restart
+    argv = ["--arch", "internlm2-1.8b", "--smoke", "--steps", "8", "--ckpt-every", "2",
+            "--seq-len", "64", "--global-batch", "4", "--device", "cuda"]
+
+    def main_run(ckpt_dir, steps=None, injector=None, arch="internlm2-1.8b"):
+        args = list(argv) + ["--ckpt-dir", ckpt_dir]
+        args[args.index("--arch") + 1] = arch
+        if steps is not None:
+            args[args.index("--steps") + 1] = str(steps)
+        out = io.StringIO()
+        real_loop = train_mod.run_loop
+        if injector is not None:
+            train_mod.run_loop = functools.partial(run_loop, failure_injector=injector)
+        try:
+            with contextlib.redirect_stdout(out):
+                params = train_mod.main(args)
+        finally:
+            train_mod.run_loop = real_loop
+        done = [l for l in out.getvalue().splitlines() if l.startswith("done:")]
+        return params, done[-1]
+
+    crashed = {"done": False}
+
+    def injector(step):
+        if step == 5 and not crashed["done"]:
+            crashed["done"] = True
+            raise InjectedFailure("simulated node loss")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        want, done_a = main_run(f"{tmp}/a")
+        failed, done_b = main_run(f"{tmp}/b", injector=injector)
+        main_run(f"{tmp}/c", steps=5)
+        resumed, done_c = main_run(f"{tmp}/c")
+        # the MoE backward (K3's gradient, the dispatch gather's) resumed too
+        want_moe, done_d = main_run(f"{tmp}/d", arch=LM_ARCH)
+        main_run(f"{tmp}/e", steps=5, arch=LM_ARCH)
+        resumed_moe, done_e = main_run(f"{tmp}/e", arch=LM_ARCH)
+    if ("1 restarts" not in done_b or "0 restarts" not in done_a or "3 steps" not in done_c
+            or "3 steps" not in done_e):
+        fail(f"train (c): {done_a!r} / {done_b!r} / {done_c!r} / {done_e!r}")
+    leaves = lambda t: opt_mod.tree_leaves(t)
+    rec["resume"] = {"tol": RESUME_TOL, "runs": [done_a, done_b, done_c, done_d, done_e]}
+    for name, got, ref in (("injected_failure", failed, want), ("restart", resumed, want),
+                           ("restart_moe", resumed_moe, want_moe)):
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in
+                  zip(leaves(got), leaves(ref)))
+        rec["resume"][name] = err
+        if not err <= RESUME_TOL:
+            fail(f"train (c): {name} run off the uninterrupted one by {err}")
+    print("train (c) resume", json.dumps(rec["resume"]), flush=True)
+    phase("training (c) launch.train", t0)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a repository checkout")
@@ -2474,12 +3044,18 @@ def main() -> None:
     ranks = ranks_in_processes(handles, device, rng)
     phase("ranks in processes", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    train = training(device)
+    phase("training", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
         "serving": served, "summa_device": summa_device, "lm_serve": lm, "ranks": ranks,
+        "train": train,
     }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",
@@ -2502,6 +3078,15 @@ def main() -> None:
         ("moe_gemm/expert_wgmma@lm_decode", "moe_gemm.cu", k3, lm["k3"]["decode"]),
         ("bsr_spgemm/scalar_runs@ranks", "bsr_spgemm.cu", k1, ranks["k1"]),
         ("moe_gemm/expert_wgmma@ranks_ep", "moe_gemm.cu", k3, ranks["k3"]),
+        ("moe_gemm/expert_wgmma@train", "moe_gemm.cu", k3, train["k3"]["forward"]),
+        ("moe_gemm/expert_wgmma_dx@train", "moe_gemm.cu", k3, train["k3"]["dx"]),
+        ("moe_gemm/expert_wgmma_dw@train", "moe_gemm.cu", k3, train["k3"]["dw"]),
+        ("moe_gemm/split3_bf16_t@train_fp32", "moe_gemm.cu", k3,
+         train["k3"]["split3_bf16_t"]),
+        ("moe_gemm/expert_split@train_fp32_dx", "moe_gemm.cu", k3,
+         train["k3"]["expert_split_dx"]),
+        ("moe_gemm/expert_split@train_fp32_dw", "moe_gemm.cu", k3,
+         train["k3"]["expert_split_dw"]),
     ]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

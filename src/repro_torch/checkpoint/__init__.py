@@ -1,11 +1,14 @@
-"""The persistent plan store (``checkpoint/store.py``)."""
+"""Step checkpoints and the persistent plan store (``checkpoint/store.py``)."""
 from repro_torch.checkpoint.store import (
     PLAN_STORE_VERSION,
     PlanStoreError,
     RestoredPlan,
+    latest_step,
     list_plans,
     quarantine_plan,
+    restore_checkpoint,
     restore_plan,
+    save_checkpoint,
     save_plan,
 )
 
@@ -13,8 +16,11 @@ __all__ = [
     "PLAN_STORE_VERSION",
     "PlanStoreError",
     "RestoredPlan",
+    "latest_step",
     "list_plans",
     "quarantine_plan",
+    "restore_checkpoint",
     "restore_plan",
+    "save_checkpoint",
     "save_plan",
 ]

@@ -1,12 +1,23 @@
-"""Persistent plan store: atomic, versioned, crash-safe.
+"""Checkpointing and the persistent plan store: atomic, versioned,
+crash-safe.
 
-The plan-store half of ``repro.checkpoint.store`` (the port imports nothing
-of the JAX package), with the same on-disk format, so a plan either package
-stores restores in the other.  The training-checkpoint half waits for the
-port's model stack.
+The port of ``repro.checkpoint.store`` (the port imports nothing of the
+JAX package), with the same on-disk formats, so a step checkpoint or a plan
+either package writes restores in the other.
 
-Lowered ``ExecutionPlan`` objects are keyed by structure fingerprint and
-written as one ``arrays.npz`` (every ndarray field) plus a versioned
+**Step checkpoints** (``save_checkpoint``/``restore_checkpoint``): one
+``.npy`` a leaf of the state tree (tensors are brought to the host) and a
+``manifest.json`` with the tree's structure (``index`` and ``tree``).  A
+bf16 leaf is written as the reference writes one, its 2-byte values raw
+(numpy's ``V2``, written through ``int16``, so no ``ml_dtypes`` is
+needed), and a ``V2`` leaf is restored as ``torch.bfloat16`` with the same
+bits; the reference's own restore gives those leaves back as ``V2`` bytes.
+``restore_checkpoint`` returns tensors on the host, or on ``device``
+(where the reference takes ``shardings``).
+
+**Plan store** (``save_plan``/``restore_plan``): lowered ``ExecutionPlan``
+objects are keyed by structure fingerprint and written as one
+``arrays.npz`` (every ndarray field) plus a versioned
 ``manifest.json`` (scalar fields, route metadata, a sha256 over the array
 file).  A restarted session rebuilds its warm executor pool from here
 instead of re-partitioning and re-lowering the world.  Corrupt or
@@ -30,6 +41,7 @@ import re
 import shutil
 
 import numpy as np
+import torch
 
 PLAN_STORE_VERSION = 1
 _KEY_RE = re.compile(r"[A-Za-z0-9_-]+")
@@ -72,6 +84,143 @@ def _recover_prev(final: str) -> None:
         shutil.rmtree(prev, ignore_errors=True)
     else:
         os.rename(prev, final)
+
+
+# ---------------------------------------------------------------------------
+# pytree <-> flat arrays
+# ---------------------------------------------------------------------------
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in sorted(tree.items()):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = tree
+    return out
+
+
+def _unflatten(flat: dict, manifest):
+    if isinstance(manifest, dict) and manifest.get("__leaf__"):
+        return flat[manifest["key"]]
+    if isinstance(manifest, dict) and "__tuple__" in manifest:
+        return tuple(_unflatten(flat, v) for v in manifest["__tuple__"])
+    if isinstance(manifest, dict):
+        return {k: _unflatten(flat, v) for k, v in manifest.items()}
+    if isinstance(manifest, list):
+        return [_unflatten(flat, v) for v in manifest]
+    raise TypeError(type(manifest))
+
+
+def _manifest_of(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: _manifest_of(v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return {
+            "__tuple__": [_manifest_of(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+        }
+    if isinstance(tree, list):
+        return [_manifest_of(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return {"__leaf__": True, "key": prefix[:-1]}
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as the array ``np.save`` writes: tensors from any device; a
+    bf16 tensor as its raw 2-byte values (``V2``, the bytes the reference
+    writes for an ``ml_dtypes`` bfloat16 array)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.dtype("V2"))
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A loaded leaf as a tensor: ``V2`` (a bf16 leaf of either package)
+    as ``torch.bfloat16`` with the same bits."""
+    if not a.flags.c_contiguous:  # (np.ascontiguousarray makes 0-d arrays 1-d)
+        a = a.copy(order="C")
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t if device is None else t.to(device)
+
+
+# ---------------------------------------------------------------------------
+# step checkpoints
+# ---------------------------------------------------------------------------
+def save_checkpoint(ckpt_dir: str, step: int, state, keep_last: int = 3) -> str:
+    """Atomically write ``state`` (a tree of tensors or arrays) for ``step``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    tmp = os.path.join(ckpt_dir, f".tmp-{step}")
+    final = os.path.join(ckpt_dir, f"step_{step:012d}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    flat = _flatten(state)
+    index = {}
+    for key, arr in flat.items():
+        fname = key.replace("/", "__") + ".npy"
+        np.save(os.path.join(tmp, fname), _to_numpy(arr))
+        index[key] = fname
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(
+            {"step": step, "index": index, "tree": _manifest_of(state)}, f, indent=1
+        )
+    _commit_dir(tmp, final)
+    _gc(ckpt_dir, keep_last)
+    return final
+
+
+def _gc(ckpt_dir: str, keep_last: int):
+    steps = sorted(all_steps(ckpt_dir))
+    for s in steps[:-keep_last]:
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s:012d}"), ignore_errors=True)
+
+
+def all_steps(ckpt_dir: str) -> list[int]:
+    if not os.path.isdir(ckpt_dir):
+        return []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"step_(\d{12})\.prev", name)
+        if m:
+            _recover_prev(os.path.join(ckpt_dir, name[: -len(".prev")]))
+    out = []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"step_(\d{12})", name)
+        if m and os.path.exists(os.path.join(ckpt_dir, name, "manifest.json")):
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def latest_step(ckpt_dir: str) -> int | None:
+    steps = all_steps(ckpt_dir)
+    return steps[-1] if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, step: int | None = None, device=None):
+    """Load a checkpoint as ``(state, step)``: a tree of tensors on the host,
+    or on ``device`` (the reference's ``shardings``: the elastic-rescale
+    path, which here places the state on whatever device the restarted job
+    has)."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    d = os.path.join(ckpt_dir, f"step_{step:012d}")
+    _recover_prev(d)
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    device = None if device is None else torch.device(device)
+    flat = {
+        key: _to_tensor(np.load(os.path.join(d, fname)), device)
+        for key, fname in manifest["index"].items()
+    }
+    return _unflatten(flat, manifest["tree"]), step
 
 
 # ---------------------------------------------------------------------------

@@ -189,8 +189,10 @@ __device__ __forceinline__ void wgmma_wait() {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (+)= A (64 x 16, k-major) * B (16 x N, MN-major: imm-trans-b = 1), for
-// N = 64 and 256; the accumulators are overwritten where scale_d is 0.
+// d (+)= A (64 x 16) * B (16 x N), for N = 64 and 256, A and B from shared
+// memory: A k-major (imm-trans-a = kTA = 0) or MN-major (1), B k-major
+// (imm-trans-b = kTB = 0) or MN-major (1); the accumulators are overwritten
+// where scale_d is 0.
 // Accumulator i of thread (warp w, lane l) of the warpgroup is row
 // 16 w + l / 4 + 8 (i / 2 % 2), column 8 (i / 4) + 2 (l % 4) + i % 2.
 #define WGMMA_M64N64K16(TY)                                                               \
@@ -199,9 +201,9 @@ __device__ __forceinline__ void wgmma_wait() {
       "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY "\n"                        \
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"          \
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},\n" \
-      " %32, %33, p, 1, 1, 0, 1;\n}\n"                                                    \
+      " %32, %33, p, 1, 1, %35, %36;\n}\n"                                               \
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24)                                              \
-      : "l"(da), "l"(db), "r"(scale_d))
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB))
 
 #define WGMMA_M64N256K16(TY)                                                                                \
   asm volatile(                                                                                             \
@@ -215,10 +217,10 @@ __device__ __forceinline__ void wgmma_wait() {
       " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,\n"                  \
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,\n"      \
       " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},\n" \
-      " %128, %129, p, 1, 1, 0, 1;\n}\n"                                                                    \
+      " %128, %129, p, 1, 1, %131, %132;\n}\n"                                                              \
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56),                       \
         ACC8(64), ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)                   \
-      : "l"(da), "l"(db), "r"(scale_d))
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB))
 
 // d (+)= A (64 x 16, from registers: warp w holds rows 16 w to 16 w + 15 as
 // mma.m16n8k16's A fragment, as ldmatrix.x4 loads it) * B (16 x 128,
@@ -307,8 +309,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One wgmma m64nNk16 with T (bf16 or fp16) operands, N = 2 * (accumulators
-// per thread).
-template <typename T, int NACC>
+// per thread); kTA and kTB are the instruction's imm-trans-a and imm-trans-b
+// (1: the operand is MN-major in shared memory).
+template <typename T, int NACC, int kTA = 0, int kTB = 1>
 __device__ __forceinline__ void wgmma_k16(float (&d)[NACC], uint64_t da, uint64_t db,
                                           int scale_d) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;

@@ -16,8 +16,8 @@
 // 3.35 TB/s.  Two routes, picked by the wrapper before launch, and a stage
 // in front of the first for inputs its tensor maps cannot describe:
 //
-// expert_wgmma<T> (x and w both bf16 or both fp16): the tensor-core kernel
-// the bound asks for.
+// expert_wgmma<T, false, false> (x and w both bf16 or both fp16): the
+// tensor-core kernel the bound asks for.
 //   - Operands come by TMA from 3-D tensor maps, x as {d, C, E} and w as
 //     {f, d, E}, so a tile never reads across an expert and the ragged edges
 //     of C, d and f arrive zero-filled.  A stage holds a 128 x 64 tile of x
@@ -95,6 +95,26 @@
 // view; expert_tiles, the fp32 FMAs on the CUDA cores these inputs took
 // before, took 32.6 ms.
 //
+// The gradient (kernels/moe_gemm.py:GroupedGemm; the TPU kernel has none:
+// the reference trains its MoE through jnp.einsum, so these are held to
+// jax.grad of that einsum and to the plain version) is two more grouped
+// products a forward one:
+//     dx[e] = dy[e] @ w[e]^T   (E, C, f) x (E, f, d) -> (E, C, d)
+//     dw[e] = x[e]^T @ dy[e]   (E, d, C) x (E, C, f) -> (E, d, f)
+// expert_wgmma<T, kAMN, kBK> runs both on the operands as stored: for dx, w
+// is wgmma's k-major B (one 64 x 256 box a stage); for dw, x is its MN-major
+// A (two 64 x 64 boxes a stage, imm-trans-a), which wgmma takes from shared
+// memory for 16-bit types.  No transposed copy is made.  What bounds them:
+// bytes, at the training path's C = 320 (4 x 1024 tokens, top-8, capacity
+// 1.25) and Qwen3-MoE's width: each reads or writes the whole expert weight
+// (1.61 GB of 2.07 GB a product), 0.62 ms at 3.35 TB/s against 0.52 ms of
+// bf16 operations; dw's k is C = 320, five k-blocks a tile, so its tiles
+// are short and the epilogue's TMA stores (overlapped with the next tile's
+// loads) carry the weight-sized output.
+// fp32 and mixed gradients take split3_bf16 (dy) and split3_bf16_t (w for
+// dx, x for dw: the pieces written transposed, through a 32 x 32 tile in
+// shared memory) and then expert_split unchanged.
+//
 // The host side reaches libcuda's cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so the library links against the runtime alone.
 
@@ -130,26 +150,39 @@ constexpr int kWgSmem =
     kSwizzleAtom + kWgStages * (kABytes + kBBytes) + 2 * kOutBytes + 2 * kWgStages * 8;
 static_assert(kWgBN % kBox == 0 && kWgSmem <= 227 * 1024, "tile does not fit");
 
+// out[e] = A[e] @ B[e], (m, k) x (k, n) -> (m, n) for every expert e.
 // Block b walks tiles t = b, b + gridDim.x, ... of the n_experts x
-// ceil(C/128) x ceil(f/256) grid, expert-major, then row tile, then column
-// tile.
-template <typename T>
+// ceil(m/128) x ceil(n/256) grid, expert-major, then row tile, then column
+// tile.  The layout parameters say how A and B are stored:
+//   - forward, out = x @ w (kAMN = kBK = false): A = x (E, C, d) k-major,
+//     B = w (E, d, f) MN-major; m = C, k = d, n = f.
+//   - dx = dy @ w^T (kBK): A = dy (E, C, f) k-major, B = w read as stored,
+//     (E, d, f) = (E, n, k): k-major B, wgmma's imm-trans-b = 0, one 64 x 256
+//     box a stage; m = C, k = f, n = d.
+//   - dw = x^T @ dy (kAMN): A = x read as stored, (E, C, d) = (E, k, m):
+//     MN-major A, imm-trans-a = 1 (16-bit operands from shared memory take
+//     either), two 64 x 64 boxes a stage, one a consumer; B = dy (E, C, f)
+//     MN-major as in the forward; m = d, k = C, n = f.
+// No operand is copied transposed: the tensor maps' box order and the
+// descriptors' major-ness change, and the tiles, the ring, the walk and the
+// epilogue stay the forward's.
+template <typename T, bool kAMN, bool kBK>
 __global__ void __launch_bounds__(kWgThreads, 1)
-    expert_wgmma(const __grid_constant__ CUtensorMap x_map,
-                 const __grid_constant__ CUtensorMap w_map,
-                 const __grid_constant__ CUtensorMap out_map, int n_experts, int c, int d,
-                 int f) {
+    expert_wgmma(const __grid_constant__ CUtensorMap a_map,
+                 const __grid_constant__ CUtensorMap b_map,
+                 const __grid_constant__ CUtensorMap out_map, int n_experts, int m, int k,
+                 int n) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + kSwizzleAtom - 1) & ~uint32_t(kSwizzleAtom - 1);
-  const uint32_t a_smem = base;                          // stages of x: 128 rows x 128 bytes
-  const uint32_t b_smem = a_smem + kWgStages * kABytes;  // stages of w: 4 boxes of 64 x 128 B
+  const uint32_t a_smem = base;                          // stages of A: 128 rows x 128 bytes
+  const uint32_t b_smem = a_smem + kWgStages * kABytes;  // stages of B: 4 boxes of 64 x 128 B
   const uint32_t o_smem = b_smem + kWgStages * kBBytes;  // per consumer: 4 boxes of 64 x 128 B
   const uint32_t full = o_smem + 2 * kOutBytes;          // one mbarrier per stage
   const uint32_t empty = full + kWgStages * 8;
-  const int n_tiles = (f + kWgBN - 1) / kWgBN;
-  const int per_expert = ((c + kWgBM - 1) / kWgBM) * n_tiles;
+  const int n_tiles = (n + kWgBN - 1) / kWgBN;
+  const int per_expert = ((m + kWgBM - 1) / kWgBM) * n_tiles;
   const int n_work = n_experts * per_expert;
-  const int k_blocks = (d + kWgBK - 1) / kWgBK;
+  const int k_blocks = (k + kWgBK - 1) / kWgBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWgStages; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -172,11 +205,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           mbar_wait(empty + 8 * stage, phase ^ 1);
           const uint32_t bar = full + 8 * stage;
           mbar_expect_tx(bar, kABytes + kBBytes);  // whole boxes, zero fill included
-          tma_load_3d(a_smem + stage * kABytes, &x_map, bar, kb * kWgBK, m0, e);
+          const uint32_t a_st = a_smem + stage * kABytes, b_st = b_smem + stage * kBBytes;
+          if constexpr (kAMN) {  // 64 m x 64 k boxes, m contiguous: one a consumer
+            tma_load_3d(a_st, &a_map, bar, m0, kb * kWgBK, e);
+            tma_load_3d(a_st + kBoxBytes, &a_map, bar, m0 + kBox, kb * kWgBK, e);
+          } else {  // one 64 k x 128 m box, k contiguous
+            tma_load_3d(a_st, &a_map, bar, kb * kWgBK, m0, e);
+          }
+          if constexpr (kBK) {  // one 64 k x 256 n box, k contiguous
+            tma_load_3d(b_st, &b_map, bar, kb * kWgBK, n0, e);
+          } else {  // four 64 n x 64 k boxes, n contiguous
 #pragma unroll
-          for (int j = 0; j < kWgBN / kBox; ++j) {
-            tma_load_3d(b_smem + stage * kBBytes + j * kBoxBytes, &w_map, bar, n0 + j * kBox,
-                        kb * kWgBK, e);
+            for (int j = 0; j < kWgBN / kBox; ++j) {
+              tma_load_3d(b_st + j * kBoxBytes, &b_map, bar, n0 + j * kBox, kb * kWgBK, e);
+            }
           }
           if (++stage == kWgStages) {
             stage = 0;
@@ -201,17 +243,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       int held = -1;  // the stage the previous k-block's wgmma group still reads
       for (int kb = 0; kb < k_blocks; ++kb) {
         mbar_wait(full + 8 * stage, phase);
-        const uint32_t a = a_smem + stage * kABytes + cw * (64 * 128);
+        // this warpgroup's 64 rows: 8 KB on in either layout of A
+        const uint32_t a = a_smem + stage * kABytes + cw * kBoxBytes;
         const uint32_t b = b_smem + stage * kBBytes;
         fence_acc(acc);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < kWgBK / 16; ++kk) {
-          // A: k-major, 8-row groups 1024 B apart, 16 k = 32 B further per step.
-          // B: MN-major, 64-column boxes kBoxBytes apart, 8-row (k) groups
-          // 1024 B apart, 16 k = 16 rows = 2048 B further per step.
-          wgmma_k16<T, kWgBN / 2>(acc, smem_desc(a + kk * 32, 16, 1024),
-                       smem_desc(b + kk * 2048, kBoxBytes, 1024), kb > 0 || kk > 0);
+          // k-major: rows of 128 B (64 k), 8-row groups 1024 B apart, 16 k =
+          // 32 B further per step.  MN-major: 64-column (m or n) boxes
+          // kBoxBytes apart, 8-row (k) groups 1024 B apart, 16 k = 16 rows =
+          // 2048 B further per step.
+          const uint64_t da = kAMN ? smem_desc(a + kk * 2048, kBoxBytes, 1024)
+                                   : smem_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = kBK ? smem_desc(b + kk * 32, 16, 1024)
+                                  : smem_desc(b + kk * 2048, kBoxBytes, 1024);
+          wgmma_k16<T, kWgBN / 2, kAMN ? 1 : 0, kBK ? 0 : 1>(acc, da, db, kb > 0 || kk > 0);
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         fence_acc(acc);
@@ -309,6 +356,41 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
   for (int64_t i = 4 * n_vec + first; i < n; i += stride) {
     split3(src[i], dst[i], dst[n + i], dst[2 * n + i]);
+  }
+}
+
+// src holds batch x rows x cols values; dst three pieces of batch x cols x
+// pitch, one after another: dst[k n + (b cols + c) pitch + r] = piece k of
+// src[(b rows + r) cols + c] (split3) for r < rows, and 0 for rows <= r <
+// pitch, with n = batch cols pitch.  split3_bf16 with the last two axes
+// swapped on the way: the fp32 gradient products' operand that wgmma would
+// read transposed (w for dx = dy w^T, x for dw = x^T dy) is written as
+// pieces in the layout expert_split reads, so expert_split runs unchanged.
+// Bound by bytes, like split3_bf16 (4 read and 6 written a value): each
+// block moves a 32 x 32 tile through shared memory (padded a column
+// against bank conflicts), so both the reads and the writes run along
+// contiguous rows.
+__global__ void __launch_bounds__(kSplitThreads)
+    split3_bf16_t(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, int rows,
+                  int cols, int pitch) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32, b = blockIdx.z;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;  // 8 rows of 32 threads
+  const float* s = src + static_cast<int64_t>(b) * rows * cols;
+#pragma unroll
+  for (int i = ty; i < 32; i += kSplitThreads / 32) {
+    const int r = r0 + i, c = c0 + tx;
+    tile[i][tx] = r < rows && c < cols ? s[static_cast<int64_t>(r) * cols + c] : 0.f;
+  }
+  __syncthreads();
+  const int64_t n = static_cast<int64_t>(gridDim.z) * cols * pitch;
+#pragma unroll
+  for (int i = ty; i < 32; i += kSplitThreads / 32) {
+    const int c = c0 + i, r = r0 + tx;
+    if (c < cols && r < pitch) {
+      const int64_t o = (static_cast<int64_t>(b) * cols + c) * pitch + r;
+      split3(tile[tx][i], dst[o], dst[n + o], dst[2 * n + o]);
+    }
   }
 }
 
@@ -596,29 +678,45 @@ bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T>
-cudaError_t launch_wgmma(const void* x, const void* w, void* out, int e, int c, int d, int f,
-                         int xp, int wp, int op, CUtensorMapDataType type, cudaStream_t stream) {
-  const int64_t work = static_cast<int64_t>(e) * ((c + kWgBM - 1) / kWgBM) *
-                       ((f + kWgBN - 1) / kWgBN);
+// A (E, m, k) k-major or (E, k, m) MN-major (kAMN), B (E, k, n) MN-major or
+// (E, n, k) k-major (kBK), out (E, m, n); ap, bp, op are their row pitches.
+template <typename T, bool kAMN, bool kBK>
+cudaError_t launch_wgmma(const void* a, const void* b, void* out, int e, int m, int k, int n,
+                         int ap, int bp, int op, CUtensorMapDataType type, cudaStream_t stream) {
+  const int64_t work = static_cast<int64_t>(e) * ((m + kWgBM - 1) / kWgBM) *
+                       ((n + kWgBN - 1) / kWgBN);
   if (work > INT_MAX) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
-  CUtensorMap x_map, w_map, out_map;
-  if (!encode_3d(&x_map, type, x, d, c, e, kWgBM, xp) ||   // boxes of 128 rows x 64 d
-      !encode_3d(&w_map, type, w, f, d, e, kWgBK, wp) ||   // boxes of 64 d x 64 f
-      !encode_3d(&out_map, type, out, f, c, e, 64, op)) {  // boxes of 64 rows x 64 f
+  CUtensorMap a_map, b_map, out_map;
+  const bool a_ok = kAMN ? encode_3d(&a_map, type, a, m, k, e, kBox, ap)     // 64 k x 64 m
+                         : encode_3d(&a_map, type, a, k, m, e, kWgBM, ap);   // 128 m x 64 k
+  const bool b_ok = kBK ? encode_3d(&b_map, type, b, k, n, e, kWgBN, bp)     // 256 n x 64 k
+                        : encode_3d(&b_map, type, b, n, k, e, kWgBK, bp);    // 64 k x 64 n
+  if (!a_ok || !b_ok || !encode_3d(&out_map, type, out, n, m, e, 64, op)) {  // 64 m x 64 n
     return cudaErrorInvalidValue;
   }
   // set on every launch, not once: the attribute belongs to the current
   // device's context, and a process may launch on more than one card
-  cudaError_t err = cudaFuncSetAttribute(expert_wgmma<T>,
+  cudaError_t err = cudaFuncSetAttribute(expert_wgmma<T, kAMN, kBK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   int sms = 0;
   if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int grid = static_cast<int>(work < sms ? work : sms);
-  expert_wgmma<T><<<grid, kWgThreads, kWgSmem, stream>>>(x_map, w_map, out_map, e, c, d, f);
+  expert_wgmma<T, kAMN, kBK><<<grid, kWgThreads, kWgSmem, stream>>>(a_map, b_map, out_map, e,
+                                                                     m, k, n);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wgmma_layout(int layout, const void* a, const void* b, void* out, int e,
+                                int m, int k, int n, int ap, int bp, int op,
+                                CUtensorMapDataType type, cudaStream_t stream) {
+  switch (layout) {
+    case 0: return launch_wgmma<T, false, false>(a, b, out, e, m, k, n, ap, bp, op, type, stream);
+    case 1: return launch_wgmma<T, false, true>(a, b, out, e, m, k, n, ap, bp, op, type, stream);
+    default: return launch_wgmma<T, true, false>(a, b, out, e, m, k, n, ap, bp, op, type, stream);
+  }
 }
 
 template <typename TO>
@@ -655,26 +753,31 @@ cudaError_t launch_split(const void* xp, const void* wp, void* out, int e, int c
 // aligned: a tensor map's base and strides are multiples of 16 bytes.
 static bool pitch_ok(int pitch, int extent) { return pitch % 8 == 0 && pitch >= extent; }
 
-// expert_wgmma.  x: (E, C, x_pitch), w: (E, d, w_pitch), out: (E, C,
-// out_pitch), of which the first d, f and f values of a row are read or
-// written; in_dtype (x and w) and out_dtype both 1 = bfloat16 or both
-// 2 = float16; d > 0.
-extern "C" int repro_moe_gemm_wgmma(const void* x, const void* w, void* out, int e, int c,
-                                    int d, int f, int x_pitch, int w_pitch, int out_pitch,
-                                    int in_dtype, int out_dtype, void* stream) {
-  if (e < 0 || c < 0 || d <= 0 || f < 0 || !pitch_ok(x_pitch, d) || !pitch_ok(w_pitch, f) ||
-      !pitch_ok(out_pitch, f) || (in_dtype != 1 && in_dtype != 2) || out_dtype != in_dtype ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+// expert_wgmma: out[e] = A[e] @ B[e], (m, k) x (k, n) -> (m, n).  layout
+// 0: A (E, m, a_pitch) and B (E, k, b_pitch) (the forward, x @ w); 1: B
+// (E, n, b_pitch), read k-major (dx = dy @ w^T); 2: A (E, k, a_pitch), read
+// MN-major (dw = x^T @ dy).  out: (E, m, out_pitch).  Of each row the first
+// k, m or n values are read or written; in_dtype (A and B) and out_dtype
+// both 1 = bfloat16 or both 2 = float16; k > 0.
+extern "C" int repro_moe_gemm_wgmma(const void* a, const void* b, void* out, int e, int m,
+                                    int k, int n, int a_pitch, int b_pitch, int out_pitch,
+                                    int in_dtype, int out_dtype, int layout, void* stream) {
+  const int a_row = layout == 2 ? m : k, b_row = layout == 1 ? k : n;
+  if (e < 0 || m < 0 || k <= 0 || n < 0 || layout < 0 || layout > 2 ||
+      !pitch_ok(a_pitch, a_row) || !pitch_ok(b_pitch, b_row) || !pitch_ok(out_pitch, n) ||
+      (in_dtype != 1 && in_dtype != 2) || out_dtype != in_dtype ||
+      reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (e == 0 || c == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+  if (e == 0 || m == 0 || n == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      in_dtype == 1 ? launch_wgmma<__nv_bfloat16>(x, w, out, e, c, d, f, x_pitch, w_pitch,
-                                                  out_pitch, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
-                    : launch_wgmma<__half>(x, w, out, e, c, d, f, x_pitch, w_pitch, out_pitch,
-                                           CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
+      in_dtype == 1
+          ? launch_wgmma_layout<__nv_bfloat16>(layout, a, b, out, e, m, k, n, a_pitch, b_pitch,
+                                               out_pitch, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
+          : launch_wgmma_layout<__half>(layout, a, b, out, e, m, k, n, a_pitch, b_pitch,
+                                        out_pitch, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
 }
 
 
@@ -691,6 +794,23 @@ extern "C" int repro_split3_bf16(const void* src, void* dst, long long rows, int
     const long long blocks = (n / 4 + kSplitThreads - 1) / kSplitThreads + 1;
     const int grid = static_cast<int>(blocks < 4096 ? blocks : 4096);  // then grid-stride
     split3_bf16<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(src), static_cast<__nv_bfloat16*>(dst), rows, cols, pitch);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// split3_bf16_t.  src: batch x rows x cols float32 values; dst: 3 x batch x
+// cols x pitch bfloat16, the pieces transposed (split3_bf16_t above);
+// pitch >= rows.
+extern "C" int repro_split3_bf16_t(const void* src, void* dst, int batch, int rows, int cols,
+                                   int pitch, void* stream) {
+  if (batch < 0 || rows < 0 || cols < 0 || pitch < rows || batch > 65535 ||
+      cols / 32 >= 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (batch > 0 && cols > 0 && pitch > 0) {
+    const dim3 grid((pitch + 31) / 32, (cols + 31) / 32, batch);
+    split3_bf16_t<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(src), static_cast<__nv_bfloat16*>(dst), rows, cols, pitch);
   }
   return static_cast<int>(cudaGetLastError());

@@ -7,6 +7,14 @@ tensors run the plain version (``kernels.ref.moe_gemm_ref``); CUDA tensors
 launch the kernels of ``csrc/moe_gemm.cu`` that ``launch_plan`` names (the
 GEMM ``route`` picks, and the copies that give its operands the layout a
 tensor map takes), or raise ``KernelError``.
+
+``GroupedGemm`` is ``moe_gemm`` with a gradient: its backward
+(``moe_gemm_backward``) is two more grouped products on the card, ``dx =
+dy @ wᵀ`` and ``dw = xᵀ @ dy``, launched on the operands as stored
+(``grad_launch_plan(x, w, dy)`` lists them); on the CPU it runs the plain
+version on the transposed operands.  The TPU kernel has no gradient (the
+reference trains its MoE through ``jnp.einsum``), so this one is held to
+``jax.grad`` of that einsum.
 """
 from __future__ import annotations
 
@@ -16,25 +24,38 @@ import functools
 import torch
 
 from repro_torch.kernels._build import DTYPE_CODE, KernelError, check_inputs, load
-from repro_torch.kernels.ref import moe_gemm_ref, split3_bf16_ref, stage16_ref
+from repro_torch.kernels.ref import (
+    moe_gemm_grad_ref,
+    moe_gemm_ref,
+    split3_bf16_ref,
+    split3_bf16_t_ref,
+    stage16_ref,
+)
 
 # the types expert_wgmma multiplies on the tensor cores; their products are
 # exact in its fp32 accumulators, as in the reference's fp32 dot
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# the C entry point of each __global__ in csrc/moe_gemm.cu, and its arguments
+# (A, B, out, E, m, k, n, A pitch, B pitch, out pitch, in dtype code,
+#  out dtype code, layout, stream)
+_WGMMA = ("repro_moe_gemm_wgmma", [_PTR] * 3 + [_INT] * 10 + [_PTR])
+# the C entry point of each __global__ in csrc/moe_gemm.cu (expert_wgmma once
+# for each of its operand layouts), and its arguments
 _ENTRY = {
-    # (x, w, out, E, C, d, f, x pitch, w pitch, out pitch, in dtype code,
-    #  out dtype code, stream)
-    "expert_wgmma": ("repro_moe_gemm_wgmma", [_PTR] * 3 + [_INT] * 9 + [_PTR]),
+    "expert_wgmma": _WGMMA,  # layout 0: x @ w
+    "expert_wgmma_dx": _WGMMA,  # layout 1: dy @ wᵀ, w read k-major
+    "expert_wgmma_dw": _WGMMA,  # layout 2: xᵀ @ dy, x read MN-major
     # (x pieces, w pieces, out, E, C, d, f, x pitch, w pitch, out dtype code, stream)
     "expert_split": ("repro_moe_gemm_split", [_PTR] * 3 + [_INT] * 7 + [_PTR]),
     # (src, dst, rows, cols, pitch, stream)
     "split3_bf16": ("repro_split3_bf16", [_PTR, _PTR, ctypes.c_longlong, _INT, _INT, _PTR]),
+    # (src, dst, batch, rows, cols, pitch, stream)
+    "split3_bf16_t": ("repro_split3_bf16_t", [_PTR, _PTR] + [_INT] * 4 + [_PTR]),
     # (src, dst, rows, src pitch, dst pitch, stream)
     "stage16": ("repro_stage16", [_PTR, _PTR, ctypes.c_longlong, _INT, _INT, _PTR]),
 }
+_LAYOUT = {"expert_wgmma": 0, "expert_wgmma_dx": 1, "expert_wgmma_dw": 2}
 
 
 @functools.cache
@@ -52,7 +73,7 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
         err = _kernel(kernel)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise KernelError(f"moe_gemm kernel {kernel} launch failed: CUDA error {err}")
-    moe_gemm.launches[kernel] += 1
+    _LAUNCHES[kernel] += 1
 
 
 def _pitch(n: int) -> int:
@@ -87,6 +108,13 @@ def _needs_stage(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 != 0 or t.shape[-1] % 8 != 0
 
 
+def _grad_route(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> str:
+    """``route`` for the backward: the 16-bit kernels when dy shares x's and
+    w's 16-bit type, else the split products."""
+    return "expert_wgmma" if route(x, w) == "expert_wgmma" and dy.dtype == x.dtype else (
+        "expert_split")
+
+
 def launch_plan(x: torch.Tensor, w: torch.Tensor) -> dict[str, int]:
     """The launches ``moe_gemm(x, w)`` makes on the card, by kernel: the
     GEMM ``route`` names, and its copies.  ``expert_split`` takes two
@@ -94,7 +122,7 @@ def launch_plan(x: torch.Tensor, w: torch.Tensor) -> dict[str, int]:
     for each of x and w that ``_needs_stage``, and one more that copies the
     output's f columns out of a pitched buffer when f is off 8.  Empty
     results launch nothing."""
-    E, C, _ = x.shape
+    E, C, d = x.shape
     f = w.shape[-1]
     if E * C * f == 0:
         return {}
@@ -103,6 +131,27 @@ def launch_plan(x: torch.Tensor, w: torch.Tensor) -> dict[str, int]:
         return {"split3_bf16": 2, kernel: 1}
     stages = _needs_stage(x) + _needs_stage(w) + (f % 8 != 0)
     return {"stage16": stages, kernel: 1} if stages else {kernel: 1}
+
+
+def grad_launch_plan(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor) -> dict[str, int]:
+    """The launches ``moe_gemm_backward(x, w, dy)`` makes on the card, by
+    kernel, for a contiguous ``dy`` (as it makes it): on the 16-bit route
+    ``expert_wgmma_dx`` and ``expert_wgmma_dw`` and a ``stage16`` for each of
+    dy, w and x that ``_needs_stage`` (dy once, for both) and for each
+    output cropped from a pitched buffer (dx with d off 8, dw with f off 8);
+    on the split route ``split3_bf16`` (dy, once for both), two
+    ``split3_bf16_t`` (w for dx, x for dw) and two ``expert_split``.  Empty
+    operands launch nothing."""
+    E, C, d = x.shape
+    f = w.shape[-1]
+    if min(E, C, d, f) == 0:
+        return {}
+    if _grad_route(x, w, dy) == "expert_split":
+        return {"split3_bf16": 1, "split3_bf16_t": 2, "expert_split": 2}
+    stages = (_needs_stage(dy) + _needs_stage(w) + _needs_stage(x) + (d % 8 != 0)
+              + (f % 8 != 0))
+    plan = {"expert_wgmma_dx": 1, "expert_wgmma_dw": 1}
+    return {"stage16": stages, **plan} if stages else plan
 
 
 def split3_bf16(x: torch.Tensor, pitch: int | None = None) -> torch.Tensor:
@@ -124,6 +173,29 @@ def split3_bf16(x: torch.Tensor, pitch: int | None = None) -> torch.Tensor:
     pieces = torch.empty((3, *x.shape[:-1], pitch), dtype=torch.bfloat16, device=x.device)
     rows = x.numel() // cols if cols else 0
     _launch("split3_bf16", x.device, x.data_ptr(), pieces.data_ptr(), rows, cols, pitch)
+    return pieces
+
+
+def split3_bf16_t(x: torch.Tensor, pitch: int) -> torch.Tensor:
+    """fp32 ``x`` (..., rows, cols) as the three bf16 pieces of its
+    transpose, (3, ..., cols, pitch): ``split3_bf16`` of
+    ``x.transpose(-1, -2)`` with rows padded with zeros to ``pitch``, in one
+    pass.
+
+    CPU tensors run the plain version (``ref.split3_bf16_t_ref``); CUDA
+    tensors launch ``csrc/moe_gemm.cu``'s ``split3_bf16_t`` (adding one to
+    ``moe_gemm.launches["split3_bf16_t"]``) or raise."""
+    rows, cols = x.shape[-2:]
+    if pitch < rows:
+        raise ValueError(f"pitch {pitch} is narrower than the transposed rows ({rows})")
+    if x.device.type == "cpu":
+        return split3_bf16_t_ref(x, pitch)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise KernelError(f"split3_bf16_t takes a contiguous float32 tensor, not {x.dtype}")
+    lead = x.shape[:-2]
+    pieces = torch.empty((3, *lead, cols, pitch), dtype=torch.bfloat16, device=x.device)
+    batch = x.numel() // (rows * cols) if rows * cols else 0
+    _launch("split3_bf16_t", x.device, x.data_ptr(), pieces.data_ptr(), batch, rows, cols, pitch)
     return pieces
 
 
@@ -197,12 +269,99 @@ def moe_gemm(
         w = stage16(w, _pitch(f))
     # with f off 8 the output's rows are written at a pitch the map takes,
     # then copied out to their f columns
-    out = torch.empty((E, C, _pitch(f)), dtype=x.dtype, device=device)
-    code = DTYPE_CODE[x.dtype]
-    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, d, f)
-    _launch(kernel, device, *args, x.shape[-1], w.shape[-1], out.shape[-1], code, code)
-    return out if f % 8 == 0 else stage16(out, f)
+    return _wgmma("expert_wgmma", x, w, C, d, f)
 
 
-# launches since the last reset, per __global__ of csrc/moe_gemm.cu
-moe_gemm.launches = {name: 0 for name in _ENTRY}
+def _wgmma(kernel: str, a: torch.Tensor, b: torch.Tensor, m: int, k: int, n: int) -> torch.Tensor:
+    """One ``expert_wgmma`` launch in ``kernel``'s operand layout on aligned,
+    pitched 16-bit operands; the (E, m, n) result, cropped from a pitched
+    buffer by ``stage16`` where n is off 8."""
+    out = torch.empty((a.shape[0], m, _pitch(n)), dtype=a.dtype, device=a.device)
+    code = DTYPE_CODE[a.dtype]
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], m, k, n)
+    _launch(kernel, a.device, *args, a.shape[-1], b.shape[-1], out.shape[-1], code, code,
+            _LAYOUT[kernel])
+    return out if n % 8 == 0 else stage16(out, n)
+
+
+def moe_gemm_backward(
+    x: torch.Tensor,  # (E, C, d)
+    w: torch.Tensor,  # (E, d, f)
+    dy: torch.Tensor,  # (E, C, f), the gradient of moe_gemm(x, w)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw) = (dy @ wᵀ, xᵀ @ dy)`` per expert, summed in fp32, dx in
+    ``x.dtype`` and dw in ``w.dtype``.
+
+    CPU tensors run the plain version (``ref.moe_gemm_grad_ref``).  On the
+    card a non-contiguous ``dy`` is first copied contiguous (counted in
+    ``GroupedGemm.dy_copies``), then the launches
+    ``grad_launch_plan(x, w, dy)`` names run: 16-bit x, w and dy of one
+    type take ``expert_wgmma`` in its two gradient layouts, reading w and x
+    as stored; anything else meets at fp32 and takes the split products,
+    the operand read transposed split transposed by ``split3_bf16_t``.  A
+    failed launch raises ``KernelError``."""
+    E, C, d = x.shape
+    f = w.shape[-1]
+    if dy.shape != (E, C, f):
+        raise ValueError(f"dy is {tuple(dy.shape)}, not {(E, C, f)}")
+    device = x.device
+    if device.type == "cpu":
+        return moe_gemm_grad_ref(x, w, dy)
+    if w.device != device or dy.device != device:
+        raise ValueError(f"x is on {device}, w on {w.device}, dy on {dy.device}")
+    if not dy.is_contiguous():
+        dy = dy.contiguous()
+        GroupedGemm.dy_copies += 1
+    check_inputs([("x", x), ("w", w), ("dy", dy)], [])
+    if min(E, C, d, f) == 0:
+        return (torch.zeros((E, C, d), dtype=x.dtype, device=device),
+                torch.zeros((E, d, f), dtype=w.dtype, device=device))
+    if _grad_route(x, w, dy) == "expert_split":
+        pd, pf, pc = _pitch(d), _pitch(f), _pitch(C)
+        dy_pieces = split3_bf16(dy.float(), pf)  # dx's A and dw's B
+        wt_pieces = split3_bf16_t(w.float(), pd)  # dx's B: (E, f, d)
+        xt_pieces = split3_bf16_t(x.float(), pc)  # dw's A: (E, d, C)
+        dx = torch.empty((E, C, d), dtype=x.dtype, device=device)
+        dw = torch.empty((E, d, f), dtype=w.dtype, device=device)
+        _launch("expert_split", device, dy_pieces.data_ptr(), wt_pieces.data_ptr(),
+                dx.data_ptr(), E, C, f, d, pf, pd, DTYPE_CODE[dx.dtype])
+        _launch("expert_split", device, xt_pieces.data_ptr(), dy_pieces.data_ptr(),
+                dw.data_ptr(), E, d, C, f, pc, pf, DTYPE_CODE[dw.dtype])
+        return dx, dw
+    if _needs_stage(dy):
+        dy = stage16(dy, _pitch(f))
+    if _needs_stage(w):
+        w = stage16(w, _pitch(f))
+    if _needs_stage(x):
+        x = stage16(x, _pitch(d))
+    dx = _wgmma("expert_wgmma_dx", dy, w, C, f, d)  # m = C, k = f, n = d
+    dw = _wgmma("expert_wgmma_dw", x, dy, d, C, f)  # m = d, k = C, n = f
+    return dx, dw
+
+
+class GroupedGemm(torch.autograd.Function):
+    """``moe_gemm`` with a gradient: ``GroupedGemm.apply(x, w)`` launches
+    what ``moe_gemm(x, w)`` launches (under ``torch.no_grad`` too, so
+    serving is unchanged), and its backward is ``moe_gemm_backward``: two
+    more grouped products on the card, or their plain version on the CPU.
+    Tiles as ``moe_gemm``'s (``apply(x, w, b_c, b_f, b_d)``)."""
+
+    dy_copies = 0  # non-contiguous incoming gradients copied before a launch
+
+    @staticmethod
+    def forward(ctx, x, w, b_c=128, b_f=128, b_d=512):
+        ctx.save_for_backward(x, w)
+        return moe_gemm(x, w, b_c, b_f, b_d)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = moe_gemm_backward(x, w, dy)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if ctx.needs_input_grad[1] else None, None, None, None)
+
+
+# launches since the last reset, per __global__ of csrc/moe_gemm.cu (and
+# per operand layout of expert_wgmma); one dict, whatever stands in for
+# moe_gemm in a caller's hooks
+_LAUNCHES = moe_gemm.launches = {name: 0 for name in _ENTRY}

@@ -83,6 +83,21 @@ def moe_gemm_ref(
     return torch.einsum("ecd,edf->ecf", x.to(acc_dtype), w.to(acc_dtype)).to(x.dtype)
 
 
+def moe_gemm_grad_ref(
+    x: torch.Tensor,  # (E, C, d)
+    w: torch.Tensor,  # (E, d, f)
+    dy: torch.Tensor,  # (E, C, f)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of ``moe_gemm_ref(x, w)`` at ``dy``: ``dx = dy @ wᵀ``
+    in ``x.dtype`` and ``dw = xᵀ @ dy`` in ``w.dtype``, each summed in fp32
+    (or wider) and rounded once: ``moe_gemm_ref`` on the transposed
+    operands.  The plain version of ``kernels.moe_gemm.moe_gemm_backward``."""
+    wide = torch.promote_types(x.dtype, w.dtype)  # the type the one rounding is from
+    dx = moe_gemm_ref(dy.to(torch.promote_types(wide, dy.dtype)), w.transpose(1, 2))
+    dw = moe_gemm_ref(x.transpose(1, 2).to(wide), dy)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
 def split3_bf16_ref(x: torch.Tensor, pitch: int | None = None) -> torch.Tensor:
     """fp32 ``x`` as three bf16 pieces, (3, *x.shape): ``x0 = bf16(x)``,
     ``x1 = bf16(x - x0)``, ``x2 = bf16(x - x0 - x1)``, each rounded to
@@ -109,3 +124,11 @@ def stage16_ref(x: torch.Tensor, pitch: int) -> torch.Tensor:
     if pitch <= cols:
         return x[..., :pitch].clone(memory_format=torch.contiguous_format)
     return torch.nn.functional.pad(x, (0, pitch - cols))
+
+
+def split3_bf16_t_ref(x: torch.Tensor, pitch: int) -> torch.Tensor:
+    """The three bf16 pieces of ``x.transpose(-1, -2)``, rows padded with
+    zeros to ``pitch``: (3, ..., cols, pitch).  The split is elementwise, so
+    this is ``split3_bf16_ref`` of the transposed copy.  The plain version
+    of ``csrc/moe_gemm.cu``'s ``split3_bf16_t``."""
+    return split3_bf16_ref(x.transpose(-1, -2).contiguous(), pitch)

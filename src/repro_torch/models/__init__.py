@@ -1,12 +1,12 @@
 """Model stack (the port of ``repro.models``): the attention-family decoder
-— init, prefill forward, decode step, KV cache — on one device.  The
-reference's ``train_loss`` waits for the training slice (ROADMAP.md Queue 1
-item 3)."""
+— init, forward (with activation checkpointing), ``train_loss``, decode
+step, KV cache — on one device."""
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.transformer import (
     init_params,
     init_kv_cache,
     forward,
+    train_loss,
     decode_step,
     param_count,
     active_param_count,
@@ -18,6 +18,7 @@ __all__ = [
     "init_params",
     "init_kv_cache",
     "forward",
+    "train_loss",
     "decode_step",
     "param_count",
     "active_param_count",

@@ -6,9 +6,10 @@ modality frontends (VLM / audio: the backbone consumes precomputed
 frame/patch embeddings through ``input_specs``).
 
 A copy of ``repro.models.config``: every field is kept.  ``scan_unroll``,
-``remat_policy``, ``seq_shard_residual``, ``gather_weights`` and
-``kv_shard_mode`` are the reference's sharding and compile settings; they
-do not change results on one card, and the port accepts and ignores them.
+``seq_shard_residual``, ``gather_weights`` and ``kv_shard_mode`` are the
+reference's sharding and compile settings; they do not change results on
+one card, and the port accepts and ignores them.  ``remat_policy`` picks
+``forward``'s activation checkpointing, as in the reference.
 The port runs ``layer_kind="attn"``; ``"mamba"`` and ``"hybrid"`` layers
 raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 4).
 """

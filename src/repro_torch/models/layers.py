@@ -6,9 +6,12 @@ capacity-dropping MoE layer.
 Plain functions on tensors; parameters live in the dict trees that
 ``transformer.init_params`` makes.  Each keeps the reference's dtype flow
 (which products round to the activation type, which sums run in fp32).
-The MoE layer's three expert products go through K3,
-``repro_torch.kernels.moe_gemm.moe_gemm``: the CUDA kernel for tensors on
-the card, its plain version for tensors on the CPU.  Attention and the
+The MoE layer's three expert products go through K3's autograd Function
+``repro_torch.kernels.moe_gemm.GroupedGemm``: its forward is one
+``moe_gemm`` call (the CUDA kernel for tensors on the card, its plain
+version for tensors on the CPU), under ``no_grad`` (the serve steps) too,
+and its backward two more K3 products a forward one (``dx = dy @ wᵀ``,
+``dw = xᵀ @ dy``), so the MoE layer trains on the card.  Attention and the
 dense products are torch ops: no Pallas kernel computes them in the
 reference either.  With no ``ep_group`` ``moe_layer`` takes the plain path,
 every expert in this process, as the reference does with no mesh; with a
@@ -28,7 +31,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed.comm import all_reduce
-from repro_torch.kernels.moe_gemm import moe_gemm
+from repro_torch.kernels.moe_gemm import GroupedGemm
 
 SSM_ROADMAP = "ROADMAP.md Queue 1 item 4 (Mamba and hybrid layers)"
 
@@ -193,9 +196,11 @@ def mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``out[e] = x[e] @ w[e]`` on K3, with tiles the whole of each dim (the
-    TPU tiles' contract would refuse C = 160 or 1; these always divide)."""
+    TPU tiles' contract would refuse C = 160 or 1; these always divide),
+    through ``GroupedGemm``: one ``moe_gemm`` call, and K3's backward where
+    autograd records."""
     E, C, d = x.shape
-    return moe_gemm(x, w, b_c=C, b_f=w.shape[2], b_d=d)
+    return GroupedGemm.apply(x, w, C, w.shape[2], d)
 
 
 def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype):
@@ -215,7 +220,17 @@ def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype)
     keep = (pos_in_e < cap) & (fe < n_experts)
     slot = torch.where(keep, fe * cap + pos_in_e, n_experts * cap)
     buf = torch.zeros((n_experts * cap + 1, d), dtype=act_dtype, device=xt.device)
-    buf.index_add_(0, slot, (xt[ft] * keep[:, None]).to(act_dtype))
+    # where autograd records, gathered from an fp32 copy of xt: the same
+    # values, but the gather's backward, a scatter-add of a token's K
+    # gradients, then sums them in fp32 and rounds once to xt's type.  K = 8
+    # bf16 values (8 significant bits) whose magnitudes span less than 2^13
+    # sum exactly in the 24 bits of fp32 (3 bits of carry), so the card's
+    # atomics then give the same bf16 gradient in any order; beyond that
+    # span two orders may differ by fp32 ulps, and round to bf16 values an
+    # ulp apart where the sum lies that near halfway between two.  Summed in
+    # bf16 they would differ by bf16 ulps.  Serving gathers xt as it is.
+    src = xt.float() if torch.is_grad_enabled() and xt.requires_grad else xt
+    buf.index_add_(0, slot, (src[ft] * keep[:, None]).to(act_dtype))
     expert_in = buf[:-1].reshape(n_experts, cap, d)
 
     h = expert_gemm(expert_in, wi)

@@ -1,17 +1,26 @@
 """Full decoder model (the port of ``repro.models.transformer``): init,
-forward (prefill), decode step, KV cache.
+forward (train/prefill), ``train_loss``, decode step, KV cache.
 
 Parameters are the reference's tree (nested dicts of tensors), layers
 stacked on a leading ``n_layers`` axis.  Where the reference scans that
-axis with ``lax.scan``, the port runs a Python loop over it.  Every entry
-point takes its device explicitly and runs on the card unless told
-otherwise (``device="cpu"``); a step runs where its parameters lie.
+axis with ``lax.scan``, the port runs a Python loop over it, over slices
+taken once a call (``layer_slices``).  ``forward(remat=True)`` checkpoints
+each layer's activations by ``cfg.remat_policy`` where autograd records,
+as the reference's ``jax.checkpoint`` does.  Every entry point takes its
+device explicitly and runs on the card unless told otherwise
+(``device="cpu"``); a step runs where its parameters lie.
 """
 from __future__ import annotations
 
+import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch._device import resolve_device
 from repro_torch.models import layers as L
@@ -148,13 +157,22 @@ def active_param_count(cfg: ModelConfig) -> int:
     return total - expert + int(expert * active_frac)
 
 
-def _index(tree: dict, i: int) -> dict:
-    return {k: _index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+def _unbind(tree: dict) -> list[dict]:
+    per = None
+    for k, v in tree.items():
+        parts = _unbind(v) if isinstance(v, dict) else v.unbind(0)
+        per = per or [{} for _ in parts]
+        for layer, part in zip(per, parts):
+            layer[k] = part
+    return per
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s slice of the stacked layer tree (views, no copy)."""
-    return _index(params["layers"], i)
+def layer_slices(params: dict) -> list[dict]:
+    """Every layer's slice of the stacked layer tree, taken once (views, no
+    copy).  ``unbind`` and not ``t[i]``: the backward of n ``select``s
+    makes a zero gradient of the whole stack for each layer and sums them,
+    where ``unbind``'s stacks the layers' gradients once."""
+    return _unbind(params["layers"])
 
 
 # ---------------------------------------------------------------------------
@@ -247,13 +265,44 @@ def _unembed(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ table
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of plain (non-batched) matrix products, recompute the rest
+    (batched products, K3's expert products, everything elementwise)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = ("nothing", "dots", "none")
+
+
+def _remat_body(cfg: ModelConfig):
+    """``_layer_fwd`` under ``cfg.remat_policy``'s activation checkpointing:
+    ``"nothing"`` saves only each layer's inputs and recomputes the layer in
+    the backward; ``"dots"`` saves the plain matrix products' outputs too;
+    ``"none"`` saves everything."""
+    policy = cfg.remat_policy
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} not in {REMAT_POLICIES}")
+    if policy == "none":
+        return _layer_fwd
+    kw = {"use_reentrant": False}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, _layer_fwd, **kw)
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
     batch: dict,
+    remat: bool = True,
     ep_group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux_loss).  ``ep_group`` (a
+    """Returns (logits (B, S, V), aux_loss).  With ``remat`` and autograd
+    recording, each layer is checkpointed by ``cfg.remat_policy``
+    (``_remat_body``); the values are the same either way.  ``ep_group`` (a
     ``torch.distributed`` group) runs the MoE layers expert-parallel over
     its ranks, ``params`` holding this rank's experts
     (``convert.expert_shard``); every rank returns the same logits."""
@@ -261,12 +310,28 @@ def forward(
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    body = _remat_body(cfg) if remat and torch.is_grad_enabled() else _layer_fwd
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = _layer_fwd(layer_params(params, i), x, cfg, positions, ep_group)
+    for lp in layer_slices(params):
+        x, a = body(lp, x, cfg, positions, ep_group)
         aux = aux + a
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     return _unembed(params, cfg, x), aux
+
+
+def train_loss(params: dict, cfg: ModelConfig, batch: dict, remat: bool = True):
+    """(loss, {"nll", "aux"}): the mean next-token negative log-likelihood
+    of ``batch["labels"]`` (fp32 log-softmax; labels < 0 masked; the last
+    ``S_lab`` positions, after any frontend positions) plus the MoE aux
+    loss, as the reference's ``train_loss``."""
+    logits, aux = forward(params, cfg, batch, remat=remat)
+    labels = _on(batch["labels"], torch.int64, logits.device)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    mask = labels >= 0
+    S_lab = labels.shape[1]
+    token_logp = logp[:, -S_lab:].gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = -(token_logp * mask).sum() / mask.sum().clamp(min=1)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -298,8 +363,7 @@ def prefill_step(
     dev = x.device
     positions = torch.arange(S, device=dev)[None].expand(B, S)
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+    for lp in layer_slices(params):
         h = L.apply_norm(cfg.norm, x, lp["ln1"])
         mix, (k, v) = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
         ks.append(_ring_align(k, S, C, axis=1))
@@ -380,8 +444,8 @@ def decode_step(
     table = params["embed"]["tokens"]
     x = table[_on(tokens, torch.int64, table.device)]
     pos = cache["pos"]
-    for i in range(cfg.n_layers):
-        x = _layer_decode(layer_params(params, i), x, cache, i, cfg, pos)
+    for i, lp in enumerate(layer_slices(params)):
+        x = _layer_decode(lp, x, cache, i, cfg, pos)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     logits = _unembed(params, cfg, x)[:, 0]
     cache["pos"] = pos + 1

@@ -28,12 +28,24 @@ from repro_torch.kernels.bsr_spgemm import (
     route as k1_route,
 )
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local, route as k2_route
-from repro_torch.kernels.moe_gemm import launch_plan, moe_gemm, route, split3_bf16, stage16
+from repro_torch.kernels.moe_gemm import (
+    GroupedGemm,
+    grad_launch_plan,
+    launch_plan,
+    moe_gemm,
+    moe_gemm_backward,
+    route,
+    split3_bf16,
+    split3_bf16_t,
+    stage16,
+)
 from repro_torch.kernels.ref import (
     bsr_spgemm_ref,
     bsr_spmm_ref,
+    moe_gemm_grad_ref,
     moe_gemm_ref,
     split3_bf16_ref,
+    split3_bf16_t_ref,
     stage16_ref,
 )
 from repro_torch.sparse.bsr import to_bsr
@@ -291,6 +303,88 @@ def test_moe_gemm_takes_d_and_f_off_8(cuda, shape, x_dtype, w_dtype):
     assert got.dtype == x_dtype and got.shape == (E, C, f) and got.is_contiguous()
     want = moe_gemm_ref(x, w)
     torch.testing.assert_close(got.float(), want.float(), rtol=TOL[x_dtype], atol=TOL[x_dtype])
+
+
+def _moe_grad_counted(before: dict, x, w, dy) -> bool:
+    """K3's counters moved by exactly the launches ``grad_launch_plan(x, w, dy)`` lists."""
+    moved = {k: v - before[k] for k, v in moe_gemm.launches.items() if v != before[k]}
+    return moved == grad_launch_plan(x, w, dy)
+
+
+@pytest.mark.parametrize(
+    "x_dtype, w_dtype",
+    [(torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16),
+     (torch.float32, torch.float32), (torch.bfloat16, torch.float32)],
+)
+# C, d and f off 8 and off the tiles; the training path's C = 320 on a few
+# of Qwen3-MoE's experts at full width
+@pytest.mark.parametrize(
+    "shape", [(2, 16, 32, 24), (3, 200, 72, 136), (2, 130, 1001, 257), (4, 320, 4096, 1536)]
+)
+def test_moe_gemm_backward_matches_plain_version(cuda, shape, x_dtype, w_dtype):
+    """dx = dy @ wᵀ (``expert_wgmma_dx``: w read k-major) and dw = xᵀ @ dy
+    (``expert_wgmma_dw``: x read MN-major) in 16-bit, the split products
+    after ``split3_bf16`` and ``split3_bf16_t`` in fp32 and mixed types,
+    each against ``moe_gemm_grad_ref``; the counters move by exactly what
+    ``grad_launch_plan(x, w, dy)`` lists."""
+    E, C, d, f = shape
+    rng = np.random.default_rng(C + d)
+    x, w = _moe_operands(rng, shape, x_dtype, w_dtype, cuda)
+    dy = torch.from_numpy(rng.standard_normal((E, C, f)).astype(np.float32)).to(cuda, x_dtype)
+    before = dict(moe_gemm.launches)
+    dx, dw = moe_gemm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert _moe_grad_counted(before, x, w, dy)
+    plan = grad_launch_plan(x, w, dy)
+    if x_dtype == w_dtype and x_dtype != torch.float32:
+        assert plan["expert_wgmma_dx"] == plan["expert_wgmma_dw"] == 1
+    else:
+        assert plan == {"split3_bf16": 1, "split3_bf16_t": 2, "expert_split": 2}
+    assert dx.dtype == x_dtype and dx.shape == (E, C, d) and dx.is_contiguous()
+    assert dw.dtype == w_dtype and dw.shape == (E, d, f) and dw.is_contiguous()
+    want_dx, want_dw = moe_gemm_grad_ref(x, w, dy)
+    tol = TOL[x_dtype]
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
+    # dw sums C products: hold it at the scale of its sums
+    tol = TOL[w_dtype] if w_dtype == x_dtype else TOL[torch.bfloat16]
+    scale = float(want_dw.float().abs().max())
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol, atol=tol * max(scale, 1.0))
+
+
+def test_grouped_gemm_trains_on_the_card(cuda):
+    """``GroupedGemm`` through autograd on the card equals it on the CPU (bf16
+    rule), its backward launches the two gradient layouts, and a
+    non-contiguous incoming gradient is copied once and counted."""
+    E, C, d, f = 4, 96, 256, 128
+    rng = np.random.default_rng(0)
+    x, w = _moe_operands(rng, (E, C, d, f), torch.bfloat16, torch.bfloat16, cuda)
+    g = torch.from_numpy(rng.standard_normal((E, f, C)).astype(np.float32)).to(cuda).bfloat16()
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        xi = x.detach().to(dev).requires_grad_()
+        wi = w.detach().to(dev).requires_grad_()
+        y = GroupedGemm.apply(xi, wi)
+        before, copies = dict(moe_gemm.launches), GroupedGemm.dy_copies
+        y.backward(g.to(dev).transpose(1, 2))  # a non-contiguous gradient
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in moe_gemm.launches.items() if v != before[k]}
+            assert moved == {"expert_wgmma_dx": 1, "expert_wgmma_dw": 1}
+            assert GroupedGemm.dy_copies == copies + 1
+        grads[dev.type] = (xi.grad.float().cpu(), wi.grad.float().cpu())
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2 * max(float(want.abs().max()), 1))
+
+
+@pytest.mark.parametrize("shape, pitch", [((3, 37, 50), 40), ((2, 320, 4096), 320), ((1, 8, 8), 8)])
+def test_split3_t_kernel_matches_plain_version_bit_for_bit(cuda, shape, pitch):
+    x = torch.randn(shape, device=cuda) * torch.logspace(-3, 3, shape[-1], device=cuda)
+    before = moe_gemm.launches["split3_bf16_t"]
+    got = split3_bf16_t(x, pitch)
+    assert moe_gemm.launches["split3_bf16_t"] == before + 1
+    want = split3_bf16_t_ref(x.cpu(), pitch)
+    assert got.shape == want.shape == (3, *shape[:-2], shape[-1], pitch)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -742,10 +836,11 @@ def test_moe_layer_k3_launches_match_the_plain_version(cuda, monkeypatch, tokens
     matches ``moe_gemm_ref`` on the same inputs."""
     import dataclasses
 
+    import repro_torch.kernels.moe_gemm as k3
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.models import layers
-    from repro_torch.models.transformer import layer_params
+    from repro_torch.models.transformer import layer_slices
 
     cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").scaled_down(
         d_model=256, dtype="bfloat16"), n_layers=1)
@@ -760,8 +855,8 @@ def test_moe_layer_k3_launches_match_the_plain_version(cuda, monkeypatch, tokens
                                   if v != before[k]}))
         return out
 
-    monkeypatch.setattr(layers, "moe_gemm", spy)
-    lp = layer_params(init_params(cfg, 0, device=cuda), 0)["moe"]
+    monkeypatch.setattr(k3, "moe_gemm", spy)
+    lp = layer_slices(init_params(cfg, 0, device=cuda))[0]["moe"]
     x = torch.randn((*tokens, 256), generator=torch.Generator(device=cuda).manual_seed(1),
                     device=cuda).bfloat16()
     out, _ = layers.moe_layer(lp, x, cfg)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing and running it — the front door,
 the kernel entry point, a session with a plan store, the serving loop, the
-rest of the planning, the LM stack's prefill and decode, and the modules
-of ranks in their own processes — loads neither jax nor any module of the
+rest of the planning, the LM stack's prefill and decode, the modules of
+ranks in their own processes, and training (optimizers, the train step,
+step checkpoints, the elastic loop and the launcher) — loads neither jax nor any module of the
 JAX package ``repro``."""
 import os
 import subprocess
@@ -28,6 +29,8 @@ import repro_torch.models, repro_torch.configs, repro_torch.data, repro_torch.tr
 import repro_torch.core.coarsen, repro_torch.core.moe_planner, repro_torch.distributed.plan
 import repro_torch.models.convert, repro_torch.configs.shapes
 import repro_torch.launch.ranks, repro_torch.training.compression
+import repro_torch.training.optimizer, repro_torch.training.step, repro_torch.checkpoint
+import repro_torch.launch.elastic, repro_torch.launch.train
 from repro_torch.core import matrices
 from repro_torch.kernels import ops
 from repro_torch.sparse.bsr import to_bsr

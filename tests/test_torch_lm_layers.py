@@ -15,6 +15,7 @@ import torch
 import repro.models.layers as jax_layers
 import repro.models.transformer as jax_tf
 import repro_torch.configs as configs
+import repro_torch.kernels.moe_gemm as k3
 import repro_torch.models.layers as layers
 import repro_torch.models.transformer as tf
 from repro_torch.core.moe_planner import plan_expert_placement, routing_counts
@@ -71,7 +72,7 @@ def test_decode_attention_equals_jax(window):
 
 def _moe_out_both(jcfg, tcfg, jp, tp, x):
     lp_j = jax.tree.map(lambda a: a[0], jp["layers"]["moe"])
-    lp_t = tf.layer_params(tp, 0)["moe"]
+    lp_t = tf.layer_slices(tp)[0]["moe"]
     jout, jaux = jax_layers.moe_layer(lp_j, jnp.asarray(x), jcfg)
     tout, taux = layers.moe_layer(lp_t, torch.from_numpy(x), tcfg)
     _close(tout, jout, "moe out")
@@ -113,7 +114,7 @@ def test_moe_dropping_pairs_equals_jax():
     moe = tcfg.moe
     T, E, K = 128, moe.n_experts, moe.top_k
     cap = int(np.ceil(T * K / E * moe.capacity_factor))
-    probs = torch.softmax(torch.from_numpy(x).reshape(T, -1) @ tf.layer_params(tp, 0)["moe"]["router"], -1)
+    probs = torch.softmax(torch.from_numpy(x).reshape(T, -1) @ tf.layer_slices(tp)[0]["moe"]["router"], -1)
     routed = torch.bincount(torch.topk(probs, K).indices.reshape(-1), minlength=E)
     assert int(torch.clamp(routed, max=cap).sum()) < T * K
     _moe_out_both(jcfg, tcfg, jp, tp, x)
@@ -133,11 +134,11 @@ def test_moe_in_bf16_within_the_bf16_rule_of_jax(arch):
     repo's bf16 rule of the reference's on the same bf16 weights and input."""
     jcfg, tcfg = _cfgs(arch, dtype="bfloat16")
     jp, tp = _params(jcfg)
-    assert tf.layer_params(tp, 0)["moe"]["wi"].dtype == torch.bfloat16
+    assert tf.layer_slices(tp)[0]["moe"]["wi"].dtype == torch.bfloat16
     x = np.random.default_rng(6).standard_normal((2, 64, tcfg.d_model)).astype(np.float32)
     lp_j = jax.tree.map(lambda a: a[0], jp["layers"]["moe"])
     jout, jaux = jax_layers.moe_layer(lp_j, jnp.asarray(x, jnp.bfloat16), jcfg)
-    tout, taux = layers.moe_layer(tf.layer_params(tp, 0)["moe"],
+    tout, taux = layers.moe_layer(tf.layer_slices(tp)[0]["moe"],
                                   torch.from_numpy(x).bfloat16(), tcfg)
     assert tout.dtype == torch.bfloat16
     want = np.asarray(jout.astype(jnp.float32))
@@ -156,11 +157,11 @@ def test_moe_experts_run_on_k3_with_whole_dim_tiles(monkeypatch):
         calls.append((tuple(x.shape), tuple(w.shape), (b_c, b_f, b_d)))
         return moe_gemm(x, w, b_c, b_f, b_d)
 
-    monkeypatch.setattr(layers, "moe_gemm", spy)
+    monkeypatch.setattr(k3, "moe_gemm", spy)
     cfg = dataclasses.replace(configs.get_smoke_config("qwen3-moe-235b-a22b"), n_layers=2)
     x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(0))
     params = tf.init_params(cfg, 0, device="cpu")
-    layers.moe_layer(tf.layer_params(params, 0)["moe"], x, cfg)
+    layers.moe_layer(tf.layer_slices(params)[0]["moe"], x, cfg)
     E, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
     cap = int(np.ceil(80 * cfg.moe.top_k / E * cfg.moe.capacity_factor))
     assert cap % 8 and calls == [((E, cap, 64), (E, 64, f), (cap, f, 64))] * 2 + [
