@@ -72,8 +72,8 @@ Phases, each printing its seconds:
      3 launches a layer) and 16 greedy ``make_decode_step`` steps (K3 at
      C = 1), timed and profiled, with the decode step's byte bound; every K3
      launch of one prefill and one decode step against its plain version;
-     prefill against token-by-token decode in fp32 at 2 layers; the eight
-     attention-family smoke configs, card against CPU.
+     prefill against token-by-token decode in fp32 at 2 layers; the ten
+     smoke configs (attention, Mamba, hybrid), card against CPU.
  13. ranks in processes (``ranks_in_processes``): 4 processes on the one
      card (``launch.ranks.run_ranks``), one rank each, over a gloo group
      that moves the bytes through the host: (a) the seven models and
@@ -92,11 +92,23 @@ Phases, each printing its seconds:
      ms, tokens/s, peak memory under 75 GB, a profile, every K3 launch of
      a step against its plain version (dx and dw by the bf16 rule scaled
      to the gradient's size), the gradient products beside ``torch.bmm``;
-     (b) the eight smoke configs' loss, gradients and one step of each
+     (b) the ten smoke configs' loss, gradients and one step of each
      optimizer, card against CPU, fp32, every K3 launch on the card
      against its plain version; (c) ``launch.train.main`` resumed after an
      injected failure and after a restart (internlm2), and after a
      restart (Qwen3-MoE), against the uninterrupted run.
+ 15. Mamba and hybrid layers (``ssm``): falcon-mamba-7b (64 layers) and
+     hymba-1.5b (32 layers) at their published widths, bf16, random
+     weights: (a), (b) prefill (8 x 1,024 and 2 x 4,096 tokens: hymba's
+     2,048-slot KV ring rotated) and 16 greedy decode steps, one under the
+     sync debug mode, with profiles and the decode step's byte bound; (c)
+     training at published widths through ``build_trainer`` and
+     ``run_loop`` (falcon-mamba Adafactor, 16 of its 64 layers; hymba
+     AdamW, all 32), peak memory under 75 GB; (d) the scan alone at one
+     falcon-mamba layer's shape against a float64 recurrence, its gradient
+     against float64 autograd, under rules that refuse zeros, a one-step
+     shift and a 10% error; (e) prefill against token-by-token decode in
+     fp32 at 2 layers.  No kernel of K1-K3 lies on this path.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -117,7 +129,7 @@ arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
 ``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``, 11 under
 ``summa_device``, 12 under ``lm_serve``, 13 under ``ranks``, 14 under
-``train``).
+``train``, 15 under ``ssm``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
@@ -316,17 +328,18 @@ def grad_err_within(got, want, tol: float, what: str) -> float:
     return max_err_within(got, want, tol, what, grad_scale(want))
 
 
-def grad_rule_rejects(want, tol: float, what: str) -> None:
-    """Fails unless ``grad_err_within``'s rule refuses three wrong results
-    for ``want`` (E, m, n): zeros, the next expert's, and one 10% too
-    large."""
+def rule_rejects(want, tol: float, what: str, scale: float = 1.0, shift=None) -> None:
+    """Fails unless the rule tol scale + tol |want| (``within``) refuses
+    wrong results for ``want``: zeros, one 10% too large, and, with
+    ``shift`` = (name, dim), ``want`` rolled one place along ``dim``."""
     import torch
 
-    scale = grad_scale(want)
-    for name, bad in (("zeros", torch.zeros_like(want)), ("the next expert's",
-                      want.roll(1, 0)), ("10% too large", want.float() * 1.1)):
-        if within(bad, want, tol, scale)[0]:
-            fail(f"{what}: the gradient rule accepts {name}")
+    bad = {"zeros": torch.zeros_like(want), "10% too large": want.float() * 1.1}
+    if shift is not None:
+        bad[shift[0]] = want.roll(1, shift[1])
+    for name, wrong in bad.items():
+        if within(wrong, want, tol, scale)[0]:
+            fail(f"{what}: the rule accepts {name}")
 
 
 def check_kernel(args, tol: float, garbage_slot: bool = True):
@@ -517,11 +530,14 @@ def profile_fn(fn, call_ms: float, calls: int = 3, label: str = "27-AP") -> dict
     ``torch.profiler`` saw over a few calls, per call, against the median
     unprofiled call time ``call_ms`` (the idle share is the rest).  Printed,
     and returned for the phase's record (empty if the profiler saw no
-    device time)."""
+    device time).  It traces the card's activity alone: host op events
+    would add nothing it reads, and cost seconds in calls of a hundred
+    thousand launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -541,7 +557,8 @@ def profile_fn(fn, call_ms: float, calls: int = 3, label: str = "27-AP") -> dict
     for k in top:
         print(f"profile   {k['ms']:.4f} ms x{k['count']:g} {k['kernel']}", flush=True)
     return {"call_ms": call_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / call_ms, "kernels": top}
+            "idle_share": 1 - busy_ms / call_ms, "kernels": top,
+            "profile_s": time.perf_counter() - t0}
 
 
 def csr_on_card(structure, values, device):
@@ -1780,9 +1797,10 @@ def lm_serving(device):
     (e) prefill against token-by-token decode at full width in fp32, 2
         layers, B = 1, S = 64, capacity factor E / K (no expert drops a
         pair, so both see the same experts), within 1e-3;
-    (f) the eight attention-family smoke configs in fp32: ``forward``,
-        ``prefill_step`` and three ``decode_step``s on the card against
-        the CPU, same weights, within 1e-4.
+    (f) the ten smoke configs (attention, Mamba and hybrid layers) in
+        fp32: ``forward``, ``prefill_step`` and three ``decode_step``s on
+        the card against the CPU, same weights, every cache entry too,
+        within 1e-4.
     Peak memory over (a)-(d) must stay under 40 GB."""
     import dataclasses
 
@@ -1965,12 +1983,10 @@ def lm_serving(device):
     torch.cuda.empty_cache()
     phase("LM serving (e) prefill vs decode", t0)
 
-    # (f) the attention-family smoke configs, card against CPU
+    # (f) the ten smoke configs (attention, Mamba, hybrid), card against CPU
     rec["card_vs_cpu"] = {}
     for arch in all_arch_ids():
         scfg = get_smoke_config(arch)
-        if scfg.layer_kind != "attn":
-            continue
         cpu_params = init_params(scfg, 0, device="cpu")
         card_params = _tree_to(cpu_params, device)
         rng = np.random.default_rng(0)
@@ -2505,7 +2521,7 @@ def k3_grad_records(x, w, dy, launches: dict, errs: dict) -> dict:
     """K3's gradient products at operands the training path gave them:
     ``expert_wgmma_dx`` (dy @ wᵀ) and ``expert_wgmma_dw`` (xᵀ @ dy), each
     held to its plain version by ``grad_err_within`` (whose rule must refuse
-    wrong results, ``grad_rule_rejects``), then timed alone by events beside
+    wrong results, ``rule_rejects``), then timed alone by events beside
     its plain version and ``torch.bmm`` on the same operands; the bound is
     each operand read once and the output written once, against bf16
     operations at the tensor cores' peak."""
@@ -2532,7 +2548,7 @@ def k3_grad_records(x, w, dy, launches: dict, errs: dict) -> dict:
             out_elems * size)
         bound_ms, bound_by = bound(n_bytes, n_ops, dtype_name(x.dtype))
         want = plain()
-        grad_rule_rejects(want, tol, f"train K3 {name}")
+        rule_rejects(want, tol, f"train K3 {name}", grad_scale(want), ("the next expert's", 0))
         err = grad_err_within(kernel(), want, tol, f"train K3 {name}")
         del want
         out[name] = {
@@ -2602,7 +2618,8 @@ def k3_split_grad_records(x, w, dy, launches: dict) -> dict:
         kernel()
         torch.cuda.synchronize()
         want = plain()
-        grad_rule_rejects(want, tol, f"train (b) expert_split {name}")
+        rule_rejects(want, tol, f"train (b) expert_split {name}", grad_scale(want),
+                     ("the next expert's", 0))
         err = grad_err_within(result, want, tol, f"train (b) expert_split {name}")
         n_bytes = pieces * 2 + result.numel() * 4
         bound_ms, bound_by = bound(n_bytes, n_ops, "float32_split")
@@ -2614,6 +2631,33 @@ def k3_split_grad_records(x, w, dy, launches: dict) -> dict:
             "bound_flops": n_ops, "library_ms": graph_ms(library),
             "library_call": "torch.bmm"}
     return out
+
+
+def timed_trainer(cfg, device, optimizer: str):
+    """``launch.train.build_trainer(cfg, device, optimizer=...)`` whose step
+    records CUDA events around each optimizer update: returns (step,
+    opt_init, events), one (start, end) pair appended a step."""
+    import torch
+    import repro_torch.launch.train as train_mod
+    import repro_torch.training.optimizer as opt_mod
+
+    events = []
+    init, update = opt_mod.OPTIMIZERS[optimizer]
+
+    def timed_update(*args, **kw):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        out = update(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    opt_mod.OPTIMIZERS[optimizer] = (init, timed_update)
+    try:
+        step, opt_init = train_mod.build_trainer(cfg, device, optimizer=optimizer)
+    finally:
+        opt_mod.OPTIMIZERS[optimizer] = (init, update)
+    return step, opt_init, events
 
 
 def _clone_tree(tree):
@@ -2653,7 +2697,7 @@ def training(device):
         forward products by the bf16 rule, dx and dw by that rule scaled to
         the gradient's size, ``grad_err_within``), and the gradient products
         timed beside their plain version and ``torch.bmm``.
-    (b) the eight attention-family smoke configs in fp32: ``train_loss``,
+    (b) the ten smoke configs (attention, Mamba, hybrid) in fp32: ``train_loss``,
         every gradient leaf (by ``grad_err_within``), and one
         ``make_train_step`` step with AdamW and one with Adafactor, card
         against CPU, within 1e-4, with every
@@ -2699,22 +2743,7 @@ def training(device):
         fail(f"train (a): remat {cfg.remat_policy!r}, capacity {cap}")
 
     # (a) the optimizer's own time: events around each update of the step
-    opt_events = []
-    init, update = opt_mod.OPTIMIZERS["adafactor"]
-
-    def timed_update(*args, **kw):
-        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev[0].record()
-        out = update(*args, **kw)
-        ev[1].record()
-        opt_events.append(ev)
-        return out
-
-    opt_mod.OPTIMIZERS["adafactor"] = (init, timed_update)
-    try:
-        step, opt_init = train_mod.build_trainer(cfg, device, optimizer="adafactor")
-    finally:
-        opt_mod.OPTIMIZERS["adafactor"] = (init, update)
+    step, opt_init, opt_events = timed_trainer(cfg, device, "adafactor")
     t_init = time.perf_counter()
     params = init_params(cfg, 0, device=device)
     opt_state = opt_init(params)
@@ -2808,16 +2837,14 @@ def training(device):
     torch.cuda.empty_cache()
     phase("training (a) K3 checks", t0)
 
-    # (b) the attention-family smoke configs in fp32, card against CPU, with
-    # every K3 launch on the card held to its plain version
+    # (b) the ten smoke configs in fp32, card against CPU, with every K3
+    # launch on the card held to its plain version
     reset_launches()
     rec["card_vs_cpu"], rec["card_vs_cpu_rel"] = {}, {}
     checks, operands = [], {}
     stand_ins = k3_train_checked(checks, operands, lambda x, w: True)
     for arch in all_arch_ids():
         scfg = get_smoke_config(arch)
-        if scfg.layer_kind != "attn":
-            continue
         cpu_params = init_params(scfg, 0, device="cpu")
         rng = np.random.default_rng(0)
         n_front = 16 if scfg.frontend == "vision" else 0
@@ -2922,6 +2949,368 @@ def training(device):
             fail(f"train (c): {name} run off the uninterrupted one by {err}")
     print("train (c) resume", json.dumps(rec["resume"]), flush=True)
     phase("training (c) launch.train", t0)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+SSM_ARCHS = ("falcon-mamba-7b", "hymba-1.5b")  # phase 15, at published widths and depth
+SSM_SERVE = {"falcon-mamba-7b": (8, 1024), "hymba-1.5b": (2, 4096)}  # (batch, prompt)
+SSM_DECODE_STEPS = 16
+SSM_TRAIN = {"falcon-mamba-7b": ("adafactor", 6), "hymba-1.5b": ("adamw", 4)}  # optimizer, steps
+# falcon-mamba's depth cut from 64 to 16 (widths whole): at 64 layers the
+# phase took 250 s (a step 5.2 s; its profile 44 s), past its ~150 s
+SSM_TRAIN_LAYERS = {"falcon-mamba-7b": 16, "hymba-1.5b": 32}
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 1024
+SSM_PEAK_BYTES = 75e9
+SCAN_SHAPE = (1, 1024, 8192, 16)  # phase 15 (d): one falcon-mamba layer's scan, B = 1
+SSM_PREFILL_DECODE_TOL = 1e-3  # phase 15 (e), fp32, as phase 12 (e)
+
+
+def _ssm_cache_checked(cfg, cache, B: int, S: int, what: str) -> None:
+    """Fails unless ``cache`` (a prefill's) holds the reference's keys and
+    shapes for ``cfg.layer_kind``: the SSM's conv tail and fp32 state, and
+    (hybrid) a KV ring of C = min(window, S) slots rotated so position p
+    sits at slot p % C."""
+    import torch
+    from repro_torch.models.transformer import kv_cache_len
+
+    L, Di, N, Kc = cfg.n_layers, cfg.d_inner, cfg.ssm.d_state, cfg.ssm.d_conv
+    want = {"pos": ((), torch.int32), "conv": ((L, B, Kc - 1, Di), torch.bfloat16),
+            "h": ((L, B, Di, N), torch.float32)}
+    if cfg.layer_kind == "hybrid":
+        C = kv_cache_len(cfg, S)
+        kv = ((L, B, C, cfg.n_kv_heads, cfg.head_dim), torch.bfloat16)
+        want.update(k=kv, v=kv, cache_pos=((L, C), torch.int32))
+    got = {k: (tuple(v.shape), v.dtype) for k, v in cache.items()}
+    if got != want:
+        fail(f"{what}: cache {got}, not {want}")
+    if int(cache["pos"]) != S or not bool(cache["h"].isfinite().all()):
+        fail(f"{what}: cache pos {int(cache['pos'])}, state finite "
+             f"{bool(cache['h'].isfinite().all())}")
+    if cfg.layer_kind == "hybrid":
+        held = torch.arange(S - C, S, device=cache["cache_pos"].device, dtype=torch.int32)
+        if not bool((cache["cache_pos"][:, held % C] == held).all()):
+            fail(f"{what}: the KV ring does not hold position p at slot p % {C}")
+
+
+def ssm_serving(arch: str, device) -> dict:
+    """Phase 15 (a) falcon-mamba-7b, (b) hymba-1.5b: serving at published
+    widths and depth, bf16, random weights from seed 0 (``SSM_SERVE``'s
+    batch and prompt).  ``make_prefill_step`` on ``SyntheticTokens``: the
+    cache's keys, shapes and ring, median ms of 3 calls after a warm-up,
+    tokens/s and a profile of one call; then ``SSM_DECODE_STEPS`` greedy
+    ``make_decode_step`` steps on the returned cache: ms a step (median),
+    tokens/s, one step under ``torch.cuda.set_sync_debug_mode("error")``,
+    a profile of 3 steps, and the step's byte bound (every weight read once,
+    of the embedding table the B rows gathered; the fp32 state and conv tail
+    read and written; hymba's KV ring read).  Peak memory under 75 GB."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import init_params, param_count
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    B, S = SSM_SERVE[arch]
+    rec = {"config": arch, "layer_kind": cfg.layer_kind, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "params": param_count(cfg), "batch": B, "prompt": S}
+    t_init = time.perf_counter()
+    params = init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t_init
+    rec["param_bytes"] = _tree_bytes(params)
+    tokens = torch.as_tensor(SyntheticTokens(cfg.vocab, S, B, seed=0).batch(0)["tokens"],
+                             device=device)
+    batch = {"tokens": tokens}
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    logits, cache = prefill(params, batch)  # the warm-up, checked
+    torch.cuda.synchronize()
+    if logits.shape != (B, cfg.vocab) or not bool(logits.isfinite().all()):
+        fail(f"{arch} prefill: logits {tuple(logits.shape)}, finite "
+             f"{bool(logits.isfinite().all())}")
+    _ssm_cache_checked(cfg, cache, B, S, f"{arch} prefill")
+    del logits, cache
+    calls = timed_ms(lambda: prefill(params, batch), 3)
+    ms = statistics.median(calls)
+    rec["prefill"] = {"tokens": B * S, "ms_median": ms, "ms": calls,
+                      "tokens_per_s": B * S / (ms / 1e3)}
+    rec["prefill"]["profile"] = profile_fn(lambda: prefill(params, batch), ms, calls=1,
+                                           label=f"{arch} prefill")
+    print(f"SSM {arch} prefill", json.dumps(rec["prefill"]), flush=True)
+    phase(f"SSM {arch} prefill", t0)
+
+    logits, cache = prefill(params, batch)
+    tok = logits.argmax(-1)[:, None]
+    steps = []
+    for _ in range(SSM_DECODE_STEPS):
+        t_step = time.perf_counter()
+        logits, cache = decode(params, cache, tok)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t_step) * 1e3)
+    if not bool(logits.isfinite().all()) or int(cache["pos"]) != S + SSM_DECODE_STEPS:
+        fail(f"{arch} decode: logits finite {bool(logits.isfinite().all())}, "
+             f"pos {int(cache['pos'])}")
+    torch.cuda.set_sync_debug_mode("error")  # a step must never wait for the card
+    try:
+        logits, cache = decode(params, cache, tok)
+    except RuntimeError as e:
+        fail(f"{arch} decode: a step waits for the card: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    table = params["embed"]["tokens"]
+    es = table.element_size()
+    state_bytes = 2 * sum(cache[k].numel() * cache[k].element_size() for k in ("h", "conv"))
+    kv_bytes = sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v") if k in cache)
+    step_bytes = (rec["param_bytes"] - table.numel() * es + B * cfg.d_model * es
+                  + state_bytes + kv_bytes)
+    step_ms = statistics.median(steps)
+    rec["decode"] = {
+        "batch": B, "steps": SSM_DECODE_STEPS, "ms_per_step_median": step_ms, "ms": steps,
+        "tokens_per_s": B / (step_ms / 1e3), "bound_bytes": step_bytes,
+        "state_bytes": state_bytes, "kv_bytes": kv_bytes,
+        "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+    }
+    rec["decode"]["profile"] = profile_fn(lambda: decode(params, cache, tok), step_ms, calls=3,
+                                          label=f"{arch} decode step")
+    print(f"SSM {arch} decode", json.dumps(rec["decode"]), flush=True)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if rec["peak_bytes"] > SSM_PEAK_BYTES:
+        fail(f"{arch} serving: peak memory {rec['peak_bytes'] / 1e9:.2f} GB over "
+             f"{SSM_PEAK_BYTES / 1e9:.0f} GB")
+    del params, cache, logits, batch, tokens
+    torch.cuda.empty_cache()
+    phase(f"SSM {arch} decode", t0)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+def ssm_training(arch: str, device) -> dict:
+    """Phase 15 (c): ``arch`` trained at its published widths,
+    ``SSM_TRAIN_LAYERS`` deep, bf16, random weights from seed 0,
+    ``SSM_TRAIN``'s optimizer, ``SyntheticTokens`` 4 x 1,024 a step, through
+    ``launch.train.build_trainer`` and ``launch.elastic.run_loop`` with
+    ``remat_policy="nothing"``, the first step a warm-up: step ms (median),
+    tokens/s, the optimizer's ms (events), peak memory under 75 GB, loss
+    finite and gradient norm > 0 every step, a profile of one step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.elastic import run_loop
+    from repro_torch.models import init_params, param_count
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = get_config(arch)
+    cfg = dataclasses.replace(base, n_layers=SSM_TRAIN_LAYERS[arch])
+    optimizer, n_steps = SSM_TRAIN[arch]
+    T = SSM_TRAIN_BATCH * SSM_TRAIN_SEQ
+    rec = {"config": arch, "n_layers": cfg.n_layers, "n_layers_published": base.n_layers,
+           "dtype": cfg.dtype, "params": param_count(cfg), "remat_policy": cfg.remat_policy,
+           "optimizer": optimizer, "batch": SSM_TRAIN_BATCH, "seq": SSM_TRAIN_SEQ,
+           "tokens_per_step": T}
+    if cfg.remat_policy != "nothing":
+        fail(f"{arch} train: remat {cfg.remat_policy!r}")
+    step, opt_init, opt_events = timed_trainer(cfg, device, optimizer)
+    t_init = time.perf_counter()
+    params = init_params(cfg, 0, device=device)
+    opt_state = opt_init(params)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t_init
+    rec["param_bytes"] = _tree_bytes(params)
+    data = SyntheticTokens(cfg.vocab, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, seed=0)
+    batches = [{k: torch.as_tensor(v, device=device) for k, v in data.batch(i).items()}
+               for i in range(n_steps + 1)]
+    steps, metrics = [], []
+
+    def step_fn(state, idx):
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        p, o, m = step(*state, batches[idx])
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t_step) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return p, o
+
+    (params, opt_state), stats = run_loop((params, opt_state), step_fn, n_steps)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    for m in metrics:
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
+            fail(f"{arch} train: loss {m['loss']}, gradient norm {m['grad_norm']}")
+    if rec["peak_bytes"] > SSM_PEAK_BYTES:
+        fail(f"{arch} train: peak memory {rec['peak_bytes'] / 1e9:.2f} GB over "
+             f"{SSM_PEAK_BYTES / 1e9:.0f} GB")
+    torch.cuda.synchronize()
+    opt_ms = [a.elapsed_time(b) for a, b in opt_events]
+    ms = statistics.median(steps[1:])  # the first is the warm-up
+    rec["steps"] = {"ms": steps, "ms_median": ms, "tokens_per_s": T / (ms / 1e3),
+                    "optimizer_ms": opt_ms, "optimizer_ms_median": statistics.median(opt_ms[1:]),
+                    "metrics": metrics, "restarts": stats.restarts,
+                    "stragglers": stats.stragglers}
+    print(f"SSM {arch} train", json.dumps(rec["steps"]),
+          json.dumps({k: rec[k] for k in ("param_bytes", "peak_bytes", "init_s")}), flush=True)
+    state = [params, opt_state]
+
+    def one_step():
+        state[0], state[1], _ = step(state[0], state[1], batches[n_steps])
+
+    rec["profile"] = profile_fn(one_step, ms, calls=1, label=f"{arch} train step")
+    del params, opt_state, state, batches
+    torch.cuda.empty_cache()
+    phase(f"SSM {arch} train", t0)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+def scan_on_the_card(device) -> dict:
+    """Phase 15 (d): ``mamba_scan`` alone at one falcon-mamba layer's shape
+    (``SCAN_SHAPE``: B 1, S 1,024, Di 8,192, N 16), decays exp(dt A) of the
+    model's range (A = -(1..16), dt up to 1: log a down to -16), bx and h0
+    from a seeded normal: h_all and h_last against a float64 sequential
+    recurrence on the card by the fp32 rule (1e-4 + 1e-4 |want|); the
+    gradients of sum(h_all w) + sum(h_last v) (``LinearScan``'s reverse
+    recurrence) against float64 autograd of that loop by
+    ``grad_err_within``; each rule must refuse zeros, a 10% error and a
+    one-step shift in time.  Then the forward and backward timed (events)
+    beside the bytes their form moves and the least bytes the function
+    needs (each input read once, each output written once)."""
+    import torch
+    from repro_torch.models.layers import LinearScan, mamba_scan
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    B, S, Di, N = SCAN_SHAPE
+    g = torch.Generator(device=device).manual_seed(0)
+    dt = torch.rand((B, S, Di, 1), generator=g, device=device) * 0.99 + 0.01
+    a = torch.exp(dt * -torch.arange(1, N + 1, dtype=torch.float32, device=device))
+    bx, w = (torch.randn((B, S, Di, N), generator=g, device=device) for _ in range(2))
+    h0, v = (torch.randn((B, Di, N), generator=g, device=device) for _ in range(2))
+    del dt
+    ins = [t.clone().requires_grad_() for t in (a, bx, h0)]
+    h_all, h_last = mamba_scan(*ins)
+    grads = torch.autograd.grad((h_all * w).sum() + (h_last * v).sum(), ins)
+
+    ins64 = [t.double().requires_grad_() for t in (a, bx, h0)]
+    h, hs = ins64[2], []
+    for t in range(S):
+        h = ins64[0][:, t] * h + ins64[1][:, t]
+        hs.append(h)
+    want_all = torch.stack(hs, dim=1)
+    del hs
+    want_grads = torch.autograd.grad((want_all * w.double()).sum() + (h * v.double()).sum(),
+                                     ins64)
+    want_all, want_last = want_all.detach(), h.detach()
+    rec = {"shape": list(SCAN_SHAPE), "tol": TOL["float32"],
+           "log_a_min": float(a.log().min()), "h_abs_max": float(want_all.abs().max())}
+    tol = TOL["float32"]
+    rec["max_abs_err"] = {
+        "h_all": max_err_within(h_all.detach(), want_all, tol, "scan (d): h_all"),
+        "h_last": max_err_within(h_last.detach(), want_last, tol, "scan (d): h_last"),
+    }
+    step_back = ("shifted one step in time", 1)
+    rule_rejects(want_all, tol, "scan (d): h_all", shift=step_back)
+    for name, got, want in zip(("a", "bx", "h0"), grads, want_grads):
+        rec["max_abs_err"][f"d{name}"] = grad_err_within(got, want, tol, f"scan (d): d{name}")
+        rule_rejects(want, tol, f"scan (d): d{name}", grad_scale(want),
+                     shift=None if name == "h0" else step_back)
+    del ins64, want_all, want_last, want_grads, h, grads, h_all, h_last
+    torch.cuda.empty_cache()
+
+    # the forward alone, and LinearScan's backward alone (on the time-major
+    # views mamba_scan hands it; its inputs are leaves)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: mamba_scan(a, bx, h0), reps=5, warmup=1)
+    h_tm = LinearScan.apply(ins[0].transpose(0, 1), ins[1].transpose(0, 1), ins[2])
+    w_tm = w.transpose(0, 1).contiguous()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(h_tm, ins, w_tm, retain_graph=True), reps=5,
+                     warmup=1)
+    one = a.numel() * a.element_size()  # one (B, S, Di, N) fp32 pass
+    small = h0.numel() * h0.element_size()
+    rec["forward"] = {
+        "ms": fwd_ms, "launches": S,
+        # a step reads a_t, bx_t and h_{t-1} and writes h_t
+        "form_bytes": 4 * one, "form_ms": 4 * one / HBM_BYTES_PER_S * 1e3,
+        # a, bx and h0 read once, h_all written once
+        "bound_bytes": 3 * one + small, "bound_ms": (3 * one + small) / HBM_BYTES_PER_S * 1e3,
+    }
+    rec["backward"] = {
+        "ms": bwd_ms, "launches": S + 2,
+        # the loop reads dh_t, a_{t+1}, g_{t+1} and writes g_t; da reads g and
+        # h_all and writes da
+        "form_bytes": 7 * one, "form_ms": 7 * one / HBM_BYTES_PER_S * 1e3,
+        # dh, a and h_all read once, da and dbx written once
+        "bound_bytes": 5 * one + 2 * small,
+        "bound_ms": (5 * one + 2 * small) / HBM_BYTES_PER_S * 1e3,
+    }
+    for part in ("forward", "backward"):
+        if rec[part]["ms"] < rec[part]["bound_ms"]:
+            fail(f"scan (d): the {part} took {rec[part]['ms']} ms, under its bound")
+    print("SSM scan", json.dumps(rec), flush=True)
+    del a, bx, h0, w, v, ins, h_tm, w_tm
+    torch.cuda.empty_cache()
+    phase("SSM scan (d)", t0)
+    return rec
+
+
+def ssm_prefill_vs_decode(device) -> dict:
+    """Phase 15 (e): for each SSM architecture at its published widths in
+    fp32, 2 layers, B = 1, S = 64: prefill's last logits against 64
+    token-by-token decode steps from an empty cache, within 1e-3, the
+    state too."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.models import init_kv_cache, init_params
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch in SSM_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+        params = init_params(cfg, 1, device=device)
+        toks = torch.as_tensor(SyntheticTokens(cfg.vocab, 64, 1, seed=1).batch(0)["tokens"],
+                               device=device)
+        want, want_cache = make_prefill_step(cfg)(params, {"tokens": toks})
+        cache = init_kv_cache(cfg, 1, 64, device=device)
+        decode = make_decode_step(cfg)
+        for i in range(64):
+            got, cache = decode(params, cache, toks[:, i:i + 1])
+        what = f"SSM (e) {arch}: prefill against decode"
+        tol = SSM_PREFILL_DECODE_TOL
+        out[arch] = {
+            "n_layers": 2, "dtype": "float32", "batch": 1, "seq": 64, "tol": tol,
+            "max_abs_err": max_err_within(got, want, tol, what),
+            "max_abs_err_h": max_err_within(cache["h"], want_cache["h"], tol, f"{what}, state"),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+        }
+        del params, cache, want_cache
+    torch.cuda.empty_cache()
+    print("SSM (e) prefill vs decode", json.dumps(out), flush=True)
+    phase("SSM (e) prefill vs decode", t0)
+    return out
+
+
+def ssm(device) -> dict:
+    """Phase 15: the Mamba and hybrid layers on the card, falcon-mamba-7b
+    and hymba-1.5b at their published widths: (a), (b) serving
+    (``ssm_serving``), (c) training (``ssm_training``), (d) the scan alone
+    (``scan_on_the_card``), (e) prefill against decode
+    (``ssm_prefill_vs_decode``)."""
+    t0 = time.perf_counter()
+    rec = {"serve": {arch: ssm_serving(arch, device) for arch in SSM_ARCHS}}
+    rec["train"] = {arch: ssm_training(arch, device) for arch in SSM_ARCHS}
+    rec["scan"] = scan_on_the_card(device)
+    rec["prefill_vs_decode"] = ssm_prefill_vs_decode(device)
     rec["phase_s"] = time.perf_counter() - t0
     return rec
 
@@ -3049,13 +3438,18 @@ def main() -> None:
     train = training(device)
     phase("training", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ssm_rec = ssm(device)
+    phase("Mamba and hybrid layers", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
         "serving": served, "summa_device": summa_device, "lm_serve": lm, "ranks": ranks,
-        "train": train,
+        "train": train, "ssm": ssm_rec,
     }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",

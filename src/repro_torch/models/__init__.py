@@ -1,6 +1,7 @@
-"""Model stack (the port of ``repro.models``): the attention-family decoder
-— init, forward (with activation checkpointing), ``train_loss``, decode
-step, KV cache — on one device."""
+"""Model stack (the port of ``repro.models``): the decoder of every layer
+kind (attention, Mamba, hybrid) — init, forward (with activation
+checkpointing), ``train_loss``, decode step, KV and SSM cache — on one
+device."""
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.transformer import (
     init_params,

@@ -10,8 +10,9 @@ A copy of ``repro.models.config``: every field is kept.  ``scan_unroll``,
 reference's sharding and compile settings; they do not change results on
 one card, and the port accepts and ignores them.  ``remat_policy`` picks
 ``forward``'s activation checkpointing, as in the reference.
-The port runs ``layer_kind="attn"``; ``"mamba"`` and ``"hybrid"`` layers
-raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 4).
+The port runs every ``layer_kind``: ``"attn"``, ``"mamba"`` (Mamba-1
+selective SSM) and ``"hybrid"`` (attention and SSM heads in parallel,
+averaged).
 """
 from __future__ import annotations
 

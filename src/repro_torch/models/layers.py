@@ -1,7 +1,7 @@
-"""Layer primitives of the attention family (the port of
-``repro.models.layers``): norms, RoPE, chunked causal attention (GQA and a
-sliding window), decode attention, the SwiGLU/GeGLU/GeLU MLP and the
-capacity-dropping MoE layer.
+"""Layer primitives (the port of ``repro.models.layers``): norms, RoPE,
+chunked causal attention (GQA and a sliding window), decode attention, the
+SwiGLU/GeGLU/GeLU MLP, the capacity-dropping MoE layer and the Mamba-1
+selective SSM (``mamba_block``, ``mamba_decode_step``).
 
 Plain functions on tensors; parameters live in the dict trees that
 ``transformer.init_params`` makes.  Each keeps the reference's dtype flow
@@ -19,7 +19,9 @@ every expert in this process, as the reference does with no mesh; with a
 ``transformer.forward`` and ``prefill_step``) it runs the reference's
 expert-parallel ``_moe_ep``: each rank holds E / tp experts
 (``convert.expert_shard``) and one fp32 all-reduce combines them.  The
-Mamba layers wait for ROADMAP.md Queue 1 item 4.
+SSM's linear recurrence runs in fp32 as a loop over time steps with a
+backward of its own (``LinearScan``); its products and the causal
+convolution are torch ops, as they are jnp ops in the reference.
 """
 from __future__ import annotations
 
@@ -32,16 +34,6 @@ import torch.nn.functional as F
 
 from repro_torch.distributed.comm import all_reduce
 from repro_torch.kernels.moe_gemm import GroupedGemm
-
-SSM_ROADMAP = "ROADMAP.md Queue 1 item 4 (Mamba and hybrid layers)"
-
-
-def not_ported(layer_kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"layer_kind={layer_kind!r} is not ported yet: the port runs attention "
-        f"layers only; see {SSM_ROADMAP}"
-    )
-
 
 # ---------------------------------------------------------------------------
 # norms
@@ -340,3 +332,166 @@ def moe_layer(params: dict, x: torch.Tensor, cfg, ep_group=None) -> tuple[torch.
         xt, fe, ft, fg, params["wi"], params["wg"], params["wo"], E, cap, xt.dtype
     )
     return out.to(xt.dtype).reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 selective SSM
+# ---------------------------------------------------------------------------
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, Di); w: (Kc, Di) depthwise causal conv, as a sum of shifted
+    copies (Kc is tiny — 4), added in x's type in the order i = 0..Kc-1 as
+    the reference adds them (``F.conv1d`` would sum in another precision
+    and order, and round 16-bit results away from the reference's)."""
+    Kc, S = w.shape[0], x.shape[1]
+    out = torch.zeros_like(x)
+    for i in range(Kc):
+        shift = Kc - 1 - i
+        xs = F.pad(x, (0, 0, shift, 0))[:, :S]
+        out = out + xs * w[i]
+    return out
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it, x * (1 / (1 + e^-x)),
+    each op rounded to x's type (``F.silu`` rounds once, and differs from
+    the reference by an ulp on about a third of bf16 inputs)."""
+    return x * torch.reciprocal(torch.exp(-x) + 1)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` (``logaddexp(x, 0)``) as the reference computes
+    it, max(x, 0) + log1p(e^-|x|), each op rounded to x's type."""
+    return torch.log1p(torch.exp(-x.abs())) + x.clamp(min=0)
+
+
+class LinearScan(torch.autograd.Function):
+    """h_t = a_t h_{t-1} + bx_t over axis 0 of time-major (S, ...) tensors
+    from h_{-1} = h0 (...); returns every h_t, time-major and contiguous.
+
+    The forward is one ``addcmul`` a time step, each writing its slice of
+    the output: every step reads a_t, bx_t and h_{t-1} once and writes h_t
+    once, the least traffic a scan over HBM can make (a log-depth doubling
+    scan moves its tensors once a level).  Time-major, a step's operands
+    are contiguous slices; batch-major ones would lie a whole sequence
+    apart, and past 2^31 bytes that splits every step's kernel in two.  No
+    closed form is used: with ``L = cumsum(log a)``, ``exp(-L)`` overflows
+    fp32 within a few hundred steps at the decays falcon-mamba's widths
+    give (log a down to -16).  The backward is the reverse recurrence
+    g_t = dh_t + a_{t+1} g_{t+1} (g_{S-1} = dh_{S-1}): ``bx``'s gradient is
+    g, ``a``'s is g_t h_{t-1} and ``h0``'s is a_0 g_0.  It saves ``a`` and
+    the states (and ``h0``), where autograd through the steps would keep
+    each step's graph."""
+
+    @staticmethod
+    def forward(ctx, a, bx, h0):
+        h = torch.empty(bx.shape, dtype=torch.promote_types(a.dtype, bx.dtype),
+                        device=bx.device)
+        prev = h0
+        for a_t, bx_t, out in zip(a.unbind(0), bx.unbind(0), h.unbind(0)):
+            prev = torch.addcmul(bx_t, a_t, prev, out=out)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h, h0 = ctx.saved_tensors
+        g = torch.empty(h.shape, dtype=h.dtype, device=h.device)
+        g_steps, a_steps, dh_steps = g.unbind(0), a.unbind(0), dh.unbind(0)
+        nxt = g_steps[-1].copy_(dh_steps[-1])
+        for t in range(len(g_steps) - 2, -1, -1):
+            nxt = torch.addcmul(dh_steps[t], a_steps[t + 1], nxt, out=g_steps[t])
+        da = dh0 = None
+        if ctx.needs_input_grad[0]:
+            da = torch.empty_like(g)
+            torch.mul(g[1:], h[:-1], out=da[1:])
+            torch.mul(g[0], h0, out=da[0])
+        if ctx.needs_input_grad[2]:
+            dh0 = a[0] * g[0]
+        return da, g, dh0
+
+
+def mamba_scan(
+    a: torch.Tensor,  # (B, S, Di, N) decay = exp(dt * A)
+    bx: torch.Tensor,  # (B, S, Di, N) input contribution dt * B_t * x_t
+    h0: torch.Tensor,  # (B, Di, N)
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The linear recurrence h_t = a_t * h_{t-1} + bx_t; returns (h_all,
+    h_last).  S must be a multiple of ``min(chunk, S)``, as in the
+    reference, whose chunks scan one after another carrying h; the port's
+    steps run one after another in any case (``LinearScan``), so the chunk
+    changes no value.  ``h_all`` is a (B, S, ...) view of the time-major
+    states (``LinearScan``): its steps are contiguous where ``a`` and
+    ``bx`` are such views too.  ``h_last`` is a copy: a view would keep the
+    whole of ``h_all`` alive as long as a cache holds it."""
+    S = a.shape[1]
+    chunk = min(chunk, S)
+    if S % chunk:
+        raise ValueError(f"S={S} not divisible by chunk={chunk}")
+    h = LinearScan.apply(a.transpose(0, 1), bx.transpose(0, 1), h0)
+    return h.transpose(0, 1), h[-1].clone()
+
+
+def _ssm_inputs(params: dict, xc: torch.Tensor):
+    """The data-dependent SSM parameters of the convolved activations xc:
+    (decay (..., Di, N) fp32, bx (..., Di, N) fp32, ct (..., N))."""
+    bt = xc @ params["x_proj_b"]  # (..., N)
+    ct = xc @ params["x_proj_c"]  # (..., N)
+    dt = _softplus(xc * params["dt_proj"]).float()
+    a = -torch.exp(params["a_log"].float())  # (Di, N)
+    # the linear recurrence runs in fp32 (SSM stability + uniform scan dtypes)
+    decay = torch.exp(dt[..., None] * a)
+    bx = (dt * xc.float())[..., None] * bt.float()[..., None, :]
+    return decay, bx, ct
+
+
+def mamba_block_with_state(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d)
+    cfg,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mamba-1 block.  Returns (y, conv_tail (B, Kc-1, Di), h_last).
+
+    ``dt`` is elementwise (``softplus(xc * dt_proj)``), as in the
+    reference; the scan's read-out is rounded to x's type before the skip
+    term is added."""
+    xz = x @ params["in_proj"]
+    z = x @ params["gate_proj"]  # (B, S, Di)
+    xc = _silu(_causal_conv(xz, params["conv_w"]))
+    # the SSM's (S, B, ...) operands time-major, each step's slice contiguous
+    decay, bx, ct = _ssm_inputs(params, xc.transpose(0, 1).contiguous())
+    h0 = torch.zeros(decay.shape[1:], dtype=torch.float32, device=x.device)
+    h_all, h_last = mamba_scan(decay.transpose(0, 1), bx.transpose(0, 1), h0, chunk=chunk)
+    read = torch.einsum("sbdn,sbn->sbd", h_all.transpose(0, 1), ct.float())
+    y = read.transpose(0, 1).to(x.dtype) + xc * params["d_skip"]
+    y = y * _silu(z)
+    Kc = params["conv_w"].shape[0]
+    conv_tail = xz[:, -(Kc - 1):, :].clone()  # a copy, as h_last
+    return (y @ params["out_proj"]).to(x.dtype), conv_tail, h_last
+
+
+def mamba_block(params: dict, x: torch.Tensor, cfg, chunk: int = 256) -> torch.Tensor:
+    y, _, _ = mamba_block_with_state(params, x, cfg, chunk=chunk)
+    return y
+
+
+def mamba_decode_step(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    conv_state: torch.Tensor,  # (B, Kc-1, Di)
+    h: torch.Tensor,  # (B, Di, N)
+    cfg,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token Mamba step with carried (conv_state, h); returns (y,
+    the new conv_state, the new h), h in fp32."""
+    xz = x @ params["in_proj"]  # (B, 1, Di)
+    z = x @ params["gate_proj"]
+    w = params["conv_w"]  # (Kc, Di)
+    full = torch.cat([conv_state, xz], dim=1)  # (B, Kc, Di)
+    xc = _silu((full * w[None]).sum(dim=1, keepdim=True))  # (B, 1, Di)
+    decay, bx, ct = _ssm_inputs(params, xc[:, 0])  # (B, Di, N), (B, Di, N), (B, N)
+    h_new = decay * h + bx  # h carried in fp32
+    y = torch.einsum("bdn,bn->bd", h_new, ct.float()).to(x.dtype)[:, None] + xc * params["d_skip"]
+    y = y * _silu(z)
+    return (y @ params["out_proj"]).to(x.dtype), full[:, 1:], h_new

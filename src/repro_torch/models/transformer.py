@@ -31,11 +31,6 @@ def _dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else getattr(torch, str(name))
 
 
-def _check_kind(cfg: ModelConfig) -> None:
-    if cfg.layer_kind != "attn":
-        raise L.not_ported(cfg.layer_kind)
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -231,12 +226,25 @@ def _residual(lp, x, h, mix, cfg: ModelConfig, ep_group=None):
     return x + ff, aux
 
 
+def _mix(cfg: ModelConfig, attn_out, ssm_out):
+    """The token mixer's output: attention, the SSM, or (hybrid, Hymba's
+    parallel heads) their mean."""
+    if cfg.layer_kind == "attn":
+        return attn_out
+    if cfg.layer_kind == "mamba":
+        return ssm_out
+    return 0.5 * (attn_out + ssm_out)
+
+
 def _layer_fwd(lp, x, cfg: ModelConfig, positions, ep_group=None):
-    """One decoder layer (prefill).  Returns (y, aux_loss)."""
-    _check_kind(cfg)
+    """One decoder layer (train/prefill).  Returns (y, aux_loss)."""
     h = L.apply_norm(cfg.norm, x, lp["ln1"])
-    mix, _ = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
-    return _residual(lp, x, h, mix, cfg, ep_group)
+    attn_out = ssm_out = None
+    if cfg.layer_kind in ("attn", "hybrid"):
+        attn_out, _ = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
+    if cfg.layer_kind in ("mamba", "hybrid"):
+        ssm_out = L.mamba_block(lp["ssm"], h, cfg)
+    return _residual(lp, x, h, _mix(cfg, attn_out, ssm_out), cfg, ep_group)
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +314,6 @@ def forward(
     ``torch.distributed`` group) runs the MoE layers expert-parallel over
     its ranks, ``params`` holding this rank's experts
     (``convert.expert_shard``); every rank returns the same logits."""
-    _check_kind(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -350,34 +357,40 @@ def prefill_step(
     batch: dict,
     ep_group=None,
 ) -> tuple[torch.Tensor, dict]:
-    """Run the full prompt, return (last-token logits (B, V), KV cache).
+    """Run the full prompt, return (last-token logits (B, V), cache).
 
-    The cache is a ring of C = ``kv_cache_len(cfg, S)`` slots; with no
-    sliding window C = S, so the first decode step after it overwrites the
-    oldest position, as in the reference.  ``ep_group`` as in
-    ``forward``."""
-    _check_kind(cfg)
+    Attention layers fill a KV ring of C = ``kv_cache_len(cfg, S)`` slots;
+    with no sliding window C = S, so the first decode step after it
+    overwrites the oldest position, as in the reference.  SSM layers keep
+    the tail of their pre-convolution input (``"conv"``) and their last
+    state (``"h"``, fp32).  The cache holds the reference's keys for the
+    config's ``layer_kind``, each stacked over the layers.  ``ep_group`` as
+    in ``forward``."""
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     C = kv_cache_len(cfg, S)
     dev = x.device
     positions = torch.arange(S, device=dev)[None].expand(B, S)
-    ks, vs = [], []
+    entries: dict[str, list] = {}
     for lp in layer_slices(params):
         h = L.apply_norm(cfg.norm, x, lp["ln1"])
-        mix, (k, v) = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
-        ks.append(_ring_align(k, S, C, axis=1))
-        vs.append(_ring_align(v, S, C, axis=1))
-        x, _ = _residual(lp, x, h, mix, cfg, ep_group)
+        attn_out = ssm_out = None
+        if cfg.layer_kind in ("attn", "hybrid"):
+            attn_out, (k, v) = _attn_branch(lp, h, cfg, positions, cfg.sliding_window)
+            entries.setdefault("k", []).append(_ring_align(k, S, C, axis=1))
+            entries.setdefault("v", []).append(_ring_align(v, S, C, axis=1))
+        if cfg.layer_kind in ("mamba", "hybrid"):
+            ssm_out, conv_tail, h_last = L.mamba_block_with_state(lp["ssm"], h, cfg)
+            entries.setdefault("conv", []).append(conv_tail)
+            entries.setdefault("h", []).append(h_last)
+        x, _ = _residual(lp, x, h, _mix(cfg, attn_out, ssm_out), cfg, ep_group)
     x = L.apply_norm(cfg.norm, x[:, -1:], params["final_norm"])
     logits = _unembed(params, cfg, x)[:, 0]
-    cache_pos = _ring_align(torch.arange(S, dtype=torch.int32, device=dev), S, C, axis=0)
-    cache = {
-        "pos": torch.full((), S, dtype=torch.int32, device=dev),
-        "k": torch.stack(ks),
-        "v": torch.stack(vs),
-        "cache_pos": cache_pos[None].repeat(cfg.n_layers, 1),
-    }
+    cache = {"pos": torch.full((), S, dtype=torch.int32, device=dev)}
+    cache.update((key, torch.stack(per_layer)) for key, per_layer in entries.items())
+    if "k" in cache:
+        cache_pos = _ring_align(torch.arange(S, dtype=torch.int32, device=dev), S, C, axis=0)
+        cache["cache_pos"] = cache_pos[None].repeat(cfg.n_layers, 1)
     return logits, cache
 
 
@@ -411,11 +424,9 @@ def init_kv_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None, device
     return cache
 
 
-def _layer_decode(lp, x, cache: dict, i: int, cfg: ModelConfig, pos):
-    """One layer, one token; writes the token's K/V into layer ``i`` of
-    ``cache`` in place (slot ``pos % C``, with no host sync)."""
-    _check_kind(cfg)
-    h = L.apply_norm(cfg.norm, x, lp["ln1"])
+def _attn_decode(lp, h, cache: dict, i: int, cfg: ModelConfig, pos):
+    """The attention branch of one token; writes its K/V into layer ``i``
+    of ``cache`` in place (slot ``pos % C``, with no host sync)."""
     k_cache, v_cache, cache_pos = cache["k"][i], cache["v"][i], cache["cache_pos"][i]
     C = k_cache.shape[1]
     q, k, v = _qkv(lp, h, cfg, pos.view(1, 1).expand(h.shape[0], 1))
@@ -424,8 +435,28 @@ def _layer_decode(lp, x, cache: dict, i: int, cfg: ModelConfig, pos):
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     cache_pos.index_copy_(0, slot, pos.view(1).to(cache_pos.dtype))
     o = L.decode_attention(q, k_cache, v_cache, cache_pos, pos, cfg.sliding_window)
-    mix = _out_project(o, lp["attn"]["wo"])
-    return _residual(lp, x, h, mix, cfg)[0]
+    return _out_project(o, lp["attn"]["wo"])
+
+
+def _ssm_decode(lp, h, cache: dict, i: int, cfg: ModelConfig):
+    """The SSM branch of one token; writes its conv tail and state into
+    layer ``i`` of ``cache`` in place."""
+    conv, state = cache["conv"][i], cache["h"][i]
+    out, new_conv, new_state = L.mamba_decode_step(lp["ssm"], h, conv, state, cfg)
+    conv.copy_(new_conv)
+    state.copy_(new_state)
+    return out
+
+
+def _layer_decode(lp, x, cache: dict, i: int, cfg: ModelConfig, pos):
+    """One layer, one token, updating layer ``i`` of ``cache`` in place."""
+    h = L.apply_norm(cfg.norm, x, lp["ln1"])
+    attn_out = ssm_out = None
+    if cfg.layer_kind in ("attn", "hybrid"):
+        attn_out = _attn_decode(lp, h, cache, i, cfg, pos)
+    if cfg.layer_kind in ("mamba", "hybrid"):
+        ssm_out = _ssm_decode(lp, h, cache, i, cfg)
+    return _residual(lp, x, h, _mix(cfg, attn_out, ssm_out), cfg)[0]
 
 
 def decode_step(
@@ -437,10 +468,9 @@ def decode_step(
     """One serve step: returns (logits (B, V), cache).
 
     Unlike the reference, which returns a new cache, this updates
-    ``cache``'s K/V tensors in place and returns the same dict with
-    ``"pos"`` advanced by one: a caller that needs the old cache copies it
-    first."""
-    _check_kind(cfg)
+    ``cache``'s tensors (K/V, the SSM's conv tail and state) in place and
+    returns the same dict with ``"pos"`` advanced by one: a caller that
+    needs the old cache copies it first."""
     table = params["embed"]["tokens"]
     x = table[_on(tokens, torch.int64, table.device)]
     pos = cache["pos"]

@@ -7,7 +7,9 @@ SUMMA baseline (one K1 launch a stage) and ``spsumma``; the device
 partitioner's labels on the card equal to its CPU labels; a session whose
 K1 fails to load raises; the LM stack's serving path on the card against
 the CPU, its K3 launches, and a decode step with an expert placement that
-never waits for the card.
+never waits for the card; the SSM's scan and its gradient on the card
+against the CPU, Mamba and hybrid decode steps that never wait for the
+card, and their smoke configs' loss and gradients against the CPU.
 
 Marked ``gpu``; every test skips where no CUDA device exists (decided in
 the ``cuda`` fixture, never at import).  On a card:
@@ -792,7 +794,8 @@ def _to(tree, device):
 
 @pytest.mark.parametrize("arch", ["starcoder2-15b", "internlm2-1.8b", "phi3-mini-3.8b",
                                   "command-r-35b", "llava-next-34b", "qwen3-moe-235b-a22b",
-                                  "dbrx-132b", "musicgen-large"])
+                                  "dbrx-132b", "musicgen-large", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
 def test_lm_serving_on_the_card_equals_the_cpu(cuda, arch):
     """``forward``, ``prefill_step`` and three greedy ``decode_step``s of the
     smoke config in fp32, on the card and on the CPU with the same weights,
@@ -909,3 +912,85 @@ def test_decode_step_with_a_placement_never_waits_for_the_card(cuda):
     assert moved == want
     assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all())
     assert int(cache["pos"]) == 34
+
+
+def test_scan_and_its_gradient_on_the_card_equal_the_cpu(cuda):
+    """``mamba_scan`` (``LinearScan``) at decays of falcon-mamba's range and
+    its three gradients, card against CPU on the same inputs, fp32 within
+    1e-5 (relative and absolute)."""
+    from repro_torch.models.layers import mamba_scan
+
+    g = torch.Generator().manual_seed(0)
+    B, S, Di, N = 2, 256, 64, 16
+    dt = torch.rand((B, S, Di, 1), generator=g) * 0.99 + 0.01
+    a = torch.exp(dt * -torch.arange(1, N + 1, dtype=torch.float32))
+    bx, w = (torch.randn((B, S, Di, N), generator=g) for _ in range(2))
+    h0 = torch.randn((B, Di, N), generator=g)
+    out = {}
+    for dev in ("cpu", cuda):
+        ins = [t.to(dev).requires_grad_() for t in (a, bx, h0)]
+        h_all, h_last = mamba_scan(*ins, chunk=64)
+        loss = (h_all * w.to(dev)).sum() + h_last.sum()
+        out[str(dev)] = (h_all, h_last, *torch.autograd.grad(loss, ins))
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_decode_step_never_waits_for_the_card(cuda, arch):
+    """A bf16 decode step of the Mamba and the hybrid smoke configs runs
+    under ``torch.cuda.set_sync_debug_mode("error")`` after a warm-up
+    step, updating the cache's conv tail and state in place."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="bfloat16")
+    params = init_params(cfg, 0, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 64)),
+                             device=cuda)
+    logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
+    decode = make_decode_step(cfg)
+    logits, cache = decode(params, cache, logits.argmax(-1)[:, None])  # warm-up
+    tok = logits.argmax(-1)[:, None]
+    state, conv = cache["h"], cache["conv"]
+    before = state.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = decode(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert cache["h"] is state and cache["conv"] is conv and not torch.equal(state, before)
+    assert bool(logits.isfinite().all()) and int(cache["pos"]) == 66
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_ssm_train_loss_and_gradients_on_the_card_equal_the_cpu(cuda, arch):
+    """``train_loss`` and every gradient leaf of the smoke config in fp32,
+    card against CPU with the same weights, within 1e-4 (relative and
+    absolute; each gradient's absolute part scaled to min(1, its largest
+    value), as ``chip_smoke.grad_err_within``)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    cfg = get_smoke_config(arch)
+    cpu_params = init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32) for k in ("tokens", "labels")}
+    results = []
+    for params in (cpu_params, _to(cpu_params, cuda)):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = train_loss(leaves, cfg, batch)
+        flat = tree_leaves(leaves)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        results.append((loss, [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]))
+    (loss_c, grads_c), (loss_g, grads_g) = results
+    torch.testing.assert_close(loss_g.cpu(), loss_c, rtol=1e-4, atol=1e-4)
+    assert float(sum(g.square().sum() for g in grads_c)) > 0
+    for got, want in zip(grads_g, grads_c):
+        scale = min(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * scale)

@@ -1,8 +1,8 @@
 """The port's LM stack's shapes against the JAX package's: the parameter
 tree (keys, shapes, dtypes, scales) and the parameter counts of all ten
 full configurations, the input and cache specs of every shape, the
-synthetic token pipeline bit for bit; the SSM layers that are not ported
-yet raise, and the entry points need the card unless told otherwise."""
+synthetic token pipeline bit for bit; and the entry points need the card
+unless told otherwise."""
 import jax
 import numpy as np
 import pytest
@@ -17,15 +17,6 @@ import repro_torch.configs.shapes as shapes
 import repro_torch.data.pipeline as pipeline
 import repro_torch.models.transformer as tf
 from repro_torch.models.convert import params_from_reference
-from repro_torch.training import make_decode_step, make_prefill_step
-
-SSM_ARCHS = [a for a in configs.all_arch_ids()
-             if configs.get_smoke_config(a).layer_kind != "attn"]
-
-
-def _batch(cfg, B=2, S=16, seed=0):
-    rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
 
 
 @pytest.mark.parametrize("arch", configs.all_arch_ids())
@@ -101,19 +92,6 @@ def test_input_and_cache_specs_equal_jax(arch, shape):
         for k, s in want.items():
             assert got[k].device.type == "meta"
             assert tuple(got[k].shape) == s.shape and str(got[k].dtype) == f"torch.{s.dtype}", k
-
-
-@pytest.mark.parametrize("arch", SSM_ARCHS)
-def test_ssm_layers_raise_not_implemented(arch):
-    cfg = configs.get_smoke_config(arch)
-    params = tf.init_params(cfg, 0, device="cpu")
-    batch = _batch(cfg)
-    cache = tf.init_kv_cache(cfg, 2, 16, device="cpu")
-    for call in (lambda: tf.forward(params, cfg, batch),
-                 lambda: make_prefill_step(cfg)(params, batch),
-                 lambda: make_decode_step(cfg)(params, cache, batch["tokens"][:, :1])):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-            call()
 
 
 def test_entry_points_run_on_the_card_unless_told(monkeypatch):

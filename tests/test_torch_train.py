@@ -1,11 +1,13 @@
 """The port's training path against the JAX package's on the CPU: for each
-attention-family architecture at smoke size, in fp32, with JAX's
+of the ten architectures at smoke size (attention, Mamba and hybrid
+layers), in fp32, with JAX's
 ``init_params(cfg, jax.random.key(0))`` carried across by
 ``params_from_reference``, ``train_loss`` and every gradient leaf against
 ``jax.value_and_grad`` of ``repro.models.train_loss`` within 1e-4 (the
 forward's tolerance, ``test_torch_lm.py``).  The MoE layers' expert
 products and their gradients run K3's plain version here
-(``GroupedGemm`` on CPU tensors).  Activation checkpointing
+(``GroupedGemm`` on CPU tensors), the SSM's scan its own reverse
+recurrence (``layers.LinearScan``).  Activation checkpointing
 (``remat_policy`` "nothing", "dots", "none") changes no gradient bit, and
 "nothing" and "dots" really recompute.  One ``make_train_step`` step of
 each optimizer is held to the reference's in ``test_torch_train_step.py``.
@@ -27,9 +29,7 @@ import repro_torch.models.transformer as tf
 from repro_torch.models.convert import params_from_reference
 
 TOL = 1e-4
-ATTN_ARCHS = [a for a in configs.all_arch_ids()
-              if configs.get_smoke_config(a).layer_kind == "attn"]
-SSM_ARCHS = [a for a in configs.all_arch_ids() if a not in ATTN_ARCHS]
+ARCHS = configs.all_arch_ids()
 
 
 def flat(tree, prefix=""):
@@ -86,7 +86,7 @@ def port_loss_and_grads(tp, cfg, batch, **kw):
                            for (k, v), g in zip(leaves.items(), grads)}
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_train_loss_and_every_gradient_equal_jax(arch):
     jcfg, jp, tp = params(arch)
     tcfg = configs.get_smoke_config(arch)
@@ -134,7 +134,8 @@ class _CountMm(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "internlm2-1.8b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "internlm2-1.8b", "falcon-mamba-7b",
+                                  "hymba-1.5b"])
 def test_remat_policies_give_equal_gradients(arch, monkeypatch):
     """"nothing", "dots" and "none" (and ``remat=False``) give the same
     loss and gradients bit for bit.  "nothing" recomputes every layer in
@@ -226,11 +227,3 @@ def test_layer_slices_backward_stacks_once():
     assert torch.ops.aten.select_backward.default not in ops.seen
     for i in range(cfg.n_layers):
         assert torch.equal(g[i], torch.full_like(g[i], i + 1.0))
-
-
-@pytest.mark.parametrize("arch", SSM_ARCHS)
-def test_mamba_kinds_raise_naming_the_roadmap_item(arch):
-    cfg = configs.get_smoke_config(arch)
-    params = tf.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tf.train_loss(params, cfg, train_batch(cfg))

@@ -1,5 +1,5 @@
 """One ``make_train_step`` step of the port against the JAX package's on
-the CPU, for each attention-family architecture at smoke size in fp32 and
+the CPU, for each of the ten architectures at smoke size in fp32 and
 each optimizer: the metrics (``loss``, ``grad_norm``, ``nll``, ``aux``),
 the updated parameters and the optimizer state, within 1e-4 (the forward's
 tolerance); then ``launch.train``'s trainer and entry point, and the
@@ -23,13 +23,13 @@ from repro_torch.models.convert import params_from_reference
 from repro_torch.training import make_train_step
 from repro_torch.training.optimizer import OPTIMIZERS
 
-from test_torch_train import ATTN_ARCHS, close, flat, train_batch
+from test_torch_train import ARCHS, close, flat, train_batch
 
 TOL = 1e-4
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_equals_jax(arch, optimizer):
     jcfg, tcfg = jax_configs.get_smoke_config(arch), configs.get_smoke_config(arch)
     jp = jax_tf.init_params(jcfg, jax.random.key(0))
@@ -86,6 +86,29 @@ def test_train_main_runs_and_checkpoints(tmp_path, capsys):
     # a second run on the same directory resumes at step 4: nothing left to do
     train_mod.main(argv)
     assert "done: 0 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "hymba-1.5b"])
+def test_train_main_runs_and_checkpoints_the_ssm_archs(arch, tmp_path, capsys):
+    """``launch.train.main`` at a Mamba and a hybrid smoke config: the
+    steps run, the loss is finite, and the checkpoint holds the trained
+    parameters."""
+    ckpt = str(tmp_path / "ckpt")
+    params = train_mod.main(["--arch", arch, "--smoke", "--steps", "3", "--ckpt-every", "3",
+                             "--seq-len", "32", "--global-batch", "2", "--device", "cpu",
+                             "--ckpt-dir", ckpt])
+    out = capsys.readouterr().out
+    assert "done: 3 steps, 0 restarts" in out
+    losses = [float(l.split("loss")[1].split()[0]) for l in out.splitlines()
+              if l.startswith("step ")]
+    assert losses and all(np.isfinite(losses))
+    from repro_torch.checkpoint import latest_step, restore_checkpoint
+
+    assert latest_step(ckpt) == 3
+    tree, _ = restore_checkpoint(ckpt)
+    assert "ssm" in tree["params"]["layers"]
+    for k, v in flat(params).items():
+        assert torch.equal(flat(tree["params"])[k], v)
 
 
 def test_model_parallel_raises_naming_the_roadmap_item():
