@@ -82,7 +82,15 @@ Phases, each printing its seconds:
      scipy, a call's time, K1 at rank 0's monoC inputs; (b)
      ``compressed_psum_mean`` on 64 M bf16 gradient elements; (c)
      Qwen3-MoE-235B-A22B prefill, 2 x 1024 tokens, 2 layers, with its
-     experts split over the ranks, against the one-process prefill.
+     experts split over the ranks, against the one-process prefill; (d)
+     LP-pds100 monoC and 27-PTAP fine through ``compile(batch=8,
+     group=...)``, a dispatch of 8 sets and a ragged one of 5, against the
+     one-process batched result (K1 once a dispatch a rank), beside 8
+     looped group calls; (e) phase 10's serving through
+     ``SpGEMMServer(group=...)``: 48 requests, a restart on the plan
+     store, a fault on rank 1 alone that every rank retries, every
+     collective's wait; (f) 16 expert-parallel decode steps after (c)'s
+     prefill, against the one-process decode, with a step's host syncs.
  14. training (``training``): (a) Qwen3-MoE-235B-A22B at its published
      width, bf16, 2 of its 94 layers, Adafactor, 4 x 1024 tokens a step
      (K3 at C = 320), 6 steps through ``launch.train.build_trainer`` and
@@ -120,7 +128,8 @@ fp32 one, ``stage16`` on the misaligned bf16 up projection, and
 ``expert_wgmma`` again at the LM path's prefill (C = 640) and decode
 (C = 1) up projections, with their launches on that path, and phase 13's
 ``scalar_runs`` and ``expert_wgmma`` with the launches the ranks counted
-in their processes (timed on rank 0 while the others wait), and phase 14's
+in their processes (timed on rank 0 while the others wait), with 13 (d)'s
+batched ``scalar_runs`` and 13 (f)'s ``expert_wgmma`` at C = 1, and phase 14's
 ``expert_wgmma``, ``expert_wgmma_dx`` and ``expert_wgmma_dw`` with their
 launches in one training step, and ``split3_bf16_t`` and the backward's
 two ``expert_split`` products (dx, dw) with their launches in 14 (b),
@@ -2016,7 +2025,12 @@ def lm_serving(device):
 RANKS = 4  # phase 13: one rank a process, every process on the one card
 RANK_REPS = 3
 EP_LAYERS, EP_BATCH, EP_PROMPT = 2, 2, 1024  # phase 13 (c): 2 of the published 94 layers
+EP_DECODE_STEPS = 16  # phase 13 (f), after (c)'s prefill
 GRAD_ELEMS = 64 * 2**20  # phase 13 (b)
+BATCH_SETS, RAGGED_SETS = 8, 5  # phase 13 (d): a full dispatch and a ragged one
+BATCHED = (("LP-pds100", "monoC"), ("27-PTAP(n=42)", "fine"))  # phase 13 (d)
+SERVE_SEED = 24  # phase 13 (e): rank 0's traffic
+WAIT_LIMIT_S = 5.0  # phase 13 (e): the longest a rank may wait in an exchange or agreement
 K1_MODELS = ("monoC", "summa2d")  # local compute on K1 alone: bit for bit on the card
 
 
@@ -2054,6 +2068,27 @@ def rank_csr_operands(handle, a, b, rank: int, device):
     k = handle.instance.a.shape[1]
     pairs = int((np.bincount(inner[0], minlength=k) * np.bincount(inner[1], minlength=k)).sum())
     return mats[0], mats[1], pairs
+
+
+def block_diag_csr(mats):
+    """One CSR matrix holding ``mats`` (CSR, on one device) on its
+    diagonal: the library's one call over a batch of products is the
+    product of two of them."""
+    import torch
+
+    rows, cols, vals, (n_r, n_c) = [], [], [], (0, 0)
+    for m in mats:
+        coo = m.to_sparse_coo().coalesce()
+        idx = coo.indices()
+        rows.append(idx[0] + n_r)
+        cols.append(idx[1] + n_c)
+        vals.append(coo.values())
+        n_r, n_c = n_r + m.shape[0], n_c + m.shape[1]
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    with warnings.catch_warnings():  # CSR is "beta" in PyTorch; not our concern
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(idx, torch.cat(vals), (n_r, n_c)).coalesce() \
+            .to_sparse_csr()
 
 
 def _c_values(handle, c):
@@ -2176,13 +2211,15 @@ def _rank_psum(group, device) -> dict:
     }
 
 
-def _rank_ep(group, device) -> dict:
-    """Phase 13 (c) on one rank: Qwen3-MoE prefill with its experts split
-    over the group (``expert_shard``, ``make_prefill_step(cfg, ep_group)``).
-    The ranks build the full tree from the seed on the card one at a time
-    and keep their shard (a full 2-layer tree is 12 GB).  A warm-up call,
+def _rank_ep(group, device, tokens) -> dict:
+    """Phase 13 (c) and (f) on one rank: Qwen3-MoE prefill with its experts
+    split over the group (``expert_shard``, ``make_prefill_step(cfg,
+    ep_group)``), then ``EP_DECODE_STEPS`` decode steps on its cache.  The
+    ranks build the full tree from the seed on the card one at a time and
+    keep their shard (a full 2-layer tree is 12 GB).  (c): a warm-up call,
     the main run with the launch counts reset, 3 timed calls, then one call
-    with every K3 launch held to its plain version."""
+    with every K3 launch held to its plain version.  (f): ``tokens``, the
+    one-process greedy decode's, fed one a step (``_rank_ep_decode``)."""
     import torch
     import torch.distributed as dist
     import repro_torch.kernels.moe_gemm as k3_mod
@@ -2207,7 +2244,7 @@ def _rank_ep(group, device) -> dict:
     prefill(params, batch)
     torch.cuda.synchronize()
     reset_launches()
-    logits, _ = prefill(params, batch)
+    logits, cache = prefill(params, batch)
     torch.cuda.synchronize()
     launches = {k: v for k, v in moe_gemm.launches.items() if v}
     calls = timed_ms(lambda: prefill(params, batch), 3)
@@ -2224,32 +2261,303 @@ def _rank_ep(group, device) -> dict:
         k3 = k3_record_at(x, w, launches.get("expert_wgmma", 0),
                           max(r["max_abs_err"] for r in records))
     dist.barrier(group)
-    return {
+    out = {
         "logits": logits.float().cpu().numpy(), "launches": launches, "ms": calls,
         "experts_held": int(params["layers"]["moe"]["wi"].shape[1]),
         "peak_bytes": torch.cuda.max_memory_allocated(), "init_peak_bytes": init_peak,
         "param_bytes": _tree_bytes(params), "k3_checked": len(records), "k3": k3,
     }
+    out["decode"] = _rank_ep_decode(group, device, params, cfg, cache, tokens)
+    return out
+
+
+def _rank_ep_decode(group, device, params, cfg, cache, tokens) -> dict:
+    """Phase 13 (f) on one rank: ``make_decode_step(cfg, ep_group)`` from
+    (c)'s prefill cache, fed the one-process decode's tokens: the main run
+    (``EP_DECODE_STEPS`` steps, each timed, the launch counts reset before
+    and read after), one step under ``torch.cuda.set_sync_debug_mode("warn")``
+    with the warnings and where they rose, and one with every K3 launch
+    held to its plain version, both from copies of the cache."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch.kernels.moe_gemm as k3_mod
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.training import make_decode_step
+
+    decode = make_decode_step(cfg, ep_group=group)
+    start = {k: v.clone() for k, v in cache.items()}
+    toks = [torch.as_tensor(t, device=device) for t in tokens]
+    decode(params, {k: v.clone() for k, v in start.items()}, toks[0])  # warm-up
+    torch.cuda.synchronize()
+    dist.barrier(group)
+    reset_launches()
+    steps, ms = [], []
+    for tok in toks:
+        t0 = time.perf_counter()
+        logits, out = decode(params, cache, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if out is not cache:
+            fail("ranks (f): the decode step returned another cache than it was given")
+        steps.append(logits.float().cpu().numpy())
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    pos = int(cache["pos"])
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            decode(params, {k: v.clone() for k, v in start.items()}, toks[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [(Path(w.filename).name, w.lineno, str(w.message).splitlines()[0][:120])
+             for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    records, keep = [], {}
+    real = k3_mod.moe_gemm
+    try:
+        k3_mod.moe_gemm = k3_checked(records, keep, "ep decode", real)
+        decode(params, {k: v.clone() for k, v in start.items()}, toks[0])
+    finally:
+        k3_mod.moe_gemm = real
+    x, w = keep["ep decode"]
+    k3 = None
+    if dist.get_rank(group) == 0:  # timed alone on the card: the other ranks wait
+        k3 = k3_record_at(x, w, launches.get("expert_wgmma", 0),
+                          max(r["max_abs_err"] for r in records))
+    dist.barrier(group)
+    return {"logits": np.stack(steps), "ms": ms, "launches": launches, "pos": pos,
+            "syncs": syncs, "k3_checked": len(records), "k3_shape": [list(x.shape),
+                                                                     list(w.shape)],
+            "k3": k3}
+
+
+def _rank_batched(group, device, cases) -> dict:
+    """Phase 13 (d) on one rank: each case through ``compile(batch=
+    BATCH_SETS, group=...)``: a warm-up, then one dispatch of
+    ``BATCH_SETS`` value sets and one ragged dispatch of ``RAGGED_SETS``
+    (the launch counts and items reset before each and read after), the C
+    values of every set, then ``RANK_REPS`` timed rounds of one dispatch and
+    of ``BATCH_SETS`` looped unbatched calls over the group (a barrier
+    before each); and K1 at rank 0's batched monoC inputs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+
+    dev = lambda x: torch.from_numpy(x).to(device)  # noqa: E731
+    out, k1 = {}, None
+    for key, handle, a, b, a5, b5 in cases:
+        exe = handle.compile(device=device, batch=BATCH_SETS, group=group)
+        one = handle.compile(device=device, group=group)
+        a, b, a5, b5 = dev(a), dev(b), dev(a5), dev(b5)
+        exe(a, b), one(a[0], b[0])  # warm-up
+        torch.cuda.synchronize()
+        rec = {}
+        for name, x, y in (("full", a, b), ("ragged", a5, b5)):
+            reset_launches()
+            exe.runtime.comm.reset()
+            c = exe(x, y)
+            torch.cuda.synchronize()
+            got = [_c_values(handle, c[i]) for i in range(c.shape[0])]
+            rec[name] = {"sets": int(c.shape[0]), "items": exe.runtime.comm.items_moved,
+                         "k1_launches": dict(bsr_spgemm_local.launches),
+                         "vals": np.stack([v for v, _ in got]),
+                         "outside": sum(n for _, n in got)}
+            del c, got
+        batched_ms, looped_ms = [], []
+        for _ in range(RANK_REPS):
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            exe(a, b)
+            torch.cuda.synchronize()
+            batched_ms.append((time.perf_counter() - t0) * 1e3)
+            dist.barrier(group)
+            t0 = time.perf_counter()
+            for i in range(BATCH_SETS):
+                one(a[i], b[i])
+            torch.cuda.synchronize()
+            looped_ms.append((time.perf_counter() - t0) * 1e3)
+        rec["batched_ms"], rec["looped_ms"] = batched_ms, looped_ms
+        out[key] = rec
+        if handle.model == "monoC":
+            # every rank expands; rank 0 alone then times K1 on its inputs
+            args = exe.runtime.step.kernel_inputs(*exe.runtime.pack(*exe.pack(a, b)))
+            if dist.get_rank(group) == 0:  # the library's call: CSR @ CSR, block-diagonal
+                sets = [rank_csr_operands(handle, a[i], b[i], 0, device)
+                        for i in range(BATCH_SETS)]
+                k1 = kernel_record(args, library_csr_ms(block_diag_csr([m[0] for m in sets]),
+                                                        block_diag_csr([m[1] for m in sets])))
+                k1["library_pairs"] = sum(m[2] for m in sets)
+            del args
+            dist.barrier(group)
+        del exe, one
+        torch.cuda.empty_cache()
+    return {"cases": out, "k1": k1}
+
+
+def serving_traffic(seed: int):
+    """Phase 10's traffic from ``seed``: (instances by the id of their A
+    structure, the 48 requests in order, each (instance, (a, b))), over
+    LP-pds100, pds80 and a pds100 with 2% of A's nonzeros moved within
+    their rows, times its transpose."""
+    from repro_torch.core.matrices import lp_instance
+    from repro_torch.core.spgemm_models import SpGEMMInstance
+
+    rng = np.random.default_rng(seed)
+    pds100, pds80 = lp_instance("pds100"), lp_instance("pds80")
+    drift_a = drifted(pds100.a, 0.02, rng)
+    drift = SpGEMMInstance(drift_a, drift_a.transpose(), name="LP-pds100-drift2%")
+    cycle = (pds100, pds80, pds100, pds100, pds80, drift)  # 24 : 16 : 8 over 48
+    traffic = [(inst, (rng.standard_normal(inst.a.nnz).astype(np.float32),
+                       rng.standard_normal(inst.b.nnz).astype(np.float32)))
+               for inst in cycle * 8]
+    return {id(i.a): i for i in (pds100, pds80, drift)}, traffic, rng
+
+
+class _Waits:
+    """Seconds each ``torch.distributed`` collective the serving tier makes
+    took in this process, by name, while installed (``with``)."""
+
+    NAMES = ("all_to_all_single", "all_reduce", "all_gather_object", "broadcast_object_list")
+
+    def __init__(self):
+        self.seconds = {name: [] for name in self.NAMES}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._real = {name: getattr(dist, name) for name in self.NAMES}
+        for name, fn in self._real.items():
+            setattr(dist, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name].append(time.perf_counter() - t0)
+        return timed
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._real.items():
+            setattr(dist, name, fn)
+
+    def summary(self) -> dict:
+        return {name: {"calls": len(s), "max_s": max(s, default=0.0), "sum_s": sum(s)}
+                for name, s in self.seconds.items()}
+
+
+def _rank_serving(group, device, store: str) -> dict:
+    """Phase 13 (e) on one rank: phase 10's serving over the group.  Rank 0
+    holds the traffic (``serving_traffic``), submits it, steps, checks every
+    result against scipy and releases it; the others ``follow()``.  (b) 48
+    requests in windows of 16 on a plan store; (c) a second server on the
+    same store replays 8; (d) a third takes 4 pds100 requests with one
+    transient ``"execute"`` fault armed on rank 1 alone.  Every collective
+    the ranks make is timed (``_Waits``)."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+    from repro_torch.launch.serve import SpGEMMServer
+    from repro_torch.testing import faults
+
+    rank = dist.get_rank(group)
+    config = dict(p=RANKS, model="monoC", max_batch=8, batch_window=16, pool_entries=4,
+                  store_dir=store, device=str(device), group=group)
+    inst_of, traffic, rng = serving_traffic(SERVE_SEED) if rank == 0 else (None, None, None)
+
+    def check_and_release(requests):
+        errs = []
+        for req in requests:
+            if req.error is not None or req.result is None:
+                fail(f"ranks (e): request {req.rid} failed: {req.error!r}")
+            inst = inst_of[id(req.a_s)]
+            errs.append(check_product(inst, req.result, req.a_vals, req.b_vals, device,
+                                      f"ranks (e) request {req.rid} ({inst.name})"))
+            req.result = None
+        return errs
+
+    def serve(server, work, step=False):
+        """Rank 0: submit ``work``, serve it (one ``step`` a window of 16
+        with ``step``, else ``drain``), close; the rest follow."""
+        if rank:
+            server.follow()
+            return {}
+        errs, step_s = [], 0.0
+        for w in range(0, len(work), 16):
+            reqs = [server.submit((inst.a, va), (inst.b, vb)) for inst, (va, vb) in
+                    work[w:w + 16]]
+            t0 = time.perf_counter()
+            server.step() if step else server.drain()
+            step_s += time.perf_counter() - t0
+            errs += check_and_release(reqs)
+        server.close()
+        return {"report": server.report(), "steps_s": step_s, "max_abs_err": max(errs)}
+
+    out = {}
+    with _Waits() as waits:
+        server = SpGEMMServer(**config)
+        reset_launches()
+        loop = serve(server, traffic, step=True)
+        out["loop"] = dict(loop, events=server.session.stats()["events"],
+                           dispatches=server.stats.dispatches,
+                           k1_launches=bsr_spgemm_local.launches["scalar_runs"])
+        server = SpGEMMServer(**config)
+        faults.reset_counts()
+        replay = None
+        if rank == 0:
+            cycle = [inst for inst, _ in traffic[:6]] + [traffic[1][0], traffic[5][0]]
+            replay = [(inst, (rng.standard_normal(inst.a.nnz).astype(np.float32),
+                              rng.standard_normal(inst.b.nnz).astype(np.float32)))
+                      for inst in cycle]
+        restart = serve(server, replay)
+        out["restart"] = dict(restart, events=server.session.stats()["events"],
+                              calls=faults.call_counts())
+        server = SpGEMMServer(**config)
+        work = None
+        if rank == 0:
+            pds100 = traffic[0][0]
+            work = [(pds100, (rng.standard_normal(pds100.a.nnz).astype(np.float32),
+                              rng.standard_normal(pds100.b.nnz).astype(np.float32)))
+                    for _ in range(4)]
+        armed = faults.inject("execute", times=1) if rank == 1 else contextlib.nullcontext()
+        with armed as script:
+            fault = serve(server, work)
+        out["fault"] = dict(fault, fired=None if script is None else script.fired,
+                            retries=[e.detail["stage"] for e in server.session.events
+                                     if e.kind == "retry"],
+                            events=server.session.stats()["events"],
+                            failed=server.stats.failed)
+    out["waits"] = waits.summary()
+    return out
 
 
 def _phase13_rank(group, device, payload: str) -> dict:
-    """What each of phase 13's processes runs: (a), (b) and (c) in turn."""
+    """What each of phase 13's processes runs: (a), (b), (c) with (f), (d)
+    and (e) in turn."""
     import pickle
 
     import torch
 
     with open(payload, "rb") as f:
-        products = pickle.load(f)
-    out = _rank_products(group, device, products)
-    del products
+        work = pickle.load(f)
+    out = _rank_products(group, device, work.pop("products"))
     torch.cuda.empty_cache()
     out["psum"] = _rank_psum(group, device)
     torch.cuda.empty_cache()
-    out["ep"] = _rank_ep(group, device)
+    out["ep"] = _rank_ep(group, device, work["decode_tokens"])
+    torch.cuda.empty_cache()
+    out["batched"] = _rank_batched(group, device, work.pop("batched"))
+    torch.cuda.empty_cache()
+    out["serving"] = _rank_serving(group, device, work["store"])
     return out
 
 
-def ranks_in_processes(handles, device, rng):
+def ranks_in_processes(handles, device, rng, served=None):
     """Phase 13: ranks in their own processes — ``RANKS`` processes on the
     one card (``launch.ranks.run_ranks``), one rank each, over a gloo group
     that moves the bytes through the host (NCCL refuses two ranks on one
@@ -2279,10 +2587,39 @@ def ranks_in_processes(handles, device, rng):
         logits of every rank (the same bits on all) within
         ``TOL["bfloat16"]`` (2e-2 + 2e-2 |want|) of the one-process prefill
         in the parent, 3 K3 launches a layer in every rank, every K3 launch
-        of one call against its plain version, each rank's peak memory.
+        of one call against its plain version, each rank's peak memory;
+    (d) batched over the group: LP-pds100 monoC and 27-PTAP fine through
+        ``compile(batch=8, group=...)``, one dispatch of 8 value sets and a
+        ragged one of 5: each set's C against the one-process batched
+        result (bit for bit for monoC, K1; within 1e-4 + 1e-4 |want| for
+        fine, whose ``index_add_`` sums in no fixed order on the card), the
+        ranks' items summing to 8 x ``moved_items``, K1 once a dispatch on
+        every rank for monoC; ms a dispatch (the slowest rank's median)
+        beside 8 looped unbatched group calls and the one-process batched
+        dispatch timed here (and phase 10's);
+    (e) phase 10's serving over the group (``SpGEMMServer(group=...)``, a
+        plan store in a temporary directory): 48 requests in windows of 16,
+        a restart on the same store that must restore 3 entries with no
+        ``"partition"`` call on any rank, and one transient ``"execute"``
+        fault on rank 1 alone that every rank must retry; every result
+        against scipy on rank 0; any other retry, downgrade, fallback, store
+        error or failure, K1 launches other than one a dispatch, or an
+        exchange or agreement that waited past ``WAIT_LIMIT_S`` fails it;
+        QPS and p50/p99 on rank 0 beside phase 10's;
+    (f) (c)'s prefill continued by 16 decode steps over the 4 ranks
+        (``make_decode_step(cfg, ep_group)``, 32 experts a rank), fed the
+        one-process greedy decode's tokens: 3 ``expert_wgmma`` launches a
+        MoE layer a step on every rank, each K3 launch of a step within the
+        bf16 rule of its plain version, the logits bit for bit the
+        one-process decode's at every step (when that decode repeats bit
+        for bit; else within ``TOL["bfloat16"]``), and the host syncs of a
+        step under the sync debug mode only the combine's staging copies
+        in ``comm.py`` (two a MoE layer); ms a step beside the one-process
+        step timed here and phase 12's.
     A failing rank fails the phase."""
     import pickle
     import shutil
+    import tempfile
 
     import torch
     import repro_torch
@@ -2290,7 +2627,7 @@ def ranks_in_processes(handles, device, rng):
     from repro_torch.distributed.plan_ir import moved_items
     from repro_torch.launch.ranks import run_ranks
     from repro_torch.models import init_params
-    from repro_torch.training import make_prefill_step
+    from repro_torch.training import make_decode_step, make_prefill_step
 
     t0 = time.perf_counter()
     for inst in {inst for inst, _ in handles}:
@@ -2318,22 +2655,72 @@ def ranks_in_processes(handles, device, rng):
             refs[key]["k1"] = _k1_launches_per_rank(handle.execution_plan)
         products.append((key, _slim(handle), a, b))
         del c, exe
+    # (d): the one-process batched dispatches the ranks are held to
+    inst_by_name = {inst.name: inst for inst, _ in handles}
+    batched, batched_refs = [], {}
+    for name, model in BATCHED:
+        inst = inst_by_name[name]
+        handle = handles[(inst, model)]
+        key = f"{name}/{model}"
+        sets = {n: tuple(rng.standard_normal((n, s.nnz)).astype(np.float32)
+                         for s in (inst.a, inst.b)) for n in (BATCH_SETS, RAGGED_SETS)}
+        exe = handle.compile(device=device, batch=BATCH_SETS)
+        ref = {"moved": moved_items(handle.execution_plan)}
+        for what, n in (("full", BATCH_SETS), ("ragged", RAGGED_SETS)):
+            a, b = (torch.from_numpy(x).to(device) for x in sets[n])
+            exe.runtime.comm.reset()
+            c = exe(a, b)
+            torch.cuda.synchronize()
+            ref[f"{what}_items"] = exe.runtime.comm.items_moved
+            ref[what] = np.stack([_c_values(handle, c[i])[0] for i in range(n)])
+            if what == "full":
+                ref["max_abs_err"] = check_product(inst, c[0], sets[n][0][0], sets[n][1][0],
+                                                   device, f"ranks (d) {key} one process")
+                ref["one_process_ms"] = statistics.median(timed_ms(lambda: exe(a, b),
+                                                                   RANK_REPS))
+            del c
+        batched_refs[key] = ref
+        batched.append((key, _slim(handle), *sets[BATCH_SETS], *sets[RAGGED_SETS]))
+        del exe
+    runtime.cache_clear()
+    torch.cuda.empty_cache()
     # the one-process prefill the EP ranks are held to, and how far a second
-    # call of it moves (the card's atomics sum in no fixed order)
+    # call of it moves (the card's atomics sum in no fixed order); then (f):
+    # its greedy decode from the prefill's cache, twice, each step timed
     cfg = _ep_config()
     params = init_params(cfg, 0, device=device)
     prefill = make_prefill_step(cfg)
-    ep_want = prefill(params, _ep_batch(cfg, device))[0].float()
+    ep_want, cache = prefill(params, _ep_batch(cfg, device))
+    ep_want = ep_want.float()
     repeat_diff = float((prefill(params, _ep_batch(cfg, device))[0].float() - ep_want)
                         .abs().max())
-    del params, prefill
+    decode = make_decode_step(cfg)
+    decode_runs = []
+    for _ in range(2):
+        run_cache = {k: v.clone() for k, v in cache.items()}
+        tok, steps, ms, tokens = ep_want.argmax(-1)[:, None], [], [], []
+        for _ in range(EP_DECODE_STEPS):
+            tokens.append(tok.cpu().numpy())
+            t_step = time.perf_counter()
+            logits, run_cache = decode(params, run_cache, tok)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t_step) * 1e3)
+            steps.append(logits.float().cpu().numpy())
+            tok = logits.argmax(-1)[:, None]
+        decode_runs.append((np.stack(steps), ms, tokens))
+    decode_want, decode_ms, decode_tokens = decode_runs[0]
+    decode_repeat_bitwise = bool(np.array_equal(decode_runs[1][0], decode_want))
+    del params, prefill, decode, cache, run_cache, decode_runs
     runtime.cache_clear()
     torch.cuda.empty_cache()
     workdir = ROOT / "build" / "ranks"
     workdir.mkdir(parents=True, exist_ok=True)
     payload = workdir / "products.pkl"
+    store = tempfile.mkdtemp(prefix="plan_store_", dir=workdir)
     with open(payload, "wb") as f:
-        pickle.dump(products, f, protocol=pickle.HIGHEST_PROTOCOL)
+        pickle.dump({"products": products, "batched": batched, "store": store,
+                     "decode_tokens": decode_tokens}, f, protocol=pickle.HIGHEST_PROTOCOL)
+    del products, batched
     phase("ranks (set-up)", t0)
 
     t1 = time.perf_counter()
@@ -2425,7 +2812,153 @@ def ranks_in_processes(handles, device, rng):
     rec["k3"] = dict(ep[0]["k3"], launches=sum(e["launches"]["expert_wgmma"] for e in ep))
     print("ranks (c) EP prefill", json.dumps(rec["ep"]), flush=True)
     print("ranks K1", json.dumps(rec["k1"]), "K3", json.dumps(rec["k3"]), flush=True)
+
+    rec["batched"] = ranks_batched_checks(per_rank, batched_refs, served)
+    rec["k1_batched"] = dict(per_rank[0]["batched"]["k1"], launches=sum(
+        r["batched"]["cases"]["LP-pds100/monoC"]["full"]["k1_launches"]["scalar_runs"]
+        for r in per_rank))
+    rec["serving"] = ranks_serving_checks(per_rank, served)
+    rec["decode"], rec["k3_decode"] = ranks_decode_checks(
+        per_rank, decode_want, decode_ms, decode_repeat_bitwise, cfg)
     return rec
+
+
+def ranks_batched_checks(per_rank, refs, served) -> dict:
+    """Phase 13 (d)'s checks and record, from the ranks' results."""
+    out = {}
+    for key, ref in refs.items():
+        model = key.rsplit("/", 1)[1]
+        got = [r["batched"]["cases"][key] for r in per_rank]
+        rec = {"moved_items": ref["moved"], "one_process_dispatch_ms": ref["one_process_ms"],
+               "one_process_max_abs_err_set0": ref["max_abs_err"]}
+        for what, sets in (("full", BATCH_SETS), ("ragged", RAGGED_SETS)):
+            items = [g[what]["items"] for g in got]
+            if sum(items) != BATCH_SETS * ref["moved"] or ref[f"{what}_items"] != sum(items):
+                fail(f"ranks (d) {key} {what}: items {items} sum to {sum(items)}, not "
+                     f"{BATCH_SETS} x {ref['moved']} (one process {ref[f'{what}_items']})")
+            vals = [g[what]["vals"] for g in got]
+            if any(g[what]["outside"] or g[what]["sets"] != sets for g in got) or any(
+                    not np.array_equal(v, vals[0]) for v in vals):
+                fail(f"ranks (d) {key} {what}: the ranks' C differ, hold {sets} sets not, or "
+                     f"hold nonzeros outside C")
+            want = ref[what]
+            diff = float(np.abs(vals[0] - want).max(initial=0.0))
+            bitwise = bool(np.array_equal(vals[0], want))
+            if model == "monoC" and not bitwise:
+                fail(f"ranks (d) {key} {what}: not bit for bit the one-process batched result "
+                     f"(max diff {diff})")
+            if not (np.abs(vals[0] - want) <= 1e-4 + 1e-4 * np.abs(want)).all():
+                fail(f"ranks (d) {key} {what}: max diff {diff} from one process")
+            k1 = [g[what]["k1_launches"] for g in got]
+            expect = 1 if model == "monoC" else 0
+            if any(k["scalar_runs"] != expect or sum(k.values()) != expect for k in k1):
+                fail(f"ranks (d) {key} {what}: K1 launches {k1}, not {expect} a rank")
+            rec[what] = {"sets": sets, "items_per_rank": items, "items_sum": sum(items),
+                         "bitwise_one_process": bitwise, "max_diff_one_process": diff,
+                         "k1_launches_per_rank": [k["scalar_runs"] for k in k1]}
+        batched = [statistics.median(g["batched_ms"]) for g in got]
+        looped = [statistics.median(g["looped_ms"]) for g in got]
+        rec.update(dispatch_ms_per_rank=batched, dispatch_ms=max(batched),
+                   looped_8_calls_ms_per_rank=looped, looped_8_calls_ms=max(looped))
+        if served is not None and key == "LP-pds100/monoC":
+            b = served["stream"]["batched"]
+            rec["phase10_one_process_dispatch_ms"] = b["seconds"] / b["calls"] * 1e3
+        out[key] = rec
+        print(f"ranks (d) {key}", json.dumps(rec), flush=True)
+    return out
+
+
+def ranks_serving_checks(per_rank, served) -> dict:
+    """Phase 13 (e)'s checks and record, from the ranks' results."""
+    got = [r["serving"] for r in per_rank]
+    loop, restart, fault = got[0]["loop"], got[0]["restart"], got[0]["fault"]
+    for rank, g in enumerate(got):
+        for part in ("loop", "restart", "fault"):
+            if g[part]["events"] != got[0][part]["events"]:
+                fail(f"ranks (e) {part}: rank {rank}'s events {g[part]['events']} are not "
+                     f"rank 0's {got[0][part]['events']}")
+        events = g["loop"]["events"]
+        unscripted = {k: events.get(k, 0) for k in
+                      ("model_downgrade", "engine_fallback", "retry", "store_error")}
+        if any(unscripted.values()) or events.get("cold_replan") != 2 or not events.get(
+                "warm_replan"):
+            fail(f"ranks (e) loop, rank {rank}: events {events}")
+        if g["loop"]["k1_launches"] != g["loop"]["dispatches"] or not g["loop"]["dispatches"]:
+            fail(f"ranks (e) loop, rank {rank}: {g['loop']['k1_launches']} K1 launches for "
+                 f"{g['loop']['dispatches']} dispatches")
+        if g["restart"]["events"] != {"restored": 3} or g["restart"]["calls"].get("partition"):
+            fail(f"ranks (e) restart, rank {rank}: {g['restart']['events']}, calls "
+                 f"{g['restart']['calls']}")
+        f = g["fault"]
+        if f["retries"] != ["execute"] or f["failed"] or (rank == 1) != (f["fired"] == 1):
+            fail(f"ranks (e) fault, rank {rank}: retries {f['retries']}, fired {f['fired']}, "
+                 f"{f['failed']} failed")
+        waits = g["waits"]
+        slowest = max(waits[k]["max_s"] for k in
+                      ("all_to_all_single", "all_reduce", "all_gather_object"))
+        if slowest > WAIT_LIMIT_S:
+            fail(f"ranks (e), rank {rank}: an exchange or agreement waited {slowest} s: {waits}")
+    report = loop["report"]
+    if report["completed"] != 48 or report["failed"] or restart["report"]["failed"]:
+        fail(f"ranks (e): report {report}, restart {restart['report']}")
+    rec = {
+        "report": report, "events": loop["events"], "steps_s": loop["steps_s"],
+        "qps_in_steps": report["completed"] / loop["steps_s"],
+        "max_abs_err_vs_scipy": max(loop["max_abs_err"], restart["max_abs_err"],
+                                    fault["max_abs_err"]),
+        "restart": {"events": restart["events"], "report": restart["report"],
+                    "calls_per_rank": [g["restart"]["calls"] for g in got]},
+        "fault": {"events": fault["events"], "fired_per_rank": [g["fault"]["fired"]
+                                                               for g in got]},
+        "waits_per_rank": [g["waits"] for g in got],
+        "k1_launches_per_rank": [g["loop"]["k1_launches"] for g in got],
+    }
+    if served is not None:
+        one = served["loop"]
+        rec["phase10"] = {"qps": one["report"]["qps"], "qps_in_steps": one["qps_in_steps"],
+                          "p50_us": one["report"]["p50_us"], "p99_us": one["report"]["p99_us"]}
+    print("ranks (e) serving", json.dumps(rec), flush=True)
+    return rec
+
+
+def ranks_decode_checks(per_rank, want, one_ms, repeat_bitwise: bool, cfg):
+    """Phase 13 (f)'s checks and record (and K3's at the decode shape),
+    from the ranks' results."""
+    dec = [r["ep"]["decode"] for r in per_rank]
+    n_moe = cfg.n_layers  # every layer of Qwen3-MoE is a MoE layer
+    for rank, d in enumerate(dec):
+        if d["launches"] != {"expert_wgmma": 3 * n_moe * EP_DECODE_STEPS} or \
+                d["k3_checked"] != 3 * n_moe or d["pos"] != EP_PROMPT + EP_DECODE_STEPS:
+            fail(f"ranks (f) rank {rank}: K3 launches {d['launches']}, {d['k3_checked']} "
+                 f"checked, pos {d['pos']}")
+        places = {(f, line) for f, line, _ in d["syncs"]}
+        if len(d["syncs"]) != 2 * n_moe or any(f != "comm.py" for f, _ in places):
+            fail(f"ranks (f) rank {rank}: a step's host syncs {d['syncs']}, not the "
+                 f"{2 * n_moe} staging copies in comm.py")
+        if not np.array_equal(d["logits"], dec[0]["logits"]):
+            fail("ranks (f): the ranks' logits differ")
+    got = dec[0]["logits"]
+    diff = float(np.abs(got - want).max())
+    bitwise = bool(np.array_equal(got, want))
+    if repeat_bitwise and not bitwise:
+        fail(f"ranks (f): the EP decode is not bit for bit the one-process decode (max diff "
+             f"{diff}), which repeats bit for bit")
+    if not (np.abs(got - want) <= TOL["bfloat16"] * (1 + np.abs(want))).all():
+        fail(f"ranks (f): max diff {diff} from the one-process decode")
+    rank_ms = [statistics.median(d["ms"]) for d in dec]
+    rec = {
+        "steps": EP_DECODE_STEPS, "batch": EP_BATCH, "n_layers": cfg.n_layers,
+        "experts_per_rank": cfg.moe.n_experts // RANKS,
+        "bitwise_one_process": bitwise, "max_diff_one_process": diff,
+        "one_process_repeat_bitwise": repeat_bitwise,
+        "ms_per_step_per_rank": rank_ms, "ms_per_step": max(rank_ms),
+        "one_process_ms_per_step": statistics.median(one_ms),
+        "k3_launches_per_step": 3 * n_moe, "syncs_per_step": dec[0]["syncs"],
+        "k3_shape": dec[0]["k3_shape"],
+    }
+    print("ranks (f) EP decode", json.dumps(rec), flush=True)
+    k3 = dict(dec[0]["k3"], launches=sum(d["launches"]["expert_wgmma"] for d in dec))
+    return rec, k3
 
 
 TRAIN_LAYERS = 2  # phase 14 (a): of the published 94, as phase 13 (c)
@@ -3430,7 +3963,7 @@ def main() -> None:
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    ranks = ranks_in_processes(handles, device, rng)
+    ranks = ranks_in_processes(handles, device, rng, served)
     phase("ranks in processes", t0)
 
     t0 = time.perf_counter()
@@ -3472,6 +4005,8 @@ def main() -> None:
         ("moe_gemm/expert_wgmma@lm_decode", "moe_gemm.cu", k3, lm["k3"]["decode"]),
         ("bsr_spgemm/scalar_runs@ranks", "bsr_spgemm.cu", k1, ranks["k1"]),
         ("moe_gemm/expert_wgmma@ranks_ep", "moe_gemm.cu", k3, ranks["k3"]),
+        ("bsr_spgemm/scalar_runs@ranks_batched", "bsr_spgemm.cu", k1, ranks["k1_batched"]),
+        ("moe_gemm/expert_wgmma@ranks_ep_decode", "moe_gemm.cu", k3, ranks["k3_decode"]),
         ("moe_gemm/expert_wgmma@train", "moe_gemm.cu", k3, train["k3"]["forward"]),
         ("moe_gemm/expert_wgmma_dx@train", "moe_gemm.cu", k3, train["k3"]["dx"]),
         ("moe_gemm/expert_wgmma_dw@train", "moe_gemm.cu", k3, train["k3"]["dw"]),

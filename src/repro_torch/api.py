@@ -144,13 +144,27 @@ class CompiledSpGEMM:
             raise ValueError(f"A batch ({m_a}) and B batch ({m_b}) disagree")
         return a, b
 
-    def __call__(self, a_values, b_values) -> torch.Tensor:
-        I, J = self._out
+    def prepare(self, a_values, b_values) -> tuple:
+        """The local half of a call (``runtime.CompiledSpGEMM.prepare``):
+        the values packed into the executor's tables, and the batch's size
+        (None unbatched).  ``run`` finishes it."""
         a, b = self.pack(a_values, b_values)
-        if self.batch_capacity is None:
-            return self.runtime.unpack(self.runtime(a, b))[:I, :J]
-        m = torch.atleast_2d(torch.as_tensor(a_values)).shape[0]
-        return self.runtime.unpack(self.runtime(a, b)[:m])[:, :I, :J]
+        m = None
+        if self.batch_capacity is not None:
+            m = torch.atleast_2d(torch.as_tensor(a_values)).shape[0]
+        return self.runtime.prepare(a, b), m
+
+    def run(self, prepared: tuple) -> torch.Tensor:
+        """The collective half of a call: the step and the unpacking, the
+        dense C ((m, I, J) for a batch of m)."""
+        tables, m = prepared
+        I, J = self._out
+        if m is None:
+            return self.runtime.unpack(self.runtime.run(tables))[:I, :J]
+        return self.runtime.unpack(self.runtime.run(tables)[:m])[:, :I, :J]
+
+    def __call__(self, a_values, b_values) -> torch.Tensor:
+        return self.run(self.prepare(a_values, b_values))
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +311,10 @@ class PlannedSpGEMM:
         rank of the plan alone (``comm.GroupComm``).  Every rank must hold
         the same plan — have rank 0 plan and hand the plan to the others;
         the ranks compare ``runtime.plan_fingerprint`` with rank 0's and all
-        raise on a mismatch.  A group whose size is not ``p`` raises, and so
-        does ``batch`` with a group.
+        raise on a mismatch.  A group whose size is not ``p`` raises.  With
+        ``batch`` too, every rank streams the same value batches and gets
+        the whole (m, I, J) C; each collective of a dispatch moves all its
+        value sets at once.
         """
         if self.execution_plan is None:
             raise ValueError(
@@ -489,7 +505,9 @@ def session(
     persists plans under ``store_dir`` (a restarted session rebuilds its
     pool from there), and retries/downgrades through ``policy`` (a
     ``resilience.FaultPolicy``) on stage failures.  ``device`` (a keyword,
-    default the card) is where its executors run.  See
+    default the card) is where its executors run; ``group`` (a keyword, a
+    ``torch.distributed`` group of p processes, each making the same
+    calls) runs one rank a process.  See
     ``repro_torch.distributed.session`` for the full contract.
     """
     from repro_torch.distributed.session import SpGEMMSession

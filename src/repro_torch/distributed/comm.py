@@ -124,18 +124,25 @@ class GroupComm:
     the plan's p (``make_comm`` checks it).  Each collective is one
     ``all_to_all_single`` of raw bytes, so the contract is the backend's:
     gloo through the host today, NCCL on the card later, with nothing to
-    change but the staging in ``_on_host``.  It runs unbatched executors
-    only (``make_comm`` refuses a ``batch``).
+    change but the staging in ``_on_host``.
+
+    A batched executor's stacks (``batch=m``) lead with the m value sets of
+    a dispatch, ``(m, 1, p, ...)``.  Each collective still makes one
+    exchange for all of them: the rows leave destination first,
+    ``(p, m, ...)``, and the received rows are put back in the set-major
+    order.  ``items_moved`` counts every set this rank sends, padding sets
+    included, so the ranks' counts sum to ``Loopback(p, m)``'s.
     """
 
-    def __init__(self, group):
+    def __init__(self, group, batch: int | None = None):
         import torch.distributed as dist
 
         self.group = group
         self.p = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.ranks = (self.rank,)
-        self.batch = None
+        self.batch = batch
+        self._lead = () if batch is None else (batch,)
         self.items_moved = 0  # items this rank sent since ``reset``
 
     def _exchange(self, send: torch.Tensor, to: list[int] | None = None,
@@ -155,70 +162,86 @@ class GroupComm:
         dist.all_to_all_single(out, _on_host(src), frm, to, group=self.group)
         return out.to(send.device).view(send.dtype).reshape(n_out, *item)
 
-    def _check(self, buf: torch.Tensor, what: str) -> None:
-        if tuple(buf.shape[:2]) != (1, self.p):
-            raise ValueError(f"expected a (1, {self.p}, {what}, ...) buffer; got {tuple(buf.shape)}")
+    def _to_peers(self, buf: torch.Tensor, what: str) -> torch.Tensor:
+        """This rank's ``(*sets, 1, p, ...)`` send stack as ``(p, *sets,
+        ...)`` rows, the destination first."""
+        want = (*self._lead, 1, self.p)
+        if tuple(buf.shape[: len(want)]) != want:
+            dims = ", ".join(str(d) for d in want)
+            raise ValueError(f"expected a ({dims}, {what}, ...) buffer; got {tuple(buf.shape)}")
+        return buf.select(len(self._lead), 0).movedim(len(self._lead), 0)
+
+    def _from_peers(self, recv: torch.Tensor) -> torch.Tensor:
+        """Received ``(p_src, *sets, ...)`` rows as this rank's ``(*sets, 1,
+        p_src, ...)`` stack."""
+        lead = len(self._lead)
+        return recv.movedim(0, lead).unsqueeze(lead)
 
     def all_to_all(self, buf: torch.Tensor, n_items: int) -> torch.Tensor:
-        """``Loopback.all_to_all`` for this rank: its ``(1, p_dst, T, ...)``
-        send buffer in, the ``(1, p_src, T, ...)`` buffer it receives out,
-        ordered by source; ``n_items`` is this rank's valid slots."""
-        self._check(buf, "T")
-        self.items_moved += n_items
-        return self._exchange(buf[0])[None]
+        """``Loopback.all_to_all`` for this rank: its ``(*sets, 1, p_dst, T,
+        ...)`` send buffer in, the ``(*sets, 1, p_src, T, ...)`` buffer it
+        receives out, ordered by source; ``n_items`` is this rank's valid
+        slots of one value set."""
+        send = self._to_peers(buf, "T")
+        self.items_moved += n_items * (self.batch or 1)
+        return self._from_peers(self._exchange(send))
 
     def psum_scatter(self, buf: torch.Tensor) -> torch.Tensor:
         """``Loopback.psum_scatter`` for this rank: one all_to_all of its
-        ``(1, p, rows, ...)`` chunks, then the sum over sources in source
-        order, as ``Loopback`` sums the stack (not the backend's
-        reduce-scatter, whose order is its own).  Counts the p - 1 chunks
-        this rank ships."""
-        self._check(buf, "rows")
+        ``(*sets, 1, p, rows, ...)`` chunks, then the sum over sources in
+        source order, as ``Loopback`` sums the stack (not the backend's
+        reduce-scatter, whose order is its own); returns ``(*sets, 1, rows,
+        ...)``.  Counts the p - 1 chunks this rank ships."""
+        send = self._to_peers(buf, "rows")
         self.items_moved += buf.numel() // self.p * (self.p - 1)
-        return self._exchange(buf[0]).sum(0)[None]
+        return self._exchange(send).sum(0).unsqueeze(len(self._lead))
 
     def all_gather(self, buf: torch.Tensor, members) -> torch.Tensor:
-        """``Loopback.all_gather`` for this rank: ``buf`` is its ``(1, ...)``
-        block and ``members`` the whole ``(p, g)`` table.  One all_to_all
-        with uneven splits sends the block to each rank whose group holds
-        this one and receives the blocks of its own group's ranks, returned
-        as ``(1, g, ...)`` in ``members``' order.  Counts the blocks sent to
-        other ranks."""
+        """``Loopback.all_gather`` for this rank: ``buf`` is its ``(*sets, 1,
+        ...)`` block and ``members`` the whole ``(p, g)`` table.  One
+        all_to_all with uneven splits sends the block to each rank whose
+        group holds this one and receives the blocks of its own group's
+        ranks, returned as ``(*sets, 1, g, ...)`` in ``members``' order.
+        Counts the blocks sent to other ranks."""
         members = np.asarray(torch.as_tensor(members).cpu())
-        if buf.shape[0] != 1 or members.shape[0] != self.p:
-            raise ValueError(f"expected this rank's (1, ...) block and a ({self.p}, g) "
-                             f"member table; got {tuple(buf.shape)} and {members.shape}")
+        lead = len(self._lead)
+        if tuple(buf.shape[: lead + 1]) != (*self._lead, 1) or members.shape[0] != self.p:
+            raise ValueError(f"expected this rank's ({', '.join(map(str, self._lead + (1,)))}"
+                             f", ...) block and a ({self.p}, g) member table; got "
+                             f"{tuple(buf.shape)} and {members.shape}")
         mine = members[self.rank]
         to = [int(self.rank in members[d]) for d in range(self.p)]
         frm = [int(s in mine) for s in range(self.p)]
-        self.items_moved += (sum(to) - 1) * buf[0].numel()
-        recv = self._exchange(buf.expand(sum(to), *buf.shape[1:]), to, frm)
+        block = buf.select(lead, 0)  # (*sets, ...)
+        self.items_moved += (sum(to) - 1) * block.numel()
+        recv = self._exchange(block.expand(sum(to), *block.shape), to, frm)
         by_source = np.flatnonzero(frm)  # ranks of recv's rows, ascending
         order = torch.as_tensor(np.searchsorted(by_source, mine), device=buf.device)
-        return recv[order][None]
+        return self._from_peers(recv[order])
 
     def gather_ranks(self, x: torch.Tensor) -> torch.Tensor:
-        """The ``(p, ...)`` stack of every rank's ``(1, ...)`` shard, on every
-        rank: one all_to_all of p copies of ``x``.  Assembles a result, so
-        it is not counted in ``items_moved``."""
-        return self._exchange(x.expand(self.p, *x.shape[1:]))
+        """The ``(*sets, p, ...)`` stack of every rank's ``(*sets, 1, ...)``
+        shard, on every rank: one all_to_all of p copies of ``x``.  A
+        batched shard may lead with fewer sets than the capacity (a ragged
+        dispatch's, trimmed), the same on every rank.  Assembles a result,
+        so it is not counted in ``items_moved``."""
+        lead = 0 if self.batch is None else 1
+        shard = x.select(lead, 0)
+        recv = self._exchange(shard.expand(self.p, *shard.shape))  # (p, *sets, ...)
+        return recv.movedim(0, lead)
 
     def reset(self) -> None:
         self.items_moved = 0
 
 
 def make_comm(p: int, batch: int | None = None, group=None):
-    """The collective of an executor for a p-rank plan: ``Loopback`` (all
-    ranks in this process) without a group, else ``GroupComm`` over it,
-    whose size must be p."""
+    """The collective of an executor for a p-rank plan, for ``batch`` value
+    sets a dispatch (None: one, with no set axis): ``Loopback`` (all ranks
+    in this process) without a group, else ``GroupComm`` over it, whose
+    size must be p."""
     if group is None:
         return Loopback(p, batch)
-    if batch is not None:
-        raise ValueError(
-            "a batched executor over a process group is not supported yet "
-            "(ROADMAP.md Queue 1); compile with batch=None or without a group"
-        )
-    comm = GroupComm(group)
+    comm = GroupComm(group, batch)
     if comm.p != p:
         raise ValueError(
             f"a plan for p = {p} ranks cannot run over a process group of {comm.p}"

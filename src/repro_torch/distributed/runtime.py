@@ -15,7 +15,8 @@ reference's, with its mesh replaced by ``(p, device)`` and the process
 group, if any.  With ``group=`` (a ``torch.distributed`` process group of
 ``plan.p`` processes) the executor is this process's rank alone
 (``comm.GroupComm``): it holds only that rank's tables, and its collective
-counts only what that rank sends.  ``batch=n`` builds
+counts only what that rank sends.  ``batch=n`` (with or without a group)
+builds
 the batched executor for a fixed capacity of n value sets a dispatch (one
 more key dimension); callers bucket n through ``batch_bucket`` so ragged
 request batches share one executor — the LRU's ``misses`` (``cache_info``)
@@ -121,10 +122,17 @@ class CompiledSpGEMM:
 
     Built with ``group=`` it holds one rank: every rank of the group
     passes the full value vectors, and ``unpack`` returns the whole dense
-    C on every rank, assembled by one gather of the ranks' C shards
-    (``comm.gather_ranks``).  That gather is outside the counted phases:
-    ``comm.items_moved`` counts the algorithm's words alone.  ``batch``
-    with a group raises.
+    C on every rank (``(sets, I, J)`` when batched), assembled by one
+    gather of the ranks' C shards (``comm.gather_ranks``).  That gather is
+    outside the counted phases: ``comm.items_moved`` counts the
+    algorithm's words alone.
+
+    A call is two halves: ``prepare`` (the ``"execute"`` patch point and
+    the packing, local to this process) and ``run`` (the step, whose
+    collectives every rank of a group must enter).  A caller over a group
+    that retries a failed call agrees on the outcome of ``prepare`` before
+    it runs (``resilience.retry_call(group=...)``), so no rank enters an
+    exchange a peer will not.
     """
 
     def __init__(
@@ -197,13 +205,23 @@ class CompiledSpGEMM:
             )
         return x
 
-    def __call__(self, a_values, b_values) -> torch.Tensor:
-        """Value-only update: returns rank-major C shards (with a leading
-        batch axis when built with ``batch=n``)."""
+    def prepare(self, a_values, b_values) -> tuple:
+        """The local half of a call: the ``"execute"`` patch point, then the
+        value stacks packed into this process's rank-major tables."""
         faults.fire("execute")
         a = self._coerce(a_values, self._a_shape, "A")
         b = self._coerce(b_values, self._b_shape, "B")
-        return self.step(*self.pack(a, b))
+        return self.pack(a, b)
+
+    def run(self, tables: tuple) -> torch.Tensor:
+        """The step on ``prepare``'s tables (every collective of the call):
+        rank-major C shards."""
+        return self.step(*tables)
+
+    def __call__(self, a_values, b_values) -> torch.Tensor:
+        """Value-only update: returns rank-major C shards (with a leading
+        batch axis when built with ``batch=n``)."""
+        return self.run(self.prepare(a_values, b_values))
 
     @property
     def cost_model_words(self) -> tuple[int, int]:

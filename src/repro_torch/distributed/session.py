@@ -41,6 +41,23 @@ stage failures, and process restarts:
   ``"flat"``.  A kernel of the port that fails on the card
   (``kernels.KernelError``: no build, no load, refused inputs, a failed
   launch) is never downgraded around: the session raises it.
+
+- **Ranks in processes.**  With ``group=`` (a ``torch.distributed`` group
+  of p processes, each making the same calls with the same operands) every
+  rank holds its own executors (``compile(group=...)``) and returns the
+  whole product.  The reference's session is one SPMD program; here a
+  retry or a downgrade that one rank took and its peers did not would
+  leave the peers waiting in a collective, so every decision is
+  collective: each compile and each execute attempt ends in an agreement
+  over the group (``resilience.retry_call(group=...)``; for execute,
+  after the local half of the call and before its first exchange), and a
+  stage that failed on any rank failed on all.  Rank 0 alone partitions
+  or reads the plan store and writes it, and hands its plan, or its
+  failure, and the events it recorded to the others in one broadcast
+  (``_on_root``), so a ``partition``, ``store_save`` or ``store_restore``
+  fault lives on rank 0 alone and the host plans once.  Every rank
+  records the same events, and the same as one process on the same
+  traffic.
 """
 from __future__ import annotations
 
@@ -52,7 +69,7 @@ import numpy as np
 
 from repro_torch.distributed.runtime import resolve_device, torch_dtype
 from repro_torch.kernels import KernelError
-from repro_torch.resilience import FaultPolicy, retry_call
+from repro_torch.resilience import FaultPolicy, PeerFailure, retry_call
 from repro_torch.sparse.structure import structure_and_values, structure_fingerprint
 
 __all__ = ["SessionEvent", "SpGEMMSession"]
@@ -140,7 +157,17 @@ class SpGEMMSession:
         max_entries: int = 8,
         dtype=np.float32,
         device=None,
+        group=None,
     ):
+        self.group = group
+        self.rank = 0
+        if group is not None:
+            import torch.distributed as dist
+
+            if dist.get_world_size(group) != p:
+                raise ValueError(f"a session of p = {p} ranks cannot run over a process "
+                                 f"group of {dist.get_world_size(group)}")
+            self.rank = dist.get_rank(group)
         self.p = p
         self.model = model
         self.eps = eps
@@ -198,6 +225,16 @@ class SpGEMMSession:
         self._last = self._pool.get(entry.key, self._last)
         return c
 
+    def call(self, exe, a_vals, b_vals):
+        """``exe(a_vals, b_vals)`` (a compiled handle of this session's
+        entries) under the policy's retries at stage ``"execute"``.  Over a
+        group the retried half is ``exe.prepare`` (packing and the patch
+        point) alone, agreed by every rank before any runs the exchanges;
+        a failure past that point is raised."""
+        if self.group is None:
+            return self._retry(lambda: exe(a_vals, b_vals), "execute")
+        return exe.run(self._retry(lambda: exe.prepare(a_vals, b_vals), "execute"))
+
     __call__ = multiply
 
     def stats(self) -> dict:
@@ -217,6 +254,44 @@ class SpGEMMSession:
 
     def _on_retry(self, stage: str, attempt: int, exc: BaseException):
         self._event("retry", "", None, stage=stage, attempt=attempt, error=repr(exc))
+
+    def _retry(self, fn, stage: str, group=True):
+        """``fn()`` under the policy's retries, agreed over the session's
+        group (if any, and ``group``); a ``KernelError`` is raised at
+        once."""
+        return retry_call(fn, self.policy, stage=stage, on_retry=self._on_retry,
+                          group=self.group if group else None, fatal=(KernelError,))
+
+    def _on_root(self, fn, stage: str, ship=lambda out: out):
+        """``fn()`` on rank 0 alone; every rank returns its result (the
+        others ``ship(result)``) and records the events it recorded, or
+        raises if it raised (the others a ``PeerFailure``): one
+        ``broadcast_object_list``.  Without a group, ``fn()``."""
+        if self.group is None:
+            return fn()
+        import torch.distributed as dist
+
+        n_events, error, msg = len(self.events), None, [None]
+        if self.rank == 0:
+            try:
+                out = fn()
+                msg[0] = (ship(out), None, self.events[n_events:])
+            except KernelError:
+                raise
+            except Exception as exc:
+                error = exc
+                msg[0] = (None, repr(exc), self.events[n_events:])
+        dist.broadcast_object_list(msg, src=dist.get_global_rank(self.group, 0),
+                                   group=self.group)
+        shipped, failure, events = msg[0]
+        if self.rank == 0:
+            if error is not None:
+                raise error
+            return out
+        self.events.extend(events)
+        if failure is not None:
+            raise PeerFailure(f"stage {stage!r} failed on rank 0: {failure}")
+        return shipped
 
     def _key(self, a_s, b_s) -> str:
         ident = (
@@ -259,18 +334,23 @@ class SpGEMMSession:
         raise last_exc
 
     def _compile(self, planned):
-        return planned.compile(device=self.device, dtype=self.dtype)
+        return self._retry(
+            lambda: planned.compile(device=self.device, dtype=self.dtype, group=self.group),
+            "compile",
+        )
 
     def _build_entry(self, key: str, inst, model: str) -> _Entry:
         warm_labels, drift = self._warm_labels(inst, model)
-        planned = self._plan_model(key, inst, model, warm_labels)
-        self._model_resolved = planned.model
-        exe = retry_call(
-            lambda: self._compile(planned),
-            self.policy,
-            stage="compile",
-            on_retry=self._on_retry,
+        # rank 0 plans; the others get the plan without the hypergraph and
+        # the instance, which they hold
+        planned = self._on_root(
+            lambda: self._plan_model(key, inst, model, warm_labels), "partition",
+            ship=lambda out: dataclasses.replace(out, instance=None, hypergraph=None),
         )
+        if planned.instance is None:
+            planned.instance = inst
+        self._model_resolved = planned.model
+        exe = self._compile(planned)
         warm = bool(getattr(planned.partition, "warm", False))
         self._event(
             "warm_replan" if warm else "cold_replan",
@@ -330,9 +410,7 @@ class SpGEMMSession:
                 )
 
             try:
-                return retry_call(
-                    attempt, self.policy, stage="partition", on_retry=self._on_retry
-                )
+                return self._retry(attempt, "partition", group=False)
             except Exception as exc:
                 last_exc = exc
         raise last_exc
@@ -372,12 +450,7 @@ class SpGEMMSession:
     # -- execution ---------------------------------------------------------
     def _execute(self, entry: _Entry, a_vals, b_vals, key: str):
         try:
-            return retry_call(
-                lambda: entry.exe(a_vals, b_vals),
-                self.policy,
-                stage="execute",
-                on_retry=self._on_retry,
-            )
+            return self.call(entry.exe, a_vals, b_vals)
         except KernelError:
             raise
         except Exception as exc:
@@ -395,12 +468,7 @@ class SpGEMMSession:
                 )
                 try:
                     entry2 = self._build_entry(key, inst, model)
-                    c = retry_call(
-                        lambda: entry2.exe(a_vals, b_vals),
-                        self.policy,
-                        stage="execute",
-                        on_retry=self._on_retry,
-                    )
+                    c = self.call(entry2.exe, a_vals, b_vals)
                 except KernelError:
                     raise
                 except Exception as exc2:
@@ -417,6 +485,10 @@ class SpGEMMSession:
     def _persist(self, entry: _Entry) -> None:
         if self.store_dir is None or entry.planned.execution_plan is None:
             return
+        self._on_root(lambda: self._save(entry), "store_save")
+
+    def _save(self, entry: _Entry) -> None:
+        """Write ``entry`` to the store (rank 0's part of ``_persist``)."""
         from repro_torch.checkpoint import save_plan
 
         meta = {
@@ -428,7 +500,7 @@ class SpGEMMSession:
             "connectivity": int(entry.planned.partition.connectivity),
         }
         try:
-            retry_call(
+            self._retry(
                 lambda: save_plan(
                     self.store_dir,
                     entry.key,
@@ -439,9 +511,8 @@ class SpGEMMSession:
                     },
                     meta=meta,
                 ),
-                self.policy,
-                stage="store_save",
-                on_retry=self._on_retry,
+                "store_save",
+                group=False,
             )
         except Exception as exc:
             # persistence is an optimization; losing it costs a future
@@ -450,21 +521,22 @@ class SpGEMMSession:
             return
         self._event("saved", entry.key, entry.model)
 
-    def _restore(self, key: str, inst) -> _Entry | None:
-        if self.store_dir is None:
-            return None
+    def _read(self, key: str):
+        """The store's entry for ``key`` (None if none or unreadable; rank
+        0's part of ``_restore``)."""
         from repro_torch.checkpoint import restore_plan
 
         try:
-            restored = retry_call(
-                lambda: restore_plan(self.store_dir, key),
-                self.policy,
-                stage="store_restore",
-                on_retry=self._on_retry,
-            )
+            return self._retry(lambda: restore_plan(self.store_dir, key), "store_restore",
+                               group=False)
         except Exception as exc:
             self._event("store_error", key, None, op="restore", error=repr(exc))
             return None
+
+    def _restore(self, key: str, inst) -> _Entry | None:
+        if self.store_dir is None:
+            return None
+        restored = self._on_root(lambda: self._read(key), "store_restore")
         if restored is None:
             return None
         meta = restored.meta
@@ -493,12 +565,7 @@ class SpGEMMSession:
             seed=self.seed,
         )
         try:
-            exe = retry_call(
-                lambda: self._compile(planned),
-                self.policy,
-                stage="compile",
-                on_retry=self._on_retry,
-            )
+            exe = self._compile(planned)
         except KernelError:
             raise
         except Exception as exc:

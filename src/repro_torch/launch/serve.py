@@ -2,7 +2,11 @@
 
 The PyTorch counterpart of ``repro.launch.serve``, on one torch device (the
 card unless ``device="cpu"``): the p ranks of every plan run stacked on it
-(``Loopback``), and results are tensors there.
+(``Loopback``), and results are tensors there.  With ``group=`` (a
+``torch.distributed`` group of p processes) the ranks run one a process,
+the counterpart of the reference's serving over p devices: rank 0 holds
+the queue, admits, batches and accounts, and sends each window's work to
+the others, which run ``follow()`` and make the same dispatches with it.
 
 The paper's premise makes SpGEMM a compile-once workload: the expensive work
 (partition, lower, build the executor) is per-*structure*, while production traffic
@@ -34,6 +38,10 @@ Usage, from the repository root (``--device cpu`` runs the plain PyTorch
 path on the CPU):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --p 4 --requests 64 --smoke
+
+and with the p ranks one a process (``launch.ranks.run_ranks``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --p 4 --ranks --smoke
 """
 from __future__ import annotations
 
@@ -80,6 +88,7 @@ class ServeConfig:
     dtype: str = "float32"
     policy: FaultPolicy | None = None
     device: str | None = None  # None: the card
+    group: object = None  # a process group of p ranks, one a process; None: one process
 
 
 @dataclasses.dataclass
@@ -133,6 +142,15 @@ class SpGEMMServer:
     ``server.session.events``), and streams each group through the batched
     executor in ``max_batch``-bounded chunks.  ``drain()`` loops ``step()``
     until the queue is empty.  All results land on the ``Request`` objects.
+
+    Over a process group (``group=``), rank 0 is this loop and the only
+    rank that takes ``submit``, ``step``, ``drain`` and ``report``: each
+    ``step`` first broadcasts its window (every structure group's key, the
+    structures the other ranks have not been sent, and the values) and
+    ``close`` tells them to stop.  The other ranks run ``follow()``, which
+    serves each window it receives through the same session calls and
+    dispatches, so every collective has all its ranks.  Every rank gets
+    every result; the accounting is rank 0's.
     """
 
     def __init__(self, config: ServeConfig | None = None, **overrides):
@@ -153,7 +171,11 @@ class SpGEMMServer:
             max_entries=cfg.pool_entries,
             dtype=cfg.dtype,
             device=cfg.device,
+            group=cfg.group,
         )
+        self.rank = self.session.rank
+        # structures rank 0 has sent to the others (key -> structures there)
+        self._sent: OrderedDict[str, tuple | None] = OrderedDict()
         self.stats = ServeStats()
         self._queue: OrderedDict[int, Request] = OrderedDict()
         self._latencies: list[float] = []
@@ -167,6 +189,7 @@ class SpGEMMServer:
         matrices, or ``(SparseStructure, values)`` pairs.  Raises
         :class:`QueueFull` when the queue is at ``queue_limit`` — overload
         is the caller's problem by design (bounded worst-case latency)."""
+        self._leader_only("submit")
         if len(self._queue) >= self.config.queue_limit:
             self.stats.rejected += 1
             raise QueueFull(
@@ -208,9 +231,16 @@ class SpGEMMServer:
         for req in window:
             key = f"{structure_fingerprint(req.a_s)}/{structure_fingerprint(req.b_s)}"
             groups.setdefault(key, []).append(req)
+        if self.session.group is not None:
+            self._leader_only("step")
+            self._broadcast([
+                (key, self._ship(key, reqs[0]), [(r.a_vals, r.b_vals) for r in reqs],
+                 self.config.max_batch)
+                for key, reqs in groups.items()
+            ])
         served = 0
         for reqs in groups.values():
-            served += self._serve_group(reqs)
+            served += self._serve_group(reqs, self.config.max_batch)
         return served
 
     def drain(self, max_steps: int | None = None) -> int:
@@ -224,8 +254,65 @@ class SpGEMMServer:
                 break
         return served
 
+    # -- ranks in processes --------------------------------------------------
+    #: structures the ranks keep for the windows to come (an LRU, the same
+    #: on every rank)
+    KEPT_STRUCTURES = 64
+
+    def _leader_only(self, what: str) -> None:
+        if self.rank != 0:
+            raise RuntimeError(f"{what}() runs on rank 0; rank {self.rank} runs follow()")
+
+    def _broadcast(self, msg):
+        """Rank 0's ``msg`` on every rank (one ``broadcast_object_list``)."""
+        import torch.distributed as dist
+
+        group = self.session.group
+        box = [msg]
+        dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+        return box[0]
+
+    def _ship(self, key: str, req: Request) -> tuple | None:
+        """The structures of ``key`` to send with a window: None where the
+        other ranks keep them."""
+        if key in self._sent:
+            self._sent.move_to_end(key)
+            return None
+        self._keep(key, None)
+        return req.a_s, req.b_s
+
+    def _keep(self, key: str, structures) -> None:
+        self._sent[key] = structures
+        while len(self._sent) > self.KEPT_STRUCTURES:
+            self._sent.popitem(last=False)
+
+    def follow(self) -> int:
+        """A rank other than 0: serve every window rank 0 broadcasts, until
+        it sends the stop (``close``); returns the requests served."""
+        if self.session.group is None or self.rank == 0:
+            raise RuntimeError("follow() runs on the ranks other than 0 of a group")
+        served = 0
+        while (window := self._broadcast(None)) is not None:
+            for key, structures, values, max_batch in window:
+                if structures is None:
+                    self._sent.move_to_end(key)
+                    structures = self._sent[key]
+                else:
+                    self._keep(key, structures)
+                now = time.perf_counter()
+                reqs = [Request(-1, *structures, a, b, now) for a, b in values]
+                served += self._serve_group(reqs, max_batch)
+        return served
+
+    def close(self) -> None:
+        """Rank 0: tell the other ranks' ``follow()`` to return.  Without a
+        group, nothing."""
+        if self.session.group is not None:
+            self._leader_only("close")
+            self._broadcast(None)
+
     # -- dispatch ----------------------------------------------------------
-    def _serve_group(self, reqs: list[Request]) -> int:
+    def _serve_group(self, reqs: list[Request], max_batch: int) -> int:
         """One structure group: fetch the warm entry, stream the values
         through the batched executor in ``max_batch``-bounded chunks."""
         try:
@@ -233,9 +320,23 @@ class SpGEMMServer:
         except Exception as exc:
             return self._fail(reqs, exc)
         served = 0
-        for i in range(0, len(reqs), self.config.max_batch):
-            served += self._dispatch(entry, reqs[i : i + self.config.max_batch])
+        for i in range(0, len(reqs), max_batch):
+            served += self._dispatch(entry, reqs[i : i + max_batch])
         return served
+
+    def _compile_batched(self, entry, m: int):
+        """The entry's executor for a batch of m; over a group the ranks
+        agree on the outcome (no retry) before any goes on."""
+        session = self.session
+
+        def build():
+            return entry.planned.compile(batch=m, dtype=session.dtype, device=session.device,
+                                         group=session.group)
+
+        if session.group is None:
+            return build()
+        once = dataclasses.replace(session.policy, max_retries=0)
+        return retry_call(build, once, stage="compile", group=session.group)
 
     def _dispatch(self, entry, chunk: list[Request]) -> int:
         m = len(chunk)
@@ -243,23 +344,14 @@ class SpGEMMServer:
         try:
             if m == 1:
                 # singletons ride the entry's own (unbatched) executor
-                exe = entry.exe
-                run = lambda: exe(chunk[0].a_vals, chunk[0].b_vals)  # noqa: E731
-                capacity = 1
+                exe, capacity = entry.exe, 1
+                a, b = chunk[0].a_vals, chunk[0].b_vals
             else:
-                exe = entry.planned.compile(
-                    batch=m, dtype=self.session.dtype, device=device
-                )
+                exe = self._compile_batched(entry, m)
                 capacity = exe.batch_capacity
                 a = np.stack([r.a_vals for r in chunk])
                 b = np.stack([r.b_vals for r in chunk])
-                run = lambda: exe(a, b)  # noqa: E731
-            c = retry_call(
-                run,
-                self.session.policy,
-                stage="execute",
-                on_retry=self.session._on_retry,
-            )
+            c = self.session.call(exe, a, b)
             if device.type == "cuda":
                 # done means on the card: the launches return before it is
                 torch.cuda.synchronize(device)
@@ -318,8 +410,14 @@ def serve_spgemm(workload, config: ServeConfig | None = None, **overrides):
     ``workload`` is an iterable of (A, B) operand pairs.  This is the
     offline/batched entry point — the benchmark and the CLI both use it; a
     live system would call ``submit``/``step`` from its own event loop.
+    Over a process group (``group=``) every rank calls it: rank 0 serves
+    ``workload`` and returns as above, the others follow it and return
+    ``([], None)``.
     """
     server = SpGEMMServer(config, **overrides)
+    if server.rank != 0:  # a follower of a process group: rank 0 has the workload
+        server.follow()
+        return [], None
     requests = []
     for A, B in workload:
         while True:
@@ -329,6 +427,7 @@ def serve_spgemm(workload, config: ServeConfig | None = None, **overrides):
             except QueueFull:
                 server.step()
     server.drain()
+    server.close()
     return requests, server.report()
 
 
@@ -365,6 +464,47 @@ def _mixed_workload(n, density, structures, requests, drift, seed):
         yield (s, vals_a), (s, vals_b)
 
 
+def _serve_run(args):
+    """The CLI's serving run on this process: (requests, report)."""
+    workload = _mixed_workload(
+        args.n, args.density, args.structures, args.requests, args.drift, args.seed
+    )
+    return serve_spgemm(
+        workload,
+        p=args.p,
+        model=args.model,
+        max_batch=args.max_batch,
+        batch_window=args.window,
+        seed=args.seed,
+        device=args.device,
+        group=getattr(args, "group", None),
+    )
+
+
+def _spot_check(requests) -> torch.device:
+    """One product against numpy, so the smoke proves correctness, not
+    just liveness; returns the result's device."""
+    done = [r for r in requests if r.result is not None]
+    probe = done[len(done) // 2]
+    a = np.zeros(probe.a_s.shape, np.float32)
+    b = np.zeros(probe.b_s.shape, np.float32)
+    a[probe.a_s.coo()] = probe.a_vals
+    b[probe.b_s.coo()] = probe.b_vals
+    got = probe.result.cpu().numpy()
+    np.testing.assert_allclose(got, a @ b, rtol=1e-4, atol=1e-4)
+    return probe.result.device
+
+
+def _serve_rank(group, device, args):
+    """One rank of ``--ranks``: rank 0 serves and checks, returning its
+    report and result device; the others follow."""
+    args = argparse.Namespace(**{**vars(args), "group": group, "device": str(device)})
+    requests, report = _serve_run(args)
+    if report is None:
+        return None
+    return report, str(_spot_check(requests))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--p", type=int, default=4)
@@ -379,35 +519,30 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
     ap.add_argument(
+        "--ranks", action="store_true",
+        help="run the plan's p ranks one a process (launch.ranks.run_ranks)",
+    )
+    ap.add_argument(
         "--smoke", action="store_true", help="tiny sizes for a fast in-container run"
     )
     args = ap.parse_args(argv)
     if args.smoke:
         args.n, args.requests, args.structures = 48, 24, 2
 
-    workload = _mixed_workload(
-        args.n, args.density, args.structures, args.requests, args.drift, args.seed
-    )
-    requests, report = serve_spgemm(
-        workload,
-        p=args.p,
-        model=args.model,
-        max_batch=args.max_batch,
-        batch_window=args.window,
-        seed=args.seed,
-        device=args.device,
-    )
-    # spot-check one product against numpy so the smoke proves correctness,
-    # not just liveness
-    done = [r for r in requests if r.result is not None]
-    probe = done[len(done) // 2]
-    a = np.zeros(probe.a_s.shape, np.float32)
-    b = np.zeros(probe.b_s.shape, np.float32)
-    a[probe.a_s.coo()] = probe.a_vals
-    b[probe.b_s.coo()] = probe.b_vals
-    got = probe.result.cpu().numpy()
-    np.testing.assert_allclose(got, a @ b, rtol=1e-4, atol=1e-4)
-    device = probe.result.device
+    if args.ranks:
+        import tempfile
+
+        from repro_torch.launch.ranks import run_ranks
+
+        with tempfile.TemporaryDirectory(prefix="serve_ranks_") as workdir:
+            results = run_ranks(_serve_rank, args.p, device=args.device or "cuda",
+                                workdir=workdir, args=(args,))
+        report, where = results[0].result
+        device = torch.device(where)
+        print(f"ranks: {args.p} processes over gloo")
+    else:
+        requests, report = _serve_run(args)
+        device = _spot_check(requests)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU"
     print(f"device: {device} ({name})")
     print("serve report:")

@@ -448,7 +448,7 @@ def _ssm_decode(lp, h, cache: dict, i: int, cfg: ModelConfig):
     return out
 
 
-def _layer_decode(lp, x, cache: dict, i: int, cfg: ModelConfig, pos):
+def _layer_decode(lp, x, cache: dict, i: int, cfg: ModelConfig, pos, ep_group=None):
     """One layer, one token, updating layer ``i`` of ``cache`` in place."""
     h = L.apply_norm(cfg.norm, x, lp["ln1"])
     attn_out = ssm_out = None
@@ -456,7 +456,7 @@ def _layer_decode(lp, x, cache: dict, i: int, cfg: ModelConfig, pos):
         attn_out = _attn_decode(lp, h, cache, i, cfg, pos)
     if cfg.layer_kind in ("mamba", "hybrid"):
         ssm_out = _ssm_decode(lp, h, cache, i, cfg)
-    return _residual(lp, x, h, _mix(cfg, attn_out, ssm_out), cfg)[0]
+    return _residual(lp, x, h, _mix(cfg, attn_out, ssm_out), cfg, ep_group)[0]
 
 
 def decode_step(
@@ -464,18 +464,24 @@ def decode_step(
     cfg: ModelConfig,
     cache: dict,
     tokens,  # (B, 1) current token ids
+    ep_group=None,
 ) -> tuple[torch.Tensor, dict]:
     """One serve step: returns (logits (B, V), cache).
 
     Unlike the reference, which returns a new cache, this updates
     ``cache``'s tensors (K/V, the SSM's conv tail and state) in place and
     returns the same dict with ``"pos"`` advanced by one: a caller that
-    needs the old cache copies it first."""
+    needs the old cache copies it first.  ``ep_group`` as in ``forward``:
+    the MoE layers run expert-parallel at this step's T = B tokens, each
+    rank's pairs at the global capacity, as the reference's ``_moe_ep``
+    under a mesh with a ``model`` axis.  The one-process step never waits
+    for the card; over gloo, each MoE layer's combine is staged through
+    the host (``comm._on_host``), so the step waits there, once a layer."""
     table = params["embed"]["tokens"]
     x = table[_on(tokens, torch.int64, table.device)]
     pos = cache["pos"]
     for i, lp in enumerate(layer_slices(params)):
-        x = _layer_decode(lp, x, cache, i, cfg, pos)
+        x = _layer_decode(lp, x, cache, i, cfg, pos, ep_group)
     x = L.apply_norm(cfg.norm, x, params["final_norm"])
     logits = _unembed(params, cfg, x)[:, 0]
     cache["pos"] = pos + 1

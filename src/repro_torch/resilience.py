@@ -1,7 +1,8 @@
 """Failure classification + retry/downgrade policy.
 
 A copy of ``repro.resilience`` (the port imports nothing of the JAX
-package), with the same classification.  One place answers "is this
+package), with the same classification, and one addition: ``retry_call``
+over a process group (``group=``), whose ranks decide together.  One place answers "is this
 exception worth retrying?" for every layer that restarts work — the
 resilient session (``distributed/session.py``), the serving loop
 (``launch/serve.py``) and the fault-injection harness
@@ -24,6 +25,7 @@ from typing import Callable
 
 __all__ = [
     "FaultPolicy",
+    "PeerFailure",
     "RetryableError",
     "is_retryable",
     "retry_call",
@@ -33,6 +35,12 @@ __all__ = [
 class RetryableError(RuntimeError):
     """Transient by construction — simulated node loss, injected faults,
     and any library error explicitly raised as worth-retrying."""
+
+
+class PeerFailure(RuntimeError):
+    """A stage failed on another rank of a process group: what the ranks
+    on which it did not fail raise, so that every rank takes the same
+    path (``retry_call(group=...)``, ``session._on_root``)."""
 
 
 # transient-resource markers XLA / distributed runtimes put in messages
@@ -114,6 +122,24 @@ class FaultPolicy:
         return [c for c in chain if c != current]
 
 
+#: a rank's outcome of one attempt, as ``_agree`` gathers them
+_OK, _TRANSIENT, _PERMANENT = 0, 1, 2
+
+
+def _agree(code: int, group) -> list[int]:
+    """Every rank's outcome code of one attempt (0 ok, 1 a transient
+    failure, 2 a permanent one), on every rank of ``group``: one
+    ``all_reduce`` of a p-entry CPU tensor, each rank writing its own
+    entry, so nothing is staged from the card."""
+    import torch
+    import torch.distributed as dist
+
+    codes = torch.zeros(dist.get_world_size(group), dtype=torch.int32)
+    codes[dist.get_rank(group)] = code
+    dist.all_reduce(codes, group=group)
+    return codes.tolist()
+
+
 def retry_call(
     fn: Callable,
     policy: FaultPolicy,
@@ -121,6 +147,8 @@ def retry_call(
     stage: str = "",
     on_retry: Callable | None = None,
     sleep: Callable = time.sleep,
+    group=None,
+    fatal: tuple = (),
 ):
     """Call ``fn()`` with the policy's retry budget.
 
@@ -128,16 +156,42 @@ def retry_call(
     policy's backoff between attempts; re-raises the final failure.
     ``on_retry(stage, attempt_index, exc)`` observes each retry (the
     session turns these into events).
+
+    With ``group`` (a ``torch.distributed`` process group whose every rank
+    makes this call), the ranks agree after each attempt (``_agree``): an
+    attempt that failed on any rank failed on all.  All retry while every
+    failure was transient and the budget lasts, and otherwise all raise:
+    a rank its own exception, a rank on which the attempt succeeded a
+    ``PeerFailure``.  ``fn`` must enter no collective a peer whose attempt
+    failed would skip.  Exceptions of a type in ``fatal`` are raised at
+    once, without agreeing: the process is expected to end, and its peers
+    are stopped (``launch.ranks.run_ranks``).
     """
     delays = policy.delays()
     for attempt in range(policy.max_retries + 1):
         try:
-            return fn()
+            out, error = fn(), None
+        except fatal:
+            raise
         except Exception as exc:
-            if attempt >= policy.max_retries or not policy.retryable(exc):
+            if group is None and (attempt >= policy.max_retries or not policy.retryable(exc)):
                 raise
-            if on_retry is not None:
-                on_retry(stage, attempt, exc)
-            delay = next(delays)
-            if delay > 0:
-                sleep(delay)
+            out, error = None, exc
+        if group is not None:
+            code = _OK if error is None else (
+                _TRANSIENT if policy.retryable(error) else _PERMANENT)
+            codes = _agree(code, group)
+            if max(codes) == _OK:
+                return out
+            if error is None:
+                failed = [r for r, c in enumerate(codes) if c != _OK]
+                error = PeerFailure(f"stage {stage!r} failed on rank(s) {failed}")
+            if attempt >= policy.max_retries or max(codes) == _PERMANENT:
+                raise error
+        elif error is None:
+            return out
+        if on_retry is not None:
+            on_retry(stage, attempt, error)
+        delay = next(delays)
+        if delay > 0:
+            sleep(delay)

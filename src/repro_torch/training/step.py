@@ -76,12 +76,13 @@ def make_prefill_step(cfg, ep_group=None):
     return step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, ep_group=None):
     """Returns step(params, cache, tokens) -> (logits (B, V), cache); the
-    cache is updated in place (``transformer.decode_step``)."""
+    cache is updated in place (``transformer.decode_step``); with
+    ``ep_group`` the MoE layers run expert-parallel over its ranks."""
 
     @torch.no_grad()
     def step(params, cache, tokens):
-        return decode_step(params, cfg, cache, tokens)
+        return decode_step(params, cfg, cache, tokens, ep_group)
 
     return step

@@ -23,8 +23,14 @@ tp = 2, run in subgroups of them.  Each test reads its case's results:
   the JAX package's ``_moe_ep`` under a (1, tp) mesh on forced host
   devices (a subprocess), at capacity factor 8 (no pair dropped) and at
   the config's own 1.25 (pairs dropped);
-- a group of the wrong size, ``batch`` with a group and ranks holding
-  different plans, each raising on every rank.
+- the expert-parallel decode: the same prefill, then ``DECODE_STEPS``
+  greedy ``make_decode_step(cfg, ep_group)`` steps at tp = 2 and 4 and at
+  both capacity factors (cap 16 and 3 at T = B = 4: with and without
+  dropped pairs), against the one-process decode and against the JAX
+  package's ``decode_step`` under the same (1, tp) mesh; the cache dict
+  updated in place;
+- a group of the wrong size and ranks holding different plans, each
+  raising on every rank.
 
 ``test_ranks_on_the_card`` (marked ``gpu``) runs the products, the
 compressed all-reduce and the expert-parallel forward in 4 processes on
@@ -55,6 +61,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)  # against dense A @ B (tests/test_kernels.py)
 MOE_ARCH = "dbrx-132b"
 MOE_B, MOE_S = 4, 32
 MOE_CFS = (8.0, 1.25)  # no pair dropped; the smoke config's own, which drops
+DECODE_STEPS = 3
 PSUM_ROUNDS = 8
 
 
@@ -111,6 +118,26 @@ def _raises(fn) -> str | None:
     return None
 
 
+def _serve_moe(params, cfg, ep_group=None):
+    """Prefill ``_moe_batch`` then ``DECODE_STEPS`` greedy decode steps:
+    (prefill logits, each step's logits, the tokens fed, whether every step
+    returned the cache dict it was given with its tensors updated in
+    place)."""
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    logits, cache = make_prefill_step(cfg, ep_group)(params, _moe_batch(cfg))
+    decode = make_decode_step(cfg, ep_group)
+    first, steps, tokens, in_place = logits.numpy(), [], [], True
+    for _ in range(DECODE_STEPS):
+        tok = logits.argmax(-1)[:, None].to(torch.int32)
+        held = {k: v.data_ptr() for k, v in cache.items() if k != "pos"}
+        logits, out = decode(params, cache, tok)
+        in_place &= out is cache and all(out[k].data_ptr() == p for k, p in held.items())
+        steps.append(logits.numpy())
+        tokens.append(tok.numpy())
+    return first, np.stack(steps), np.stack(tokens), in_place
+
+
 def _every_case(group, device, handles, values, moe_tree):
     import torch.distributed as dist
 
@@ -146,10 +173,10 @@ def _every_case(group, device, handles, values, moe_tree):
             cfg = _moe_cfg(cf)
             logits, aux = forward(params, cfg, _moe_batch(cfg), ep_group=g)
             out[("moe", tp, cf)] = logits.numpy(), float(aux)
+            out[("decode", tp, cf)] = _serve_moe(params, cfg, g)
 
     monoC = handles[("monoC", P)]
     out["wrong_size"] = _raises(lambda: handles[("fine", 2)].compile(device="cpu", group=group))
-    out["batch"] = _raises(lambda: monoC.compile(device="cpu", batch=2, group=group))
     other = handles[("fine", P)] if rank == P - 1 else monoC
     out["mismatch"] = _raises(lambda: other.compile(device="cpu", group=group))
     return out
@@ -346,7 +373,8 @@ import dataclasses, os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax, numpy as np
 from repro.configs import get_smoke_config
-from repro.models import forward, init_params
+from repro.models import decode_step, forward, init_params
+from repro.models.transformer import prefill_step
 import repro.models.layers as layers
 from repro.models.sharding import param_shardings
 ep_calls = []
@@ -364,27 +392,38 @@ for cf in (float(c) for c in sys.argv[4].split(",")):
         with jax.set_mesh(mesh):
             psh = param_shardings(cfg, mesh)
             n = len(ep_calls)
-            logits, aux = jax.jit(lambda p, b: forward(p, cfg, b))(
-                jax.device_put(params, psh), {"tokens": tokens})
+            sharded = jax.device_put(params, psh)
+            logits, aux = jax.jit(lambda p, b: forward(p, cfg, b))(sharded, {"tokens": tokens})
             assert len(ep_calls) > n, "the expert-parallel path did not run"
+            last, cache = jax.jit(lambda p, b: prefill_step(p, cfg, b))(
+                sharded, {"tokens": tokens})
+            decode = jax.jit(lambda p, c, t: decode_step(p, cfg, c, t))
+            steps, n = [], len(ep_calls)
+            for _ in range(int(sys.argv[5])):
+                tok = np.asarray(last.argmax(-1))[:, None].astype(np.int32)
+                last, cache = decode(sharded, cache, tok)
+                steps.append(np.asarray(last))
+            assert len(ep_calls) > n, "the decode step did not run expert-parallel"
         out[f"logits_{tp}_{cf}"] = np.asarray(logits)
         out[f"aux_{tp}_{cf}"] = np.asarray(aux)
+        out[f"decode_{tp}_{cf}"] = np.stack(steps)
 np.savez(sys.argv[3], **out)
 """
 
 
 @pytest.fixture(scope="module")
 def jax_ep(tmp_path_factory):
-    """The JAX package's expert-parallel forward (``_moe_ep`` under a
-    (1, tp) mesh, ``param_shardings``) on 4 forced host devices: logits and
-    aux for every (tp, capacity factor)."""
+    """The JAX package's expert-parallel forward, and prefill then greedy
+    decode (``_moe_ep`` under a (1, tp) mesh, ``param_shardings``) on 4
+    forced host devices: logits and aux, and each decode step's logits,
+    for every (tp, capacity factor)."""
     tmp = tmp_path_factory.mktemp("jax_ep")
     np.save(tmp / "tokens.npy", _moe_batch(_moe_cfg())["tokens"])
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
     out = subprocess.run(
         [sys.executable, "-c", _JAX_EP, MOE_ARCH, str(tmp / "tokens.npy"), str(tmp / "out.npz"),
-         ",".join(str(cf) for cf in MOE_CFS)],
+         ",".join(str(cf) for cf in MOE_CFS), str(DECODE_STEPS)],
         capture_output=True, text=True, env=env, timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
@@ -401,6 +440,70 @@ def test_expert_parallel_moe_equals_jax(ranks, jax_ep, tp, cf):
         assert abs(aux - float(jax_ep[f"aux_{tp}_{cf}"])) < 1e-4
 
 
+def _one_rank_decode(moe_tree, cf):
+    """The port's one-process prefill and decode on the same tree
+    (``_serve_moe``), and the pairs its decode steps' MoE layers dropped."""
+    from repro_torch.models import convert, layers
+
+    dropped = []
+    combine = layers._moe_dispatch_combine
+
+    def counting(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype):
+        if xt.shape[0] == MOE_B:  # a decode step's T = B tokens
+            pos = torch.arange(fe.numel()) - torch.searchsorted(fe, fe, side="left")
+            dropped.append(int(((pos >= cap) & (fe < n_experts)).sum()))
+        return combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype)
+
+    params = convert.params_from_reference(moe_tree, device="cpu")
+    layers._moe_dispatch_combine = counting
+    try:
+        out = _serve_moe(params, _moe_cfg(cf))
+    finally:
+        layers._moe_dispatch_combine = combine
+    return out, sum(dropped)
+
+
+@pytest.mark.parametrize("cf", MOE_CFS)
+@pytest.mark.parametrize("tp", [2, P])
+def test_expert_parallel_decode_equals_one_rank(ranks, moe_tree, tp, cf):
+    """At decode T = B = 4, so the global cap is 16 at capacity factor 8
+    (nothing dropped) and 3 at 1.25, where the one-process step drops
+    pairs: the EP ranks drop the same ones.  The cache is updated in
+    place on every rank."""
+    (first, steps, tokens, in_place), dropped = _one_rank_decode(moe_tree, cf)
+    assert in_place and steps.shape == (DECODE_STEPS, MOE_B, _moe_cfg().vocab)
+    assert (dropped > 0) == (cf == MOE_CFS[1]), dropped
+    for r in ranks:
+        got_first, got, got_tokens, got_in_place = r[("decode", tp, cf)]
+        assert got_in_place
+        np.testing.assert_allclose(got_first, first, rtol=0, atol=2e-4)
+        np.testing.assert_array_equal(got_tokens, tokens)
+        np.testing.assert_allclose(got, steps, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("cf", MOE_CFS)
+@pytest.mark.parametrize("tp", [2, P])
+def test_expert_parallel_decode_equals_jax(ranks, jax_ep, tp, cf):
+    want = jax_ep[f"decode_{tp}_{cf}"]
+    for r in ranks:
+        got = r[("decode", tp, cf)][1]
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_decode_over_sharded_experts_without_their_group_raises():
+    from repro_torch.models import convert, init_params
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    cfg = _moe_cfg()
+    full = init_params(cfg, 0, device="cpu")
+    _, cache = make_prefill_step(cfg)(full, _moe_batch(cfg))
+    params = convert.expert_shard(full, 1, 2)
+    tok = torch.zeros((MOE_B, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="ep_group"):
+        make_decode_step(cfg)(params, cache, tok)
+
+
 def test_sharded_experts_without_their_group_raise():
     from repro_torch.models import convert, forward, init_params
 
@@ -413,7 +516,6 @@ def test_sharded_experts_without_their_group_raise():
 
 @pytest.mark.parametrize("case,match", [
     ("wrong_size", "process group of 4"),
-    ("batch", "batched executor over a process group"),
     ("mismatch", r"ranks \[3\] of the group hold another plan"),
 ])
 def test_misuse_raises_on_every_rank(ranks, case, match):
