@@ -116,7 +116,24 @@ Phases, each printing its seconds:
      falcon-mamba layer's shape against a float64 recurrence, its gradient
      against float64 autograd, under rules that refuse zeros, a one-step
      shift and a 10% error; (e) prefill against token-by-token decode in
-     fp32 at 2 layers.  No kernel of K1-K3 lies on this path.
+     fp32 at 2 layers, all beside phase 16 (a)'s dry runs.  No kernel of
+     K1-K3 lies on this path.
+ 16. mesh and dry run (``dry_runs``, ``sharded_serving``): (a) the
+     multi-pod dry run (``python -m repro_torch.launch.dryrun``, started
+     as phase 15 starts, in processes of its own on the host's cores,
+     beside phase 15 and collected before (b): a fake
+     group of 256 or 512 ranks, fake tensors, no storage) of
+     internlm2-1.8b x decode_32k on 16x16 and 2x16x16 and
+     qwen3-moe-235b-a22b x train_4k on 16x16 at all 94 layers, each
+     record's per-device bytes beside the card's own memory, its trace
+     seconds, FLOPs and collectives, any status but ok failing; (b)
+     Qwen3-MoE-235B-A22B at its published width, bf16, 2 layers, on a
+     (1, 1) mesh over a one-process NCCL group on the card, parameters
+     distributed by ``param_shardings`` (DTensors): a prefill of 2 x 1024
+     tokens and 4 greedy decode steps whose logits must equal the
+     unsharded steps' bit for bit with K3 launched as often, every K3
+     launch of one prefill and decode step against its plain version, and
+     the sharded steps' times beside the unsharded ones.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -133,18 +150,23 @@ batched ``scalar_runs`` and 13 (f)'s ``expert_wgmma`` at C = 1, and phase 14's
 ``expert_wgmma``, ``expert_wgmma_dx`` and ``expert_wgmma_dw`` with their
 launches in one training step, and ``split3_bf16_t`` and the backward's
 two ``expert_split`` products (dx, dw) with their launches in 14 (b),
-timed at (b)'s own operands; bounds at the peak of each route's
+timed at (b)'s own operands, and ``expert_wgmma`` with its launches in
+phase 16 (b)'s sharded prefill and decode steps, timed at the prefill's
+up projection; bounds at the peak of each route's
 arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
 ``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``, 11 under
 ``summa_device``, 12 under ``lm_serve``, 13 under ``ranks``, 14 under
-``train``, 15 under ``ssm``).
+``train``, 15 under ``ssm``, 16 under ``mesh``; the dry runs' records
+and logs under ``dryrun/``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
 """
 from __future__ import annotations
 
+import atexit
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3848,6 +3870,195 @@ def ssm(device) -> dict:
     return rec
 
 
+MESH_DRYRUN = (  # phase 16 (a): (arch, shape, multi-pod), at full depth and width
+    ("internlm2-1.8b", "decode_32k", False),
+    ("internlm2-1.8b", "decode_32k", True),
+    ("qwen3-moe-235b-a22b", "train_4k", False),
+)
+MESH_DRYRUN_LIMIT_S = 400  # from their start, as phase 15 starts
+MESH_DECODE_STEPS = 4  # phase 16 (b), after a prefill of EP_BATCH x EP_PROMPT at EP_LAYERS
+
+
+def start_dry_runs() -> list:
+    """Phase 16 (a), started as phase 15 starts: each dry-run cell in a
+    process of its own (``python -m repro_torch.launch.dryrun``: a fake
+    group of 256 or 512 ranks, fake tensors on a CPU mesh, nothing on the
+    card, one thread), on three of the host's cores while the card runs
+    phase 15, whose host-paced times (its decode steps, the scan) they
+    may slow; phases 1-14, whose times the kernels line reads, run without
+    them.  Every process is killed at exit if it is still running."""
+    out = OUT / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    runs = []
+    for arch, shape, multi_pod in MESH_DRYRUN:
+        mesh = "2x16x16" if multi_pod else "16x16"
+        log = open(out / f"{arch}_{shape}_{mesh}.log", "w")
+        args = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                "--shape", shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
+        proc = subprocess.Popen(args, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        runs.append({"arch": arch, "shape": shape, "mesh": mesh, "proc": proc, "log": log,
+                     "t0": time.perf_counter()})
+
+    def stop():
+        for run in runs:
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+            run["log"].close()
+
+    atexit.register(stop)
+    return runs
+
+
+def dry_runs(runs, device) -> dict:
+    """Phase 16 (a): each dry run's record (status ok, or the phase fails),
+    its per-device argument, output and temp bytes beside the card's own
+    memory, its trace seconds, FLOPs and collectives."""
+    import torch
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    recs = {"card_total_memory": total}
+    for run in runs:
+        name = f"{run['arch']}_{run['shape']}_{run['mesh']}"
+        left = MESH_DRYRUN_LIMIT_S - (time.perf_counter() - run["t0"])
+        try:
+            code = run["proc"].wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            fail(f"mesh (a): the dry run {name} still runs after {MESH_DRYRUN_LIMIT_S} s")
+        run["log"].flush()
+        path = OUT / "dryrun" / f"{name}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "no record"}
+        if code != 0 or rec["status"] != "ok":
+            tail = (OUT / "dryrun" / f"{name}.log").read_text().splitlines()[-20:]
+            fail(f"mesh (a): dry run {name} exited {code}, status {rec['status']}: "
+                 + "\n".join(tail))
+        mem = rec["memory"]
+        per_device = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        recs[name] = {k: rec[k] for k in ("n_devices", "n_layers", "trace_s", "memory", "flops",
+                                          "flops_per_device", "bytes_accessed", "collectives",
+                                          "wire_bytes")}
+        recs[name]["wall_s"] = time.perf_counter() - run["t0"]
+        recs[name]["per_device_bytes"] = per_device
+        print(f"mesh (a) dry run {name}: {rec['n_devices']} devices, {rec['n_layers']} layers, "
+              f"per device: arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, outputs "
+              f"{mem['output_size_in_bytes'] / 1e9:.3f} GB, temp {mem['temp_size_in_bytes'] / 1e9:.3f}"
+              f" GB (arguments + temp {per_device / 1e9:.3f} GB; this card holds "
+              f"{total / 1e9:.3f} GB); trace {rec['trace_s']:.1f} s; flops {rec['flops']:.4g}, "
+              f"per device {rec['flops_per_device']:.4g}; collectives "
+              f"{json.dumps(rec['collectives'])}", flush=True)
+    return recs
+
+
+def _serve_steps(prefill, decode, params, batch, steps: int):
+    """A prefill then ``steps`` greedy decode steps; every step's logits,
+    whole (a DTensor's gathered)."""
+    from torch.distributed.tensor import DTensor
+
+    whole = lambda t: t.full_tensor() if isinstance(t, DTensor) else t
+    logits, cache = prefill(params, batch)
+    out = [whole(logits)]
+    for _ in range(steps):
+        logits, cache = decode(params, cache, logits.argmax(-1)[:, None])
+        out.append(whole(logits))
+    return out
+
+
+def sharded_serving(device) -> dict:
+    """Phase 16 (b): Qwen3-MoE-235B-A22B at its published width, bf16,
+    ``EP_LAYERS`` of its 94 layers, on a (1, 1) (data, model) mesh over a
+    one-process NCCL group on the card (``make_host_mesh``), its parameters
+    distributed by ``param_shardings`` (DTensors) and the tokens by
+    ``batch_sharding``: a prefill of ``EP_BATCH`` x ``EP_PROMPT`` tokens and
+    ``MESH_DECODE_STEPS`` greedy decode steps, whose logits must equal the
+    unsharded steps' bit for bit, with K3 launched as often; every K3 launch
+    of one sharded prefill and decode step against its plain version (bf16
+    rule); the sharded and unsharded steps timed (the host cost of DTensor);
+    K3 timed at the sharded prefill's up projection."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch.kernels.moe_gemm as k3_mod
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models import sharding as sh
+    from repro_torch.training import make_decode_step, make_prefill_step
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = _ep_config()
+    params = init_params(cfg, 0, device=device)
+    batch = _ep_batch(cfg, device)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    _serve_steps(prefill, decode, params, batch, 1)  # warm-up
+    reset_launches()
+    want = _serve_steps(prefill, decode, params, batch, MESH_DECODE_STEPS)
+    torch.cuda.synchronize()
+    want_launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    plain_prefill_ms = timed_ms(lambda: prefill(params, batch), 3)
+    _, plain_cache = prefill(params, batch)
+    tok = want[0].argmax(-1)[:, None]
+    plain_decode_ms = timed_ms(lambda: decode(params, {k: v.clone() for k, v in
+                                                       plain_cache.items()}, tok), 3)
+    phase("mesh (b) unsharded steps", t0)
+
+    mesh = make_host_mesh(model=1)
+    try:
+        rec = {"mesh": list(mesh.shape), "backend": dist.get_backend(), "n_layers": cfg.n_layers,
+               "batch": EP_BATCH, "prompt": EP_PROMPT, "decode_steps": MESH_DECODE_STEPS}
+        dparams = sh.distribute_params(params, mesh, sh.param_shardings(cfg, mesh))
+        dbatch = {k: sh.distribute(v, sh.batch_sharding(mesh, v.shape[0], v.ndim))
+                  for k, v in batch.items()}
+        dprefill = make_prefill_step(cfg)
+        ddecode = make_decode_step(cfg)
+        _serve_steps(dprefill, ddecode, dparams, dbatch, 1)  # warm-up
+        reset_launches()
+        got = _serve_steps(dprefill, ddecode, dparams, dbatch, MESH_DECODE_STEPS)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in moe_gemm.launches.items() if v}
+        if launches != want_launches or launches != {
+                "expert_wgmma": 3 * cfg.n_layers * (1 + MESH_DECODE_STEPS)}:
+            fail(f"mesh (b): K3 launches {launches} sharded, {want_launches} unsharded")
+        equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+        if not all(equal):
+            diff = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            fail(f"mesh (b): sharded logits not bit for bit the unsharded ones ({equal}; "
+                 f"max |diff| {diff})")
+        rec.update(bitwise_equal_steps=len(equal), k3_launches=launches,
+                   logits_finite=bool(all(g.isfinite().all() for g in got)))
+        rec["prefill_ms"] = timed_ms(lambda: dprefill(dparams, dbatch), 3)
+        _, dcache = dprefill(dparams, dbatch)
+        dtok = sh.distribute(tok, sh.batch_sharding(mesh, EP_BATCH, 2))
+        rec["decode_ms"] = timed_ms(lambda: ddecode(dparams, {k: v.clone() for k, v in
+                                                              dcache.items()}, dtok), 3)
+        rec["unsharded_prefill_ms"], rec["unsharded_decode_ms"] = plain_prefill_ms, plain_decode_ms
+        phase("mesh (b) sharded steps", t0)
+
+        checks, keep = [], {}
+        real = k3_mod.moe_gemm
+        try:
+            k3_mod.moe_gemm = k3_checked(checks, keep, "mesh prefill", real)
+            logits, dcache = dprefill(dparams, dbatch)
+            k3_mod.moe_gemm = k3_checked(checks, keep, "mesh decode", real)
+            ddecode(dparams, dcache, logits.argmax(-1)[:, None])
+        finally:
+            k3_mod.moe_gemm = real
+        if len(checks) != 6 * cfg.n_layers or any(
+                c["launches"] != {"expert_wgmma": 1} for c in checks):
+            fail(f"mesh (b): K3 calls {[(c['x'], c['launches']) for c in checks]}")
+        err = max(c["max_abs_err"] for c in checks)
+        rec["k3_checks"] = checks
+        rec["k3"] = k3_record_at(*keep["mesh prefill"], launches["expert_wgmma"], err)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    rec["phase_s"] = time.perf_counter() - t0
+    print("mesh (b) sharded serving", json.dumps({k: v for k, v in rec.items()
+                                                  if k != "k3_checks"}), flush=True)
+    return rec
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a repository checkout")
@@ -3971,10 +4182,18 @@ def main() -> None:
     train = training(device)
     phase("training", t0)
 
+    dryrun_procs = start_dry_runs()  # phase 16 (a), on the host's cores beside phase 15
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     ssm_rec = ssm(device)
     phase("Mamba and hybrid layers", t0)
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh_rec = {"dryrun": dry_runs(dryrun_procs, device)}
+    phase("mesh (a) dry runs", t0)
+    mesh_rec["serve"] = sharded_serving(device)
+    phase("mesh and dry run", t0)
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
@@ -3982,7 +4201,7 @@ def main() -> None:
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
         "serving": served, "summa_device": summa_device, "lm_serve": lm, "ranks": ranks,
-        "train": train, "ssm": ssm_rec,
+        "train": train, "ssm": ssm_rec, "mesh": mesh_rec,
     }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",
@@ -4016,6 +4235,7 @@ def main() -> None:
          train["k3"]["expert_split_dx"]),
         ("moe_gemm/expert_split@train_fp32_dw", "moe_gemm.cu", k3,
          train["k3"]["expert_split_dw"]),
+        ("moe_gemm/expert_wgmma@mesh", "moe_gemm.cu", k3, mesh_rec["serve"]["k3"]),
     ]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

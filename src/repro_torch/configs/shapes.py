@@ -50,9 +50,14 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ModelConfig, shape: str) -> dict:
-    """Meta-device stand-ins for every model input of this cell."""
-    spec = SHAPES[shape]
+def _spec(shape: str | ShapeSpec) -> ShapeSpec:
+    return shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+
+
+def input_specs(cfg: ModelConfig, shape: str | ShapeSpec) -> dict:
+    """Meta-device stand-ins for every model input of this cell (``shape``
+    a name of ``SHAPES`` or a ``ShapeSpec``)."""
+    spec = _spec(shape)
     B, S = spec.global_batch, spec.seq_len
     i32 = torch.int32
     act = getattr(torch, cfg.dtype)
@@ -69,9 +74,9 @@ def input_specs(cfg: ModelConfig, shape: str) -> dict:
     return out
 
 
-def cache_specs(cfg: ModelConfig, shape: str) -> dict:
+def cache_specs(cfg: ModelConfig, shape: str | ShapeSpec) -> dict:
     """Meta-device tensors for the KV/SSM cache at this decode shape."""
     from repro_torch.models.transformer import init_kv_cache
 
-    spec = SHAPES[shape]
+    spec = _spec(shape)
     return init_kv_cache(cfg, spec.global_batch, spec.seq_len, device="meta")

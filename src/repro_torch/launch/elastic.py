@@ -49,6 +49,7 @@ def run_loop(
     restart_backoff_s: float = 0.0,
     restart_backoff_factor: float = 2.0,
     sleep: Callable = time.sleep,
+    save: Callable = save_checkpoint,
 ) -> tuple[object, RunStats]:
     """Checkpointed, restartable step loop.
 
@@ -56,7 +57,10 @@ def run_loop(
     default — the predicate ``FaultPolicy`` shares, replacing the old
     ``"RESOURCE_EXHAUSTED"`` substring match), waiting ``restart_backoff_s``
     (doubled per consecutive restart) before each restart so a crash-looping
-    resource isn't hammered."""
+    resource isn't hammered.  ``save(ckpt_dir, step, tree)`` writes a
+    checkpoint (``save_checkpoint``; over several processes, rank 0 writes
+    and the others pass a no-op, each still calling ``state_to_tree``,
+    which may gather the state)."""
     stats = RunStats()
     start = 0
     if ckpt_dir is not None and latest_step(ckpt_dir) is not None:
@@ -82,7 +86,7 @@ def run_loop(
             if ckpt_dir is not None and (
                 step % ckpt_every == 0 or step == n_steps
             ):
-                save_checkpoint(ckpt_dir, step, state_to_tree(state))
+                save(ckpt_dir, step, state_to_tree(state))
         except Exception as e:
             if not retryable(e):
                 raise

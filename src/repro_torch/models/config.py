@@ -5,11 +5,15 @@ GQA transformers, MoE, pure-SSM (Mamba-1), hybrid attention+SSM, and stubbed
 modality frontends (VLM / audio: the backbone consumes precomputed
 frame/patch embeddings through ``input_specs``).
 
-A copy of ``repro.models.config``: every field is kept.  ``scan_unroll``,
+A copy of ``repro.models.config``: every field is kept.
 ``seq_shard_residual``, ``gather_weights`` and ``kv_shard_mode`` are the
-reference's sharding and compile settings; they do not change results on
-one card, and the port accepts and ignores them.  ``remat_policy`` picks
-``forward``'s activation checkpointing, as in the reference.
+reference's sharding settings: under a mesh (``models.sharding``) they
+act as there (the residual split over the sequence between layers, each
+layer's weights gathered to their TP sharding before use, the decode KV
+cache pinned by batch or split over its slots); outside one they change
+nothing.  ``scan_unroll`` is the reference's compile setting, accepted
+and ignored (the port's dry run runs every layer).  ``remat_policy``
+picks ``forward``'s activation checkpointing, as in the reference.
 The port runs every ``layer_kind``: ``"attn"``, ``"mamba"`` (Mamba-1
 selective SSM) and ``"hybrid"`` (attention and SSM heads in parallel,
 averaged).

@@ -22,6 +22,13 @@ expert-parallel ``_moe_ep``: each rank holds E / tp experts
 SSM's linear recurrence runs in fp32 as a loop over time steps with a
 backward of its own (``LinearScan``); its products and the causal
 convolution are torch ops, as they are jnp ops in the reference.
+
+Under a mesh (``models.sharding``) the same functions take DTensors and
+constrain the MLP's and the SSM's activations where the reference does;
+the MoE dispatch and combine (``_moe_sharded``: the expert-parallel
+``_moe_ep`` on the mesh's 'model' group where that axis divides the
+experts), the router, the causal convolution (``_conv``) and the scan
+(``_sharded_scan``) run on each rank's local shards under ``local_map``.
 """
 from __future__ import annotations
 
@@ -31,9 +38,11 @@ import math
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.comm import all_reduce
 from repro_torch.kernels.moe_gemm import GroupedGemm
+from repro_torch.models.sharding import axis_names, axis_size, constrain, get_mesh, lies
 
 # ---------------------------------------------------------------------------
 # norms
@@ -150,6 +159,17 @@ def decode_attention(
     window: int = 0,
 ) -> torch.Tensor:
     B, _, H, Dh = q.shape
+    p = torch.softmax(decode_scores(q, k_cache, cache_pos, cur_pos, window), dim=-1)
+    out = torch.einsum("bhgc,bchd->bhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, Dh)
+
+
+def decode_scores(q, k_cache, cache_pos, cur_pos, window: int = 0) -> torch.Tensor:
+    """One token's attention scores over the cache's slots, (B, KVH, G, C)
+    in fp32: scaled, and -inf where a slot is empty, ahead of ``cur_pos``
+    or out of the window (``decode_attention``'s, and each slot shard's
+    under a mesh)."""
+    B, _, H, Dh = q.shape
     KVH = k_cache.shape[2]
     G = H // KVH
     scale = 1.0 / math.sqrt(Dh)
@@ -158,10 +178,7 @@ def decode_attention(
     valid = (cache_pos >= 0) & (cache_pos <= cur_pos)
     if window:
         valid &= cur_pos - cache_pos < window
-    s = s.masked_fill(~valid, -math.inf)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgc,bchd->bhgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, 1, H, Dh)
+    return s.masked_fill(~valid, -math.inf)
 
 
 # ---------------------------------------------------------------------------
@@ -180,6 +197,7 @@ def mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         h = h * gate
     else:
         h = gelu(h)
+    h = constrain(h, "batch", "seq", "ff")
     return h @ params["wo"]
 
 
@@ -195,11 +213,15 @@ def expert_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return GroupedGemm.apply(x, w, C, w.shape[2], d)
 
 
-def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype):
+def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype, ahead=None):
     """Dispatch -> grouped GEMM (three K3 calls) -> combine on sorted
     (expert, token, gate) pair lists.  fe must be sorted ascending; fe ==
     n_experts marks dropped/foreign pairs.  Each slot below the sink row
-    takes at most one pair.  Returns the combine's (T, d) sums in fp32:
+    takes at most one pair.  A pair is kept while its place in its
+    expert's queue is below ``cap``; ``ahead`` (n_experts,), where given,
+    counts the pairs queued before these in each expert's (an earlier
+    batch shard's, under a mesh).  The buffer holds min(cap, T) slots an
+    expert: a token routes to an expert once.  Returns the combine's (T, d) sums in fp32:
     each gated contribution rounded to the activation dtype, as the
     reference rounds it, and a token's K of them summed in fp32, so the
     caller rounds once (the reference sums them in the activation dtype).
@@ -209,9 +231,11 @@ def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype)
     T, d = xt.shape
     n = fe.numel()
     pos_in_e = torch.arange(n, device=fe.device) - torch.searchsorted(fe, fe, side="left")
-    keep = (pos_in_e < cap) & (fe < n_experts)
-    slot = torch.where(keep, fe * cap + pos_in_e, n_experts * cap)
-    buf = torch.zeros((n_experts * cap + 1, d), dtype=act_dtype, device=xt.device)
+    place = pos_in_e if ahead is None else pos_in_e + ahead[torch.clamp(fe, max=n_experts - 1)]
+    keep = (place < cap) & (fe < n_experts)
+    rows = min(cap, T)
+    slot = torch.where(keep, fe * rows + pos_in_e, n_experts * rows)
+    buf = torch.zeros((n_experts * rows + 1, d), dtype=act_dtype, device=xt.device)
     # where autograd records, gathered from an fp32 copy of xt: the same
     # values, but the gather's backward, a scatter-add of a token's K
     # gradients, then sums them in fp32 and rounds once to xt's type.  K = 8
@@ -223,15 +247,15 @@ def _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, n_experts, cap, act_dtype)
     # bf16 they would differ by bf16 ulps.  Serving gathers xt as it is.
     src = xt.float() if torch.is_grad_enabled() and xt.requires_grad else xt
     buf.index_add_(0, slot, (src[ft] * keep[:, None]).to(act_dtype))
-    expert_in = buf[:-1].reshape(n_experts, cap, d)
+    expert_in = buf[:-1].reshape(n_experts, rows, d)
 
     h = expert_gemm(expert_in, wi)
     g = expert_gemm(expert_in, wg)
     h = h * F.silu(g)
-    expert_out = expert_gemm(h, wo)  # (E, cap, d)
+    expert_out = expert_gemm(h, wo)  # (E, rows, d)
 
-    flat_out = expert_out.reshape(n_experts * cap, d)
-    contrib = flat_out[torch.clamp(slot, max=n_experts * cap - 1)] * (fg * keep)[:, None]
+    flat_out = expert_out.reshape(n_experts * rows, d)
+    contrib = flat_out[torch.clamp(slot, max=n_experts * rows - 1)] * (fg * keep)[:, None]
     out = torch.zeros((T, d), dtype=torch.float32, device=xt.device)
     return out.index_add_(0, ft, contrib.to(act_dtype).float())
 
@@ -283,6 +307,119 @@ def _moe_ep(xt, gate_idx, gate_vals, params, cfg, group):
     return all_reduce(out, group).to(xt.dtype)
 
 
+def _route(logits: torch.Tensor, K: int):
+    """(probs, gate values, gate ids) of the router's fp32 logits (T, E):
+    softmax over the experts, the top K, their values renormalised."""
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)  # (T, K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _token_placements(mesh, T: int) -> tuple:
+    """Where the MoE's tokens lie in the reference's ``_moe_ep``: split
+    over the batch axes ('pod', 'data') where they divide T, replicated
+    over the rest."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = axis_names(mesh)
+    batch = [a for a in ("pod", "data") if a in names]
+    split = T % math.prod(axis_size(mesh, a) for a in batch) == 0
+    return tuple(Shard(0) if split and n in batch else Replicate() for n in names)
+
+
+def _counts(gate_idx: torch.Tensor, E: int, dtype=torch.float32) -> torch.Tensor:
+    """Pairs routed to each expert (fp32 by default: exact below 2^24)."""
+    flat = gate_idx.reshape(-1)
+    ones = torch.ones(flat.shape, dtype=dtype, device=flat.device)
+    return torch.zeros(E, dtype=dtype, device=flat.device).index_add_(0, flat, ones)
+
+
+def _expert_counts(gate_idx, E: int, mesh):
+    """``_counts`` of ``gate_idx``; under ``mesh``, each rank counts its own
+    tokens (``local_map``) into a partial sum over the axes that split them."""
+    if mesh is None:
+        return _counts(gate_idx, E)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    tok = _token_placements(mesh, gate_idx.shape[0])
+    out = tuple(Partial() if isinstance(p, Shard) else p for p in tok)
+    # (one output: its placements a list, where a tuple would list outputs)
+    return local_map(functools.partial(_counts, E=E), out_placements=list(out), in_placements=(tok,),
+                     device_mesh=mesh, redistribute_inputs=True)(gate_idx)
+
+
+def _queued_ahead(counts: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Inside a ``local_map`` region: of this batch shard's per-expert pair
+    ``counts``, the pairs of each expert that earlier shards' tokens route
+    (the shards in mesh order over ``axes``, the major first), so the
+    shard keeps the pairs the whole batch's queue keeps.  One all-gather
+    of the (E,) counts over each axis, the minor first."""
+    ahead = torch.zeros_like(counts)
+    total = counts
+    for a in reversed(axes):
+        every = counts.new_empty(axis_size(mesh, a) * counts.numel())
+        dist.all_gather_into_tensor(every, total, group=mesh.get_group(a))
+        every = every.view(-1, counts.numel())
+        ahead += every[:mesh.get_local_rank(a)].sum(0)
+        total = every.sum(0)  # this axis's shards together, for the next
+    return ahead
+
+
+def _moe_sharded(xt, gate_idx, gate_vals, params, cfg, mesh):
+    """The MoE dispatch and combine on DTensors under ``mesh``, each rank on
+    its local shards (``local_map``), with K3 on plain local tensors, as the
+    reference's ``moe_layer`` under a mesh.  The tokens stay split over the
+    batch axes where those divide T, and the expert weights are gathered
+    over the FSDP 'data' axis only.  Where the 'model' axis is > 1 and
+    divides the experts, the reference's expert-parallel ``_moe_ep``
+    (experts split over 'model', ``cap`` from this rank's T, one fp32
+    all-reduce over the 'model' group).  Elsewhere the reference's plain
+    path: every expert on every rank, and a shard keeps the pairs the whole
+    batch's queue keeps at the global ``cap`` (``_queued_ahead``, where
+    more than one rank splits the tokens)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    moe = cfg.moe
+    names = axis_names(mesh)
+    tp = axis_size(mesh, "model") if "model" in names else 1
+    perm = None if moe.expert_placement is None else tuple(moe.expert_placement)
+    ids = lambda gi: gi if perm is None else _placement_perm(perm, gi.device)[gi]
+    tok = _token_placements(mesh, xt.shape[0])
+    # gradients: a token shard's of the experts are partial sums
+    exp_grad = lambda e: tuple(e[i] if n == "model" else (Partial() if isinstance(p, Shard) else p)
+                               for i, (n, p) in enumerate(zip(names, tok)))
+    if tp > 1 and moe.n_experts % tp == 0:
+        experts = tuple(Shard(0) if n == "model" else Replicate() for n in names)
+        # a model column's gradients of the tokens are partial sums too
+        tok_grad = tuple(Partial() if n == "model" else p for n, p in zip(names, tok))
+        grads = (tok_grad, tok, tok_grad) + (exp_grad(experts),) * 3
+        group = mesh.get_group("model")
+
+        def body(xt, gi, gv, wi, wg, wo):
+            return _moe_ep(xt, ids(gi), gv, {"wi": wi, "wg": wg, "wo": wo}, cfg, group)
+    else:
+        experts = (Replicate(),) * len(names)
+        grads = (tok,) * 3 + (exp_grad(experts),) * 3
+        E, K = moe.n_experts, moe.top_k
+        cap = int(math.ceil(xt.shape[0] * K / E * moe.capacity_factor))
+        split = [n for n, p in zip(names, tok) if isinstance(p, Shard) and axis_size(mesh, n) > 1]
+
+        def body(xt, gi, gv, wi, wg, wo):
+            T, gi = xt.shape[0], ids(gi)
+            ahead = _queued_ahead(_counts(gi, E, torch.int64), mesh, split) if split else None
+            fe, ft, fg = _sorted_pairs(gi, gv, T, K)
+            out = _moe_dispatch_combine(xt, fe, ft, fg, wi, wg, wo, E, cap, xt.dtype, ahead)
+            return out.to(xt.dtype)
+
+    return local_map(
+        body, out_placements=list(tok), in_placements=(tok,) * 3 + (experts,) * 3,
+        in_grad_placements=grads, device_mesh=mesh, redistribute_inputs=True,
+    )(xt, gate_idx, gate_vals, params["wi"], params["wg"], params["wo"])
+
+
 def moe_layer(params: dict, x: torch.Tensor, cfg, ep_group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (output, aux_loss).
 
@@ -300,17 +437,30 @@ def moe_layer(params: dict, x: torch.Tensor, cfg, ep_group=None) -> tuple[torch.
     E, K = moe.n_experts, moe.top_k
     xt = x.reshape(T, d)
 
+    mesh = get_mesh() if isinstance(x, DTensor) else None
+    if isinstance(x, DTensor) and mesh is None:
+        raise ValueError("DTensor activations need an ambient mesh (sharding.set_mesh; the "
+                         "step builders set their parameters' mesh)")
     # the router is fp32: the reference promotes xt @ router to fp32
     logits = xt.float() @ params["router"]  # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)  # (T, K)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+    if mesh is None:
+        probs, gate_vals, gate_idx = _route(logits, K)
+    else:  # each rank routes its own tokens over every expert
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
 
+        tok = _token_placements(mesh, T)
+        probs, gate_vals, gate_idx = local_map(
+            functools.partial(_route, K=K), out_placements=(tok, tok, tok), in_placements=(tok,),
+            device_mesh=mesh, redistribute_inputs=True)(logits)
+    if mesh is not None and ep_group is not None:
+        raise ValueError("moe_layer under a mesh takes its expert-parallel group from the mesh")
     # aux load-balancing loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=0)
-    ce = torch.zeros(E, dtype=probs.dtype, device=x.device)
-    ce = ce.index_add_(0, gate_idx.reshape(-1), torch.ones_like(gate_vals).reshape(-1)) / (T * K)
+    ce = _expert_counts(gate_idx, E, mesh) / (T * K)
     aux = E * torch.sum(me * ce) * moe.router_aux_coef
+    if mesh is not None:
+        return _moe_sharded(xt, gate_idx, gate_vals, params, cfg, mesh).reshape(B, S, d), aux
 
     if moe.expert_placement is not None:
         gate_idx = _placement_perm(tuple(moe.expert_placement), x.device)[gate_idx]
@@ -349,6 +499,26 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         xs = F.pad(x, (0, 0, shift, 0))[:, :S]
         out = out + xs * w[i]
     return out
+
+
+def _conv(x, w):
+    """``_causal_conv``; on DTensors, each rank convolves its own rows and
+    channels (``local_map``: the convolution runs along the sequence, which
+    no rule splits, and is depthwise), the kernel's channels split as x's
+    and its gradient a partial sum over the dims that split the rows."""
+    if not isinstance(x, DTensor):
+        return _causal_conv(x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xp = tuple(Replicate() if isinstance(p, Partial) else p for p in lies(x))
+    if Shard(1) in xp:
+        raise ValueError(f"the causal convolution's sequence is split ({x.placements})")
+    wp = tuple(Shard(1) if p == Shard(2) else Replicate() for p in xp)
+    wg = tuple(Partial() if p == Shard(0) else q for p, q in zip(xp, wp))
+    return local_map(_causal_conv, out_placements=list(xp), in_placements=(xp, wp),
+                     in_grad_placements=(xp, wg), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -428,8 +598,35 @@ def mamba_scan(
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"S={S} not divisible by chunk={chunk}")
+    if isinstance(a, DTensor):
+        h = _sharded_scan(a, bx, h0)
+        return h, h[:, -1].clone()
     h = LinearScan.apply(a.transpose(0, 1), bx.transpose(0, 1), h0)
     return h.transpose(0, 1), h[-1].clone()
+
+
+def _scan_batch_major(a, bx, h0):
+    """``LinearScan`` of batch-major (B, S, ...) operands, time-major
+    copies in and a batch-major view of the states out."""
+    return LinearScan.apply(a.transpose(0, 1).contiguous(), bx.transpose(0, 1).contiguous(),
+                            h0).transpose(0, 1)
+
+
+def _sharded_scan(a, bx, h0):
+    """The scan of batch-major DTensors, each rank scanning its own shards
+    (``local_map``): the recurrence runs along time (dim 1), which no rule
+    splits, and is elementwise in every other dim, so a rank's states need
+    nothing of another's.  One op a time step on local tensors, where
+    DTensor would dispatch each of them."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(Replicate() if isinstance(p, Partial) else p for p in lies(a))
+    if any(isinstance(p, Shard) and p.dim == 1 for p in pl):
+        raise ValueError(f"the SSM scan's time axis is sharded ({a.placements})")
+    h0_pl = tuple(Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) else p for p in pl)
+    return local_map(_scan_batch_major, out_placements=list(pl), in_placements=(pl, pl, h0_pl),
+                     device_mesh=a.device_mesh, redistribute_inputs=True)(a, bx, h0)
 
 
 def _ssm_inputs(params: dict, xc: torch.Tensor):
@@ -456,15 +653,20 @@ def mamba_block_with_state(
     ``dt`` is elementwise (``softplus(xc * dt_proj)``), as in the
     reference; the scan's read-out is rounded to x's type before the skip
     term is added."""
-    xz = x @ params["in_proj"]
+    xz = constrain(x @ params["in_proj"], "batch", "seq", "ssm_inner")
     z = x @ params["gate_proj"]  # (B, S, Di)
-    xc = _silu(_causal_conv(xz, params["conv_w"]))
-    # the SSM's (S, B, ...) operands time-major, each step's slice contiguous
-    decay, bx, ct = _ssm_inputs(params, xc.transpose(0, 1).contiguous())
-    h0 = torch.zeros(decay.shape[1:], dtype=torch.float32, device=x.device)
-    h_all, h_last = mamba_scan(decay.transpose(0, 1), bx.transpose(0, 1), h0, chunk=chunk)
-    read = torch.einsum("sbdn,sbn->sbd", h_all.transpose(0, 1), ct.float())
-    y = read.transpose(0, 1).to(x.dtype) + xc * params["d_skip"]
+    xc = constrain(_silu(_conv(xz, params["conv_w"])), "batch", "seq", "ssm_inner")
+    if isinstance(xc, DTensor):  # batch-major: each rank scans its shards (``_sharded_scan``)
+        decay, bx, ct = _ssm_inputs(params, xc)
+        h_all, h_last = mamba_scan(decay, bx, torch.zeros_like(decay[:, 0]), chunk=chunk)
+        read = torch.einsum("bsdn,bsn->bsd", h_all, ct.float())
+    else:
+        # the SSM's (S, B, ...) operands time-major, each step's slice contiguous
+        decay, bx, ct = _ssm_inputs(params, xc.transpose(0, 1).contiguous())
+        h0 = torch.zeros(decay.shape[1:], dtype=torch.float32, device=x.device)
+        h_all, h_last = mamba_scan(decay.transpose(0, 1), bx.transpose(0, 1), h0, chunk=chunk)
+        read = torch.einsum("sbdn,sbn->sbd", h_all.transpose(0, 1), ct.float()).transpose(0, 1)
+    y = read.to(x.dtype) + xc * params["d_skip"]
     y = y * _silu(z)
     Kc = params["conv_w"].shape[0]
     conv_tail = xz[:, -(Kc - 1):, :].clone()  # a copy, as h_last

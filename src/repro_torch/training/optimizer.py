@@ -12,12 +12,22 @@ axes at a time (``_CHUNK`` elements), so the fp32 temporaries of a stacked
 expert weight never take more than a slice: Adafactor's leaf-wide RMS clip
 takes two passes over each factored leaf, the first summing the squares of
 the update.
+
+Under a mesh the leaves are DTensors: the state takes each parameter's
+placements (Adafactor's factored moments those of the dims they keep), the
+gradients must lie as the parameters do (``make_train_step``
+redistributes them), AdamW updates each rank's shards as they are (its
+update is elementwise), and Adafactor's factored means and its RMS clip,
+which reduce over sharded dims, run as DTensor ops on whole leaves.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.models.sharding import lies
 
 # elements a pass over a leaf takes at once: fp32 temporaries of 256 MB
 _CHUNK = 1 << 26
@@ -56,8 +66,46 @@ def chunk_slices(n: int, per: int):
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank; any other tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _same_layout(*leaves) -> None:
+    """An elementwise update on shards needs every operand to lie alike."""
+    if isinstance(leaves[0], DTensor):
+        placements = {lies(t) for t in leaves}
+        if len(placements) != 1:
+            raise ValueError(f"a parameter, its gradient and state lie differently: {placements}")
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` is first redistributed to
+    ``dst``'s placements (a reduction for a partial sum)."""
+    if isinstance(dst, DTensor) and lies(src) != lies(dst):
+        src = src.redistribute(dst.device_mesh, lies(dst))
+    dst.copy_(src)
+
+
+def _zeros32(p: torch.Tensor, shape, drop: int | None = None) -> torch.Tensor:
+    """fp32 zeros of ``shape`` where ``p`` lies; for a DTensor ``p``, with
+    its placements less dim ``drop`` (a factored moment's reduced dim)."""
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+
+    def keep(pl):
+        if not isinstance(pl, Shard) or drop is None:
+            return pl
+        return Replicate() if pl.dim == drop else Shard(pl.dim - (pl.dim > drop))
+
+    return dzeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                  placements=[keep(pl) for pl in lies(p)])
+
+
 def adamw_init(params):
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    zeros32 = lambda p: _zeros32(p, p.shape)
     return {
         "mu": tree_map(zeros32, params),
         "nu": tree_map(zeros32, params),
@@ -84,7 +132,9 @@ def adamw_update(
     bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=cf.device) ** cf
 
     def upd(g, mu, nu, p):
-        pf, gf, muf, nuf = p.view(-1), g.reshape(-1), mu.view(-1), nu.view(-1)
+        _same_layout(p, g, mu, nu)
+        pf, gf = _local(p).view(-1), _local(g).reshape(-1)
+        muf, nuf = _local(mu).view(-1), _local(nu).view(-1)
         for i, j in chunk_slices(pf.numel(), 1):
             g32 = gf[i:j].float()
             m = muf[i:j].mul_(b1).add_(g32 * (1 - b1))
@@ -107,10 +157,10 @@ def _factored(shape) -> bool:
 
 def adafactor_init(params):
     def leaf(p):
-        z = lambda shape: torch.zeros(shape, dtype=torch.float32, device=p.device)
         if _factored(p.shape):
-            return {"vr": z(p.shape[:-1]), "vc": z(p.shape[:-2] + p.shape[-1:])}
-        return {"v": z(p.shape)}
+            return {"vr": _zeros32(p, p.shape[:-1], drop=p.ndim - 1),
+                    "vc": _zeros32(p, p.shape[:-2] + p.shape[-1:], drop=p.ndim - 2)}
+        return {"v": _zeros32(p, p.shape)}
 
     return {
         "v": tree_map(leaf, params),
@@ -137,8 +187,8 @@ def adafactor_update(
     def moments_(g32, vr, vc):
         """A slice's factored second moments, updated in place."""
         g2 = g32.square().add_(eps)
-        vr.copy_(beta2 * vr + (1 - beta2) * g2.mean(dim=-1))
-        vc.copy_(beta2 * vc + (1 - beta2) * g2.mean(dim=-2))
+        _assign(vr, beta2 * vr + (1 - beta2) * g2.mean(dim=-1))
+        _assign(vc, beta2 * vc + (1 - beta2) * g2.mean(dim=-2))
 
     def factored_u(g32, vr, vc):
         rfac = torch.rsqrt(vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps))
@@ -150,7 +200,7 @@ def adafactor_update(
         newp = p32 - lr * u
         if weight_decay:
             newp = newp - lr * weight_decay * p32
-        p.copy_(newp)
+        _assign(p, newp)
 
     def upd(g, v, p):
         if "vr" not in v:
@@ -159,6 +209,12 @@ def adafactor_update(
             vv.copy_(beta2 * vv + (1 - beta2) * (g32.square() + eps))
             u = g32 * torch.rsqrt(vv)
             apply(p, u, torch.sqrt(u.square().mean() + eps))
+            return p
+        if isinstance(p, DTensor):  # whole leaves: the means reduce over shards
+            g32 = g.float()
+            moments_(g32, v["vr"], v["vc"])
+            u = factored_u(g32, v["vr"], v["vc"])
+            apply(p, u, torch.sqrt(u.square().sum() / p.numel() + eps))
             return p
         r, c = p.shape[-2:]
         lead = math.prod(p.shape[:-2])

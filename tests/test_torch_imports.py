@@ -2,8 +2,9 @@
 the kernel entry point, a session with a plan store, the serving loop, the
 rest of the planning, the LM stack's prefill and decode, the modules of
 ranks in their own processes, and training (optimizers, the train step,
-step checkpoints, the elastic loop and the launcher) — loads neither jax nor any module of the
-JAX package ``repro``."""
+step checkpoints, the elastic loop and the launcher), and the sharding
+rules, the mesh and the multi-pod dry run (one smoke cell on a fake
+group) — loads neither jax nor any module of the JAX package ``repro``."""
 import os
 import subprocess
 import sys
@@ -31,6 +32,7 @@ import repro_torch.models.convert, repro_torch.configs.shapes
 import repro_torch.launch.ranks, repro_torch.training.compression
 import repro_torch.training.optimizer, repro_torch.training.step, repro_torch.checkpoint
 import repro_torch.launch.elastic, repro_torch.launch.train
+import repro_torch.models.sharding, repro_torch.launch.mesh, repro_torch.launch.dryrun
 from repro_torch.core import matrices
 from repro_torch.kernels import ops
 from repro_torch.sparse.bsr import to_bsr
@@ -88,6 +90,21 @@ tokens = SyntheticTokens(cfg.vocab, 32, 2).batch(0)["tokens"]
 logits, cache = make_prefill_step(cfg)(params, {"tokens": tokens})
 logits, cache = make_decode_step(cfg)(params, cache, logits.argmax(-1)[:, None])
 assert logits.shape == (2, cfg.vocab) and bool(logits.isfinite().all()) and int(cache["pos"]) == 33
+from torch._subclasses.fake_tensor import FakeTensorMode
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+dryrun.start_fake_group(4)
+mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+with FakeTensorMode():
+    step, args = dryrun.build_cell("internlm2-1.8b", ShapeSpec("smoke", "decode", 32, 4), mesh,
+                                   cfg=get_smoke_config("internlm2-1.8b"))
+    census = dryrun.Census(4)
+    with census:
+        step(*args)
+assert census.record()["collectives"], census.record()
+import torch.distributed as dist
+dist.destroy_process_group()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
