@@ -38,7 +38,10 @@ Phases, each printing its seconds:
      ``torch.bmm``, with what sets its error; a bf16 view of x off
      alignment at the same width, which must take ``stage16`` then
      ``expert_wgmma``, beside ``torch.bmm`` on the same view, and the
-     stage alone bit for bit; then every route off its tile grid, d and f
+     stage alone bit for bit; the fp32 gradient of the up projection at
+     the same width (``moe_gemm_backward``: ``split3_bf16_t`` and two
+     ``expert_split``), each launch against its plain version, beside
+     ``torch.bmm``; then every route off its tile grid, d and f
      off a multiple of 8 in bf16, fp16, fp32 and mixed, views off
      alignment, and ``expert_split`` held to each of its six products;
   9. every model: the other six paper models (rowwise, columnwise, outer,
@@ -124,7 +127,8 @@ Phases, each printing its seconds:
      beside phase 15 and collected before (b): a fake
      group of 256 or 512 ranks, fake tensors, no storage) of
      internlm2-1.8b x decode_32k on 16x16 and 2x16x16 and
-     qwen3-moe-235b-a22b x train_4k on 16x16 at all 94 layers, each
+     qwen3-moe-235b-a22b x train_4k on 16x16 at all 94 layers, and
+     internlm2-1.8b x train_4k on 2x16x16 cut to 2 layers, each
      record's per-device bytes beside the card's own memory, its trace
      seconds, FLOPs and collectives, any status but ok failing; (b)
      Qwen3-MoE-235B-A22B at its published width, bf16, 2 layers, on a
@@ -141,7 +145,9 @@ on the retiled 32 and 64 products, ``warp_rows`` and ``mma_rows`` on the
 fp32 and bf16 AMG SpMMs at 8 x 8, ``warp_blocks`` and ``mma_blocks`` on
 the fp32 and bf16 ones at 12 x 12, ``expert_wgmma``
 on the bf16 up projection, ``expert_split`` and ``split3_bf16`` on the
-fp32 one, ``stage16`` on the misaligned bf16 up projection, and
+fp32 one, ``stage16`` on the misaligned bf16 up projection, the fp32
+gradient's ``split3_bf16_t`` and two ``expert_split`` products at that
+width with their launches in phase 8's one backward call, and
 ``expert_wgmma`` again at the LM path's prefill (C = 640) and decode
 (C = 1) up projections, with their launches on that path, and phase 13's
 ``scalar_runs`` and ``expert_wgmma`` with the launches the ranks counted
@@ -933,7 +939,13 @@ def moe_qwen3(device):
 
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.moe_gemm import launch_plan, moe_gemm, split3_bf16, stage16
+    from repro_torch.kernels.moe_gemm import (
+        launch_plan,
+        moe_gemm,
+        moe_gemm_backward,
+        split3_bf16,
+        stage16,
+    )
     from repro_torch.kernels.ref import moe_gemm_ref, split3_bf16_ref, stage16_ref
 
     tokens, E, K, d, f = 8192, 128, 8, 4096, 1536
@@ -1033,6 +1045,21 @@ def moe_qwen3(device):
            "bound_bytes": 10.0 * n, "bound_flops": 0.0, "library_ms": None, "values": n}
     records["split_fp32"] = rec
     print("K3 split3_bf16 (x and w of the fp32 up projection)", json.dumps(rec), flush=True)
+    # the fp32 gradient at the up projection's shapes (phase 14 (b) times it
+    # only at its smoke shapes, where every launch waits on the host): one
+    # moe_gemm_backward call, then each launch checked and timed as there
+    dy32 = normal((E, C, f), 1e-3, torch.float32)
+    reset_launches()
+    moe_gemm_backward(x32, w32, dy32)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    if launches != {"split3_bf16": 1, "split3_bf16_t": 2, "expert_split": 2}:
+        fail(f"K3: launches {launches} in one fp32 moe_gemm_backward call")
+    records["grad_fp32"] = k3_split_grad_records(
+        x32, w32, dy32, {"split3_bf16_t": launches["split3_bf16_t"], "backward_calls": 1})
+    for name, r in records["grad_fp32"].items():
+        print(f"K3 fp32 gradient {name}", json.dumps(r), flush=True)
+    del dy32
     # the bf16 up projection through a misaligned view of x: stage16, then
     # expert_wgmma
     x_mis = torch.empty(E * C * d + 1, dtype=torch.bfloat16, device=device)[1:].view(E, C, d)
@@ -3089,10 +3116,10 @@ def k3_grad_records(x, w, dy, launches: dict, errs: dict) -> dict:
     n_ops = 2.0 * E * C * d * f
     size = x.element_size()
     cases = {
-        "dx": (lambda: k3._wgmma("expert_wgmma_dx", dy, w, C, f, d),
+        "dx": (lambda: k3._grad("expert_wgmma_dx", w, dy, C, d, f),
                lambda: moe_gemm_ref(dy, w.transpose(1, 2)),
                lambda: torch.bmm(dy, w.transpose(1, 2)), E * C * d),
-        "dw": (lambda: k3._wgmma("expert_wgmma_dw", x, dy, d, C, f),
+        "dw": (lambda: k3._grad("expert_wgmma_dw", x, dy, C, d, f),
                lambda: moe_gemm_ref(x.transpose(1, 2), dy),
                lambda: torch.bmm(x.transpose(1, 2), dy), E * d * f),
     }
@@ -3870,10 +3897,11 @@ def ssm(device) -> dict:
     return rec
 
 
-MESH_DRYRUN = (  # phase 16 (a): (arch, shape, multi-pod), at full depth and width
-    ("internlm2-1.8b", "decode_32k", False),
-    ("internlm2-1.8b", "decode_32k", True),
-    ("qwen3-moe-235b-a22b", "train_4k", False),
+MESH_DRYRUN = (  # phase 16 (a): (arch, shape, multi-pod, layers or None for all), at full width
+    ("internlm2-1.8b", "decode_32k", False, None),
+    ("internlm2-1.8b", "decode_32k", True, None),
+    ("qwen3-moe-235b-a22b", "train_4k", False, None),
+    ("internlm2-1.8b", "train_4k", True, 2),  # the multi-pod train cell, cut to 2 of 24 layers
 )
 MESH_DRYRUN_LIMIT_S = 400  # from their start, as phase 15 starts
 MESH_DECODE_STEPS = 4  # phase 16 (b), after a prefill of EP_BATCH x EP_PROMPT at EP_LAYERS
@@ -3891,14 +3919,15 @@ def start_dry_runs() -> list:
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
     runs = []
-    for arch, shape, multi_pod in MESH_DRYRUN:
+    for arch, shape, multi_pod, layers in MESH_DRYRUN:
         mesh = "2x16x16" if multi_pod else "16x16"
-        log = open(out / f"{arch}_{shape}_{mesh}.log", "w")
+        name = f"{arch}_{shape}_{mesh}" + (f"_L{layers}" if layers else "")
+        log = open(out / f"{name}.log", "w")
         args = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                "--shape", shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
+                "--shape", shape, "--out", str(out)] + (["--multi-pod"] if multi_pod else []) + (
+                    ["--layers", str(layers)] if layers else [])
         proc = subprocess.Popen(args, stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
-        runs.append({"arch": arch, "shape": shape, "mesh": mesh, "proc": proc, "log": log,
-                     "t0": time.perf_counter()})
+        runs.append({"name": name, "proc": proc, "log": log, "t0": time.perf_counter()})
 
     def stop():
         for run in runs:
@@ -3920,7 +3949,7 @@ def dry_runs(runs, device) -> dict:
     total = torch.cuda.get_device_properties(device).total_memory
     recs = {"card_total_memory": total}
     for run in runs:
-        name = f"{run['arch']}_{run['shape']}_{run['mesh']}"
+        name = run["name"]
         left = MESH_DRYRUN_LIMIT_S - (time.perf_counter() - run["t0"])
         try:
             code = run["proc"].wait(timeout=max(left, 1.0))
@@ -4220,6 +4249,12 @@ def main() -> None:
         ("moe_gemm/expert_split", "moe_gemm.cu", k3, moe["up_fp32"]),
         ("moe_gemm/split3_bf16", "moe_gemm.cu", k3, moe["split_fp32"]),
         ("moe_gemm/stage16", "moe_gemm.cu", k3, moe["stage_misaligned"]),
+        ("moe_gemm/split3_bf16_t@fp32_up_grad", "moe_gemm.cu", k3,
+         moe["grad_fp32"]["split3_bf16_t"]),
+        ("moe_gemm/expert_split@fp32_up_dx", "moe_gemm.cu", k3,
+         moe["grad_fp32"]["expert_split_dx"]),
+        ("moe_gemm/expert_split@fp32_up_dw", "moe_gemm.cu", k3,
+         moe["grad_fp32"]["expert_split_dw"]),
         ("moe_gemm/expert_wgmma@lm_prefill", "moe_gemm.cu", k3, lm["k3"]["prefill"]),
         ("moe_gemm/expert_wgmma@lm_decode", "moe_gemm.cu", k3, lm["k3"]["decode"]),
         ("bsr_spgemm/scalar_runs@ranks", "bsr_spgemm.cu", k1, ranks["k1"]),

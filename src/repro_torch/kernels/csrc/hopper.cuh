@@ -189,7 +189,7 @@ __device__ __forceinline__ void wgmma_wait() {
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
       "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d (+)= A (64 x 16) * B (16 x N), for N = 64 and 256, A and B from shared
+// d (+)= A (64 x 16) * B (16 x N), for N = 64, 160, 192 and 256, A and B from shared
 // memory: A k-major (imm-trans-a = kTA = 0) or MN-major (1), B k-major
 // (imm-trans-b = kTB = 0) or MN-major (1); the accumulators are overwritten
 // where scale_d is 0.
@@ -220,6 +220,33 @@ __device__ __forceinline__ void wgmma_wait() {
       " %128, %129, p, 1, 1, %131, %132;\n}\n"                                                              \
       : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56),                       \
         ACC8(64), ACC8(72), ACC8(80), ACC8(88), ACC8(96), ACC8(104), ACC8(112), ACC8(120)                   \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB))
+
+#define WGMMA_M64N160K16(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32." TY "." TY "\n"  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"  \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,\n"  \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"  \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,\n"  \
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},\n"  \
+      " %80, %81, p, 1, 1, %83, %84;\n}\n"  \
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56), ACC8(64), ACC8(72)  \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB))
+
+#define WGMMA_M64N192K16(TY)  \
+  asm volatile(  \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"  \
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY "\n"  \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"  \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,\n"  \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,\n"  \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,\n"  \
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,\n"  \
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95},\n"  \
+      " %96, %97, p, 1, 1, %99, %100;\n}\n"  \
+      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56), ACC8(64), ACC8(72), ACC8(80), ACC8(88)  \
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB))
 
 // d (+)= A (64 x 16, from registers: warp w holds rows 16 w to 16 w + 15 as
@@ -258,6 +285,26 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
+               : "memory");
+}
+
+// Four 8 x 8 matrices of 16-bit values into shared memory, one row address
+// a lane (lanes 8 m to 8 m + 7 address matrix m's rows); lane l gives
+// elements (l / 4, 2 (l % 4)) and (l / 4, 2 (l % 4) + 1) of matrix m in r[m],
+// the first in the low half: the layout of a wgmma accumulator's 8 x 8
+// blocks, packed by pack2.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// The same, each matrix stored transposed: the row at the address lane
+// 8 m + i gives holds column i of matrix m.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};" ::"r"(
+                   addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
                : "memory");
 }
 
@@ -316,12 +363,25 @@ __device__ __forceinline__ void wgmma_k16(float (&d)[NACC], uint64_t da, uint64_
                                           int scale_d) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   static_assert(kBf16 || std::is_same<T, __half>::value, "wgmma takes bf16 or fp16 here");
-  static_assert(NACC == 32 || NACC == 128, "N is 64 or 256");
+  static_assert(NACC == 32 || NACC == 80 || NACC == 96 || NACC == 128,
+                "N is 64, 160, 192 or 256");
   if constexpr (NACC == 32) {
     if constexpr (kBf16) {
       WGMMA_M64N64K16("bf16");
     } else {
       WGMMA_M64N64K16("f16");
+    }
+  } else if constexpr (NACC == 80) {
+    if constexpr (kBf16) {
+      WGMMA_M64N160K16("bf16");
+    } else {
+      WGMMA_M64N160K16("f16");
+    }
+  } else if constexpr (NACC == 96) {
+    if constexpr (kBf16) {
+      WGMMA_M64N192K16("bf16");
+    } else {
+      WGMMA_M64N192K16("f16");
     }
   } else {
     if constexpr (kBf16) {

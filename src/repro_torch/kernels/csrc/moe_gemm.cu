@@ -16,7 +16,7 @@
 // 3.35 TB/s.  Two routes, picked by the wrapper before launch, and a stage
 // in front of the first for inputs its tensor maps cannot describe:
 //
-// expert_wgmma<T, false, false> (x and w both bf16 or both fp16): the
+// expert_wgmma<T> (x and w both bf16 or both fp16): the
 // tensor-core kernel the bound asks for.
 //   - Operands come by TMA from 3-D tensor maps, x as {d, C, E} and w as
 //     {f, d, E}, so a tile never reads across an expert and the ragged edges
@@ -95,22 +95,66 @@
 // view; expert_tiles, the fp32 FMAs on the CUDA cores these inputs took
 // before, took 32.6 ms.
 //
-// The gradient (kernels/moe_gemm.py:GroupedGemm; the TPU kernel has none:
-// the reference trains its MoE through jnp.einsum, so these are held to
-// jax.grad of that einsum and to the plain version) is two more grouped
-// products a forward one:
+// The gradient (kernels/moe_gemm.py:GroupedGemm; the TPU kernel,
+// repro/kernels/moe_gemm.py:moe_gemm (:44), has none: the reference trains
+// its MoE through jnp.einsum, so these are held to jax.grad of that einsum
+// and to the plain version) is two more grouped products a forward one:
 //     dx[e] = dy[e] @ w[e]^T   (E, C, f) x (E, f, d) -> (E, C, d)
 //     dw[e] = x[e]^T @ dy[e]   (E, d, C) x (E, C, f) -> (E, d, f)
-// expert_wgmma<T, kAMN, kBK> runs both on the operands as stored: for dx, w
-// is wgmma's k-major B (one 64 x 256 box a stage); for dw, x is its MN-major
-// A (two 64 x 64 boxes a stage, imm-trans-a), which wgmma takes from shared
-// memory for 16-bit types.  No transposed copy is made.  What bounds them:
-// bytes, at the training path's C = 320 (4 x 1024 tokens, top-8, capacity
-// 1.25) and Qwen3-MoE's width: each reads or writes the whole expert weight
-// (1.61 GB of 2.07 GB a product), 0.62 ms at 3.35 TB/s against 0.52 ms of
-// bf16 operations; dw's k is C = 320, five k-blocks a tile, so its tiles
-// are short and the epilogue's TMA stores (overlapped with the next tile's
-// loads) carry the weight-sized output.
+// each a kernel of its own, designed for the shapes the training path
+// gives it and reading every operand as stored (no transposed copy).  What
+// bounds both: bytes.  At the training path's C = 320 (4 x 1024 tokens,
+// top-8, capacity 1.25) and Qwen3-MoE's width each reads or writes the whole
+// expert weight, 1.61 GB of 2.07 GB a product: 0.62 ms at 3.35 TB/s,
+// against 0.52 ms of bf16 operations at 989 TFLOP/s.  So the tensor cores
+// must stay busy about 85% of the time for the bytes to set the pace.
+//
+// expert_wgmma_dx<T>: computes dx^T[e] = w[e] @ dy[e]^T, m = d, k = f,
+// n = C, and writes it transposed.  Run as dy @ w^T (m = C), a 128-row tile
+// leaves, at C = 320, a third row tile whose second warpgroup multiplies 64
+// zero rows through every k-block (20% more tensor-core work than needed),
+// and three row tiles read each slice of w.  With m = d the rows are 32
+// whole 128-row tiles; the columns are C in tiles of 160 (one wgmma
+// m64n160k16 a k16 step, 80 accumulators a thread; a tile of all 320 would
+// take 160, and the 168 registers ptxas grants a thread of a 384-thread
+// block spilled them).  The two column tiles of a row
+// tile run side by side, so w, the 1.61 GB operand, comes from device memory
+// once and dy[e] (0.98 MB) from L2.  w is wgmma's k-major A (f contiguous)
+// and dy its k-major B, both by TMA as for the forward; a stage is 128 x 64
+// of w and 160 x 64 of dy (36 KB), five in the ring.  The epilogue writes
+// each warpgroup's 64 d x 160 C block into dx's (E, C, d) layout through
+// shared memory: stmatrix .trans turns each 8 x 8 accumulator block over,
+// into 32-row chunks laid out as the output tensor map's 128-byte-swizzled
+// boxes, two a warpgroup in turn, each stored by TMA while the next is
+// written.  Ragged C and d arrive zero-filled and are clipped at the store.
+//
+// expert_wgmma_dw<T>: m = d, k = C, n = f, x read MN-major (imm-trans-a)
+// and dy MN-major, as stored.  Its k is short (five 64-deep k-blocks at
+// C = 320) and its output the size of the weights, so a 128 x 256 tile shared
+// by both warpgroups would spend much of its time in an epilogue during which
+// no wgmma runs, and read 240 KB of operands from L2 for each 64 KB it writes.
+// Instead:
+//   - dy's k-blocks for a 192-column block of f stay resident in shared
+//     memory (5 x 24 KB at C = 320) while the block's 64-row tiles of d
+//     stream past them, so a tile reads only its 40 KB of x from L2;
+//   - each consumer warpgroup owns a 64 x 192 tile (wgmma m64n192k16, 96
+//     accumulators a thread) with its own ring of x (5 x 8 KB: a whole
+//     tile) and its own producer thread, so one's epilogue runs beside the
+//     other's products rather than stopping the tensor cores; each warp
+//     stores its own 16 rows (stmatrix into a swizzled box, a TMA store of
+//     16 x 64), with no barrier across the warpgroup;
+//   - what holds it back at C = 320: x.  With 120 KB of dy resident, a
+//     consumer's ring holds one tile, so each tile's x loads wait out the
+//     memory's latency (without its stores the kernel takes nearly as long,
+//     and without its products too; one warpgroup alone runs m64n192k16
+//     at the tensor cores' peak);
+//   - each block takes (expert, f block) runs block-cyclically, then an
+//     equal share of the pairs left, so the blocks finish together and the
+//     blocks at work side by side read the same experts' x (from device
+//     memory once, then from L2); a block reloads dy where its run changes,
+//     each slot as soon as both consumers have done with it.
+// Where C exceeds 320 the dy slots become a ring that both warpgroups read
+// pair by pair.
 // fp32 and mixed gradients take split3_bf16 (dy) and split3_bf16_t (w for
 // dx, x for dw: the pieces written transposed, through a 32 x 32 tile in
 // shared memory) and then expert_split unchanged.
@@ -150,23 +194,12 @@ constexpr int kWgSmem =
     kSwizzleAtom + kWgStages * (kABytes + kBBytes) + 2 * kOutBytes + 2 * kWgStages * 8;
 static_assert(kWgBN % kBox == 0 && kWgSmem <= 227 * 1024, "tile does not fit");
 
-// out[e] = A[e] @ B[e], (m, k) x (k, n) -> (m, n) for every expert e.
+// out[e] = A[e] @ B[e], (m, k) x (k, n) -> (m, n) for every expert e: A = x
+// (E, C, d) k-major, B = w (E, d, f) MN-major; m = C, k = d, n = f.
 // Block b walks tiles t = b, b + gridDim.x, ... of the n_experts x
 // ceil(m/128) x ceil(n/256) grid, expert-major, then row tile, then column
-// tile.  The layout parameters say how A and B are stored:
-//   - forward, out = x @ w (kAMN = kBK = false): A = x (E, C, d) k-major,
-//     B = w (E, d, f) MN-major; m = C, k = d, n = f.
-//   - dx = dy @ w^T (kBK): A = dy (E, C, f) k-major, B = w read as stored,
-//     (E, d, f) = (E, n, k): k-major B, wgmma's imm-trans-b = 0, one 64 x 256
-//     box a stage; m = C, k = f, n = d.
-//   - dw = x^T @ dy (kAMN): A = x read as stored, (E, C, d) = (E, k, m):
-//     MN-major A, imm-trans-a = 1 (16-bit operands from shared memory take
-//     either), two 64 x 64 boxes a stage, one a consumer; B = dy (E, C, f)
-//     MN-major as in the forward; m = d, k = C, n = f.
-// No operand is copied transposed: the tensor maps' box order and the
-// descriptors' major-ness change, and the tiles, the ring, the walk and the
-// epilogue stay the forward's.
-template <typename T, bool kAMN, bool kBK>
+// tile.
+template <typename T>
 __global__ void __launch_bounds__(kWgThreads, 1)
     expert_wgmma(const __grid_constant__ CUtensorMap a_map,
                  const __grid_constant__ CUtensorMap b_map,
@@ -206,19 +239,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           const uint32_t bar = full + 8 * stage;
           mbar_expect_tx(bar, kABytes + kBBytes);  // whole boxes, zero fill included
           const uint32_t a_st = a_smem + stage * kABytes, b_st = b_smem + stage * kBBytes;
-          if constexpr (kAMN) {  // 64 m x 64 k boxes, m contiguous: one a consumer
-            tma_load_3d(a_st, &a_map, bar, m0, kb * kWgBK, e);
-            tma_load_3d(a_st + kBoxBytes, &a_map, bar, m0 + kBox, kb * kWgBK, e);
-          } else {  // one 64 k x 128 m box, k contiguous
-            tma_load_3d(a_st, &a_map, bar, kb * kWgBK, m0, e);
-          }
-          if constexpr (kBK) {  // one 64 k x 256 n box, k contiguous
-            tma_load_3d(b_st, &b_map, bar, kb * kWgBK, n0, e);
-          } else {  // four 64 n x 64 k boxes, n contiguous
+          tma_load_3d(a_st, &a_map, bar, kb * kWgBK, m0, e);  // one 64 k x 128 m box
 #pragma unroll
-            for (int j = 0; j < kWgBN / kBox; ++j) {
-              tma_load_3d(b_st + j * kBoxBytes, &b_map, bar, n0 + j * kBox, kb * kWgBK, e);
-            }
+          for (int j = 0; j < kWgBN / kBox; ++j) {  // four 64 n x 64 k boxes, n contiguous
+            tma_load_3d(b_st + j * kBoxBytes, &b_map, bar, n0 + j * kBox, kb * kWgBK, e);
           }
           if (++stage == kWgStages) {
             stage = 0;
@@ -243,22 +267,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       int held = -1;  // the stage the previous k-block's wgmma group still reads
       for (int kb = 0; kb < k_blocks; ++kb) {
         mbar_wait(full + 8 * stage, phase);
-        // this warpgroup's 64 rows: 8 KB on in either layout of A
+        // this warpgroup's 64 rows: 8 KB on
         const uint32_t a = a_smem + stage * kABytes + cw * kBoxBytes;
         const uint32_t b = b_smem + stage * kBBytes;
         fence_acc(acc);
         asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
         for (int kk = 0; kk < kWgBK / 16; ++kk) {
-          // k-major: rows of 128 B (64 k), 8-row groups 1024 B apart, 16 k =
-          // 32 B further per step.  MN-major: 64-column (m or n) boxes
-          // kBoxBytes apart, 8-row (k) groups 1024 B apart, 16 k = 16 rows =
-          // 2048 B further per step.
-          const uint64_t da = kAMN ? smem_desc(a + kk * 2048, kBoxBytes, 1024)
-                                   : smem_desc(a + kk * 32, 16, 1024);
-          const uint64_t db = kBK ? smem_desc(b + kk * 32, 16, 1024)
-                                  : smem_desc(b + kk * 2048, kBoxBytes, 1024);
-          wgmma_k16<T, kWgBN / 2, kAMN ? 1 : 0, kBK ? 0 : 1>(acc, da, db, kb > 0 || kk > 0);
+          // A k-major: rows of 128 B (64 k), 8-row groups 1024 B apart, 16 k =
+          // 32 B further per step.  B MN-major: 64-column boxes kBoxBytes
+          // apart, 8-row (k) groups 1024 B apart, 16 k = 16 rows = 2048 B
+          // further per step.
+          const uint64_t da = smem_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = smem_desc(b + kk * 2048, kBoxBytes, 1024);
+          wgmma_k16<T, kWgBN / 2>(acc, da, db, kb > 0 || kk > 0);
         }
         asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
         fence_acc(acc);
@@ -307,6 +329,406 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     // the buffer must outlive the last store's reads
     if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+// ------------------------------------------------------------- expert_wgmma_dx
+
+constexpr int kDxBN = 160;       // C columns a tile: one wgmma m64n160k16
+constexpr int kDxStages = 5;     // what fits beside the output chunks
+constexpr int kDxOutBufs = 2;    // output chunks, per consumer
+constexpr int kDxChunk = 32;     // C rows an output store: 32 x 64 d, 4 KB
+constexpr int kDxChunkBytes = kDxChunk * 128;
+
+constexpr int kDxStage = kABytes + kDxBN * 128;  // 128 d x 64 f of w, 160 C x 64 f of dy
+constexpr int kDxSmem =
+    kSwizzleAtom + kDxStages * kDxStage + 2 * kDxOutBufs * kDxChunkBytes + 2 * kDxStages * 8;
+static_assert(kDxStage % kSwizzleAtom == 0 && kDxBN % kDxChunk == 0 &&
+                  kDxSmem <= 227 * 1024,
+              "dx tile does not fit");
+
+// The gradient of the TPU kernel repro/kernels/moe_gemm.py:moe_gemm (:44),
+// which has none of its own (held to jax.grad of the reference's einsum).
+// Bound at the training path's C = 320: bytes, 0.619 ms, against 0.521 ms of
+// bf16 operations; what the design does about it is in the note at the top.
+// dx[e] = dy[e] @ w[e]^T, computed as dx^T[e] = w[e] @ dy[e]^T: m = d (tiles
+// of 128 rows, 64 a consumer warpgroup), k = f, n = C (tiles of 160
+// columns, one wgmma).  Block b walks tiles t = b, b + gridDim.x, ... of
+// the n_experts x ceil(d/128) x ceil(C/160) grid, expert-major, then row
+// tile, then column tile: the column tiles of one row tile run side by side
+// and read its w once from device memory.  A = w (E, d, f) and B = dy
+// (E, C, f) are both k-major, as stored; the result goes out transposed
+// (stmatrix .trans), as dx (E, C, d).
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    expert_wgmma_dx(const __grid_constant__ CUtensorMap w_map,
+                    const __grid_constant__ CUtensorMap dy_map,
+                    const __grid_constant__ CUtensorMap dx_map, int n_experts, int c, int d,
+                    int f) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + kSwizzleAtom - 1) & ~uint32_t(kSwizzleAtom - 1);
+  const uint32_t o_smem = base + kDxStages * kDxStage;  // per consumer: its 4 KB chunks
+  const uint32_t full = o_smem + 2 * kDxOutBufs * kDxChunkBytes;  // one mbarrier per stage
+  const uint32_t empty = full + kDxStages * 8;
+  const int c_tiles = (c + kDxBN - 1) / kDxBN;
+  const int per_expert = ((d + kWgBM - 1) / kWgBM) * c_tiles;
+  const int n_work = n_experts * per_expert;
+  const int k_blocks = (f + kWgBK - 1) / kWgBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDxStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+        const int e = t / per_expert, r = t % per_expert;
+        const int m0 = (r / c_tiles) * kWgBM, n0 = (r % c_tiles) * kDxBN;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          const uint32_t bar = full + 8 * stage;
+          mbar_expect_tx(bar, kDxStage);  // whole boxes, zero fill included
+          const uint32_t st = base + stage * kDxStage;
+          tma_load_3d(st, &w_map, bar, kb * kWgBK, m0, e);             // 128 d x 64 f
+          tma_load_3d(st + kABytes, &dy_map, bar, kb * kWgBK, n0, e);  // kDxBN C x 64 f
+          if (++stage == kDxStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: d rows [64 cw, +64) of every tile, all its C columns
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const bool leader = threadIdx.x % 128 == 0;  // issues this warpgroup's stores
+    const uint32_t out_buf = o_smem + cw * kDxOutBufs * kDxChunkBytes;
+    float acc[kDxBN / 2];
+    int stage = 0, chunks = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+      const int e = t / per_expert, r = t % per_expert;
+      const int m0 = (r / c_tiles) * kWgBM, n0 = (r % c_tiles) * kDxBN;
+      int held = -1;  // the stage the previous k-block's wgmma group still reads
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t a = base + stage * kDxStage + cw * kBoxBytes;  // this warpgroup's 64 d
+        const uint32_t b = base + stage * kDxStage + kABytes;
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgBK / 16; ++kk) {
+          // both k-major: rows of 128 B (64 f), 8-row groups 1024 B apart,
+          // 16 f = 32 B further per step
+          const uint64_t da = smem_desc(a + kk * 32, 16, 1024);
+          const uint64_t db = smem_desc(b + kk * 32, 16, 1024);
+          wgmma_k16<T, kDxBN / 2, 0, 0>(acc, da, db, kb > 0 || kk > 0);
+        }
+        wgmma_commit();
+        fence_acc(acc);
+        wgmma_wait<1>();
+        fence_acc(acc);
+        // the previous group is done: its stage may be refilled
+        if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+        held = stage;
+        if (++stage == kDxStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (held >= 0 && lane == 0) mbar_arrive(empty + 8 * held);
+
+      // Epilogue, 32 C columns at a time: round to T and turn each 8 x 8 block
+      // over (stmatrix .trans) into a chunk laid out as a 128-byte-swizzled
+      // box of dx_map (32 C rows of 64 d), then one thread stores it by TMA
+      // while the warpgroup fills its other chunk.  Accumulator 4 j + 2 h + i
+      // of thread (warp, lane) is d row 16 warp + lane/4 + 8 h, C column
+      // 8 j + 2 (lane % 4) + i of the warpgroup's 64 x kDxBN block.
+#pragma unroll
+      for (int q = 0; q < kDxBN / kDxChunk; ++q) {
+        const uint32_t buf = out_buf + (chunks % kDxOutBufs) * kDxChunkBytes;
+        // the store that last read this chunk is done reading it
+        if (leader) asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(kDxOutBufs - 1) : "memory");
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+#pragma unroll
+        for (int p = 0; p < kDxChunk / 16; ++p) {
+          const int j = q * (kDxChunk / 8) + 2 * p;  // column blocks j and j + 1
+          const uint32_t r[4] = {pack2<T>(acc[4 * j], acc[4 * j + 1]),
+                                 pack2<T>(acc[4 * j + 2], acc[4 * j + 3]),
+                                 pack2<T>(acc[4 * j + 4], acc[4 * j + 5]),
+                                 pack2<T>(acc[4 * j + 6], acc[4 * j + 7])};
+          // matrix lane / 8: d rows 8 (its parity) on, C columns 8 (its half) on
+          const int m = lane / 8;
+          const int row = 16 * p + 8 * (m >> 1) + lane % 8;  // C, in the chunk
+          const int col16 = 2 * warp + (m & 1);               // d, in 16-byte units
+          stmatrix_x4_trans(buf + row * 128 + ((col16 ^ (lane % 8)) << 4), r);
+        }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // visible to TMA
+        asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+        if (leader) {
+          tma_store_3d(&dx_map, buf, m0 + 64 * cw, n0 + q * kDxChunk, e);
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        }
+        ++chunks;
+      }
+    }
+    // the chunks must outlive the last stores' reads
+    if (leader) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  }
+}
+
+// ------------------------------------------------------------- expert_wgmma_dw
+
+constexpr int kDwBN = 192;       // f columns a tile: one wgmma m64n192k16
+constexpr int kDwBM = 64;        // d rows a tile: one consumer warpgroup's
+constexpr int kDwSlots = 5;      // dy k-blocks held: all of C up to 320
+constexpr int kDwAStages = 5;    // x's ring of 64 x 64 boxes, per consumer: a tile at C = 320
+constexpr int kDwSlotBytes = kWgBK * kDwBN * 2;  // 64 C x 192 f: three 64 x 64 boxes
+constexpr int kDwBarriers = 2 * kDwSlots + 4 * kDwAStages;
+constexpr int kDwSmem = kSwizzleAtom + kDwSlots * kDwSlotBytes + 2 * kDwAStages * kBoxBytes +
+                        2 * kBoxBytes + kDwBarriers * 8;
+static_assert(kDwBN % kBox == 0 && kDwSmem <= 227 * 1024, "dw tiles do not fit");
+
+// The other gradient of repro/kernels/moe_gemm.py:moe_gemm (:44), held like
+// dx; bound at C = 320: bytes, 0.619 ms (1.61 GB of them its output), against
+// 0.521 ms of bf16 operations; the design is in the note at the top.
+// dw[e] = x[e]^T @ dy[e]: m = d, k = C, n = f; A = x (E, C, d) MN-major and
+// B = dy (E, C, f) MN-major, as stored.  The work is a list of (expert, f
+// block of 192, pair of 64-row d tiles), in that order, in runs of one
+// (expert, f block) each.  Block b of G takes runs b, b + G, ... while every
+// block has one, then an equal share of the pairs of the runs left: the
+// blocks finish together, and the blocks running side by side work on the
+// f blocks of the same few experts, so each x[e] tile is read from device
+// memory once and from L2 by the others.  Consumer cw computes tile 2 p + cw
+// of each pair p.  Where C <= 320 (resident) dy's k-blocks for a run are
+// loaded once into the slots, else both consumers read every pair's
+// k-blocks through the slots as a ring.  Producer warp 0 loads dy, warps 1
+// and 2 each one consumer's x.
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    expert_wgmma_dw(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap dy_map,
+                    const __grid_constant__ CUtensorMap dw_map, int n_experts, int c, int d,
+                    int f) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + kSwizzleAtom - 1) & ~uint32_t(kSwizzleAtom - 1);
+  const uint32_t b_smem = base;                                // dy's slots
+  const uint32_t a_smem = b_smem + kDwSlots * kDwSlotBytes;    // x's rings, one a consumer
+  const uint32_t o_smem = a_smem + 2 * kDwAStages * kBoxBytes;  // an output box a consumer
+  const uint32_t b_full = o_smem + 2 * kBoxBytes;
+  const uint32_t b_empty = b_full + kDwSlots * 8;
+  const uint32_t a_full = b_empty + kDwSlots * 8;  // [consumer][stage]
+  const uint32_t a_empty = a_full + 2 * kDwAStages * 8;
+  const int n_blocks = (f + kDwBN - 1) / kDwBN;
+  const int pairs = (d + 2 * kDwBM - 1) / (2 * kDwBM);
+  const int last_row = ((d - 1) / kDwBM) * kDwBM;  // an odd last tile recomputes the one before
+  const int k_blocks = (c + kWgBK - 1) / kWgBK;
+  const bool resident = k_blocks <= kDwSlots;
+  // this block's ranges of the pair list: whole runs, then a share of the rest
+  const int64_t runs = static_cast<int64_t>(n_experts) * n_blocks;
+  const int64_t rounds = runs / gridDim.x;
+  const int64_t rest = (runs - rounds * gridDim.x) * pairs;
+  auto range = [&](int64_t i, int64_t& lo, int64_t& hi) {
+    if (i < rounds) {
+      lo = (blockIdx.x + i * gridDim.x) * pairs;
+      hi = lo + pairs;
+    } else {
+      const int64_t first = rounds * gridDim.x * pairs;
+      lo = first + rest * blockIdx.x / gridDim.x;
+      hi = first + rest * (blockIdx.x + 1) / gridDim.x;
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwSlots; ++s) {
+      mbar_init(b_full + 8 * s, 1);
+      mbar_init(b_empty + 8 * s, kConsumerWarps);
+    }
+    for (int s = 0; s < 2 * kDwAStages; ++s) {
+      mbar_init(a_full + 8 * s, 1);
+      mbar_init(a_empty + 8 * s, kConsumerWarps / 2);  // one consumer's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0 && warp == 0) {
+      // dy: each run's k-blocks once (resident), or each pair's
+      int stage = 0;
+      uint32_t phase = 0;
+      int64_t held = -1, lo, hi;
+      for (int64_t i = 0; i <= rounds; ++i) {
+        for (range(i, lo, hi); lo < hi; ++lo) {
+          const int64_t blk = lo / pairs;
+          if (resident && blk == held) continue;
+          held = blk;
+          const int e = static_cast<int>(blk / n_blocks);
+          const int n0 = static_cast<int>(blk % n_blocks) * kDwBN;
+          for (int kb = 0; kb < k_blocks; ++kb) {
+            mbar_wait(b_empty + 8 * stage, phase ^ 1);
+            const uint32_t bar = b_full + 8 * stage;
+            mbar_expect_tx(bar, kDwSlotBytes);  // whole boxes, zero fill included
+#pragma unroll
+            for (int j = 0; j < kDwBN / kBox; ++j) {  // 64 f x 64 C boxes, f contiguous
+              tma_load_3d(b_smem + stage * kDwSlotBytes + j * kBoxBytes, &dy_map, bar,
+                          n0 + j * kBox, kb * kWgBK, e);
+            }
+            if (++stage == kDwSlots) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x % 32 == 0 && warp <= 2) {
+      // x: the d tiles of consumer warp - 1
+      const int cw = warp - 1;
+      int stage = 0;
+      uint32_t phase = 0;
+      int64_t lo, hi;
+      for (int64_t i = 0; i <= rounds; ++i) {
+        for (range(i, lo, hi); lo < hi; ++lo) {
+          const int e = static_cast<int>(lo / pairs / n_blocks);
+          const int m0 = min(static_cast<int>(2 * (lo % pairs) + cw) * kDwBM, last_row);
+          for (int kb = 0; kb < k_blocks; ++kb) {
+            const uint32_t s = cw * kDwAStages + stage;
+            mbar_wait(a_empty + 8 * s, phase ^ 1);
+            mbar_expect_tx(a_full + 8 * s, kBoxBytes);
+            tma_load_3d(a_smem + s * kBoxBytes, &x_map, a_full + 8 * s, m0, kb * kWgBK, e);
+            if (++stage == kDwAStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    // this warp's 16 rows (2 KB) of its consumer's output box
+    const uint32_t rows = o_smem + cw * kBoxBytes + warp * 16 * 128;
+    float acc[kDwBN / 2];
+    int a_stage = 0, b_stage = 0;
+    uint32_t a_phase = 0, b_phase = 0;
+    int64_t held_blk = -1, lo, hi;
+    for (int64_t i = 0; i <= rounds; ++i) {
+      for (range(i, lo, hi); lo < hi; ++lo) {
+        const int64_t blk = lo / pairs;
+        const int e = static_cast<int>(blk / n_blocks);
+        const int n0 = static_cast<int>(blk % n_blocks) * kDwBN;
+        const int m0 = min(static_cast<int>(2 * (lo % pairs) + cw) * kDwBM, last_row);
+        if (resident && blk != held_blk) {
+          if (held_blk >= 0) {  // the last run's k-blocks are behind us
+            for (int kb = 0; kb < k_blocks; ++kb) {
+              if (++b_stage == kDwSlots) {
+                b_stage = 0;
+                b_phase ^= 1;
+              }
+            }
+          }
+          held_blk = blk;
+        }
+        // free dy's slots as they are done with: every pair's where they are a
+        // ring, the run's last pair's where they are resident
+        const bool free_b = !resident || lo + 1 == hi || (lo + 1) / pairs != blk;
+        int bs = b_stage;
+        uint32_t bp = b_phase;
+        int a_held = -1, b_held = -1;
+        for (int kb = 0; kb < k_blocks; ++kb) {
+          const uint32_t as = cw * kDwAStages + a_stage;
+          mbar_wait(b_full + 8 * bs, bp);
+          mbar_wait(a_full + 8 * as, a_phase);
+          const uint32_t a = a_smem + as * kBoxBytes, b = b_smem + bs * kDwSlotBytes;
+          fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < kWgBK / 16; ++kk) {
+            // both MN-major: 64-column (d or f) boxes kBoxBytes apart, 8-row (C)
+            // groups 1024 B apart, 16 C = 16 rows = 2048 B further per step
+            const uint64_t da = smem_desc(a + kk * 2048, kBoxBytes, 1024);
+            const uint64_t db = smem_desc(b + kk * 2048, kBoxBytes, 1024);
+            wgmma_k16<T, kDwBN / 2, 1, 1>(acc, da, db, kb > 0 || kk > 0);
+          }
+          wgmma_commit();
+          fence_acc(acc);
+          wgmma_wait<1>();
+          fence_acc(acc);
+          if (lane == 0) {
+            if (a_held >= 0) mbar_arrive(a_empty + 8 * a_held);
+            if (free_b && b_held >= 0) mbar_arrive(b_empty + 8 * b_held);
+          }
+          a_held = static_cast<int>(as);
+          b_held = bs;
+          if (++a_stage == kDwAStages) {
+            a_stage = 0;
+            a_phase ^= 1;
+          }
+          if (++bs == kDwSlots) {
+            bs = 0;
+            bp ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        fence_acc(acc);
+        if (lane == 0) {
+          mbar_arrive(a_empty + 8 * a_held);
+          if (free_b) mbar_arrive(b_empty + 8 * b_held);
+        }
+        if (!resident) {  // the next pair's k-blocks follow this one's
+          b_stage = bs;
+          b_phase = bp;
+        }
+
+        // Epilogue, 64 f columns at a time, each warp on its own 16 rows: round
+        // to T into its quarter of a 128-byte-swizzled 64 x 64 box (stmatrix:
+        // each lane's pair of columns is one 32-bit word of an 8 x 8 block),
+        // and its lane 0 stores the quarter by TMA (dw_map's boxes are 16 rows
+        // of 64) while the other consumer's products run: no barrier across
+        // the warpgroup.  Accumulator 4 j + 2 h + i of thread (warp, lane) is
+        // row 16 warp + lane/4 + 8 h, column 8 j + 2 (lane % 4) + i.
+#pragma unroll
+        for (int q = 0; q < kDwBN / kBox; ++q) {
+          // the store that last read these rows is done reading them
+          if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+          __syncwarp();
+#pragma unroll
+          for (int p = 0; p < kBox / 16; ++p) {
+            const int j = q * (kBox / 8) + 2 * p;  // column blocks j and j + 1
+            const uint32_t r[4] = {pack2<T>(acc[4 * j], acc[4 * j + 1]),
+                                   pack2<T>(acc[4 * j + 2], acc[4 * j + 3]),
+                                   pack2<T>(acc[4 * j + 4], acc[4 * j + 5]),
+                                   pack2<T>(acc[4 * j + 6], acc[4 * j + 7])};
+            const int m = lane / 8;
+            const int row = 8 * (m & 1) + lane % 8;  // d, in the warp's 16 rows
+            const int col16 = 2 * p + (m >> 1);      // f, in 16-byte units
+            stmatrix_x4(rows + row * 128 + ((col16 ^ (lane % 8)) << 4), r);
+          }
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          __syncwarp();
+          if (lane == 0) {
+            tma_store_3d(&dw_map, rows, n0 + q * kBox, m0 + 16 * warp, e);
+            asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+          }
+        }
+      }
+    }
+    if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
   }
 }
 
@@ -678,9 +1100,8 @@ bool encode_3d(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, uint
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A (E, m, k) k-major or (E, k, m) MN-major (kAMN), B (E, k, n) MN-major or
-// (E, n, k) k-major (kBK), out (E, m, n); ap, bp, op are their row pitches.
-template <typename T, bool kAMN, bool kBK>
+// A (E, m, k), B (E, k, n) and out (E, m, n), rows ap, bp and op values apart.
+template <typename T>
 cudaError_t launch_wgmma(const void* a, const void* b, void* out, int e, int m, int k, int n,
                          int ap, int bp, int op, CUtensorMapDataType type, cudaStream_t stream) {
   const int64_t work = static_cast<int64_t>(e) * ((m + kWgBM - 1) / kWgBM) *
@@ -688,35 +1109,69 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* out, int e, int m, 
   if (work > INT_MAX) return cudaErrorInvalidValue;
   if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
   CUtensorMap a_map, b_map, out_map;
-  const bool a_ok = kAMN ? encode_3d(&a_map, type, a, m, k, e, kBox, ap)     // 64 k x 64 m
-                         : encode_3d(&a_map, type, a, k, m, e, kWgBM, ap);   // 128 m x 64 k
-  const bool b_ok = kBK ? encode_3d(&b_map, type, b, k, n, e, kWgBN, bp)     // 256 n x 64 k
-                        : encode_3d(&b_map, type, b, n, k, e, kWgBK, bp);    // 64 k x 64 n
-  if (!a_ok || !b_ok || !encode_3d(&out_map, type, out, n, m, e, 64, op)) {  // 64 m x 64 n
+  if (!encode_3d(&a_map, type, a, k, m, e, kWgBM, ap) ||    // 128 m x 64 k
+      !encode_3d(&b_map, type, b, n, k, e, kWgBK, bp) ||    // 64 k x 64 n
+      !encode_3d(&out_map, type, out, n, m, e, 64, op)) {  // 64 m x 64 n
     return cudaErrorInvalidValue;
   }
   // set on every launch, not once: the attribute belongs to the current
   // device's context, and a process may launch on more than one card
-  cudaError_t err = cudaFuncSetAttribute(expert_wgmma<T, kAMN, kBK>,
+  cudaError_t err = cudaFuncSetAttribute(expert_wgmma<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   int sms = 0;
   if (err == cudaSuccess) err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int grid = static_cast<int>(work < sms ? work : sms);
-  expert_wgmma<T, kAMN, kBK><<<grid, kWgThreads, kWgSmem, stream>>>(a_map, b_map, out_map, e,
-                                                                     m, k, n);
+  expert_wgmma<T><<<grid, kWgThreads, kWgSmem, stream>>>(a_map, b_map, out_map, e, m, k, n);
   return cudaGetLastError();
 }
 
+// w (E, d, f), dy (E, C, f) and dx (E, C, d), rows wp, dyp and dxp values apart.
 template <typename T>
-cudaError_t launch_wgmma_layout(int layout, const void* a, const void* b, void* out, int e,
-                                int m, int k, int n, int ap, int bp, int op,
-                                CUtensorMapDataType type, cudaStream_t stream) {
-  switch (layout) {
-    case 0: return launch_wgmma<T, false, false>(a, b, out, e, m, k, n, ap, bp, op, type, stream);
-    case 1: return launch_wgmma<T, false, true>(a, b, out, e, m, k, n, ap, bp, op, type, stream);
-    default: return launch_wgmma<T, true, false>(a, b, out, e, m, k, n, ap, bp, op, type, stream);
+cudaError_t launch_dx(const void* w, const void* dy, void* dx, int e, int c, int d, int f,
+                      int wp, int dyp, int dxp, CUtensorMapDataType type, cudaStream_t stream) {
+  const int64_t work = static_cast<int64_t>(e) * ((d + kWgBM - 1) / kWgBM) *
+                       ((c + kDxBN - 1) / kDxBN);
+  if (work > INT_MAX) return cudaErrorInvalidValue;
+  if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap w_map, dy_map, dx_map;
+  if (!encode_3d(&w_map, type, w, f, d, e, kWgBM, wp) ||          // 128 d x 64 f
+      !encode_3d(&dy_map, type, dy, f, c, e, kDxBN, dyp) ||       // 160 C x 64 f
+      !encode_3d(&dx_map, type, dx, d, c, e, kDxChunk, dxp)) {  // 32 C x 64 d
+    return cudaErrorInvalidValue;
   }
+  cudaError_t err = cudaFuncSetAttribute(expert_wgmma_dx<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDxSmem);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  expert_wgmma_dx<T><<<grid, kWgThreads, kDxSmem, stream>>>(w_map, dy_map, dx_map, e, c, d, f);
+  return cudaGetLastError();
+}
+
+// x (E, C, d), dy (E, C, f) and dw (E, d, f), rows xp, dyp and dwp values apart.
+template <typename T>
+cudaError_t launch_dw(const void* x, const void* dy, void* dw, int e, int c, int d, int f,
+                      int xp, int dyp, int dwp, CUtensorMapDataType type, cudaStream_t stream) {
+  const int64_t work = static_cast<int64_t>(e) * ((f + kDwBN - 1) / kDwBN) *
+                       ((d + 2 * kDwBM - 1) / (2 * kDwBM));
+  if (work > INT_MAX) return cudaErrorInvalidValue;
+  if (tensor_map_encoder() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap x_map, dy_map, dw_map;
+  if (!encode_3d(&x_map, type, x, d, c, e, kWgBK, xp) ||     // 64 C x 64 d
+      !encode_3d(&dy_map, type, dy, f, c, e, kWgBK, dyp) ||  // 64 C x 64 f
+      !encode_3d(&dw_map, type, dw, f, d, e, 16, dwp)) {     // 16 d x 64 f: a warp's
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(expert_wgmma_dw<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmem);
+  int sms = 0;
+  if (err == cudaSuccess) err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  expert_wgmma_dw<T><<<grid, kWgThreads, kDwSmem, stream>>>(x_map, dy_map, dw_map, e, c, d, f);
+  return cudaGetLastError();
 }
 
 template <typename TO>
@@ -753,19 +1208,15 @@ cudaError_t launch_split(const void* xp, const void* wp, void* out, int e, int c
 // aligned: a tensor map's base and strides are multiples of 16 bytes.
 static bool pitch_ok(int pitch, int extent) { return pitch % 8 == 0 && pitch >= extent; }
 
-// expert_wgmma: out[e] = A[e] @ B[e], (m, k) x (k, n) -> (m, n).  layout
-// 0: A (E, m, a_pitch) and B (E, k, b_pitch) (the forward, x @ w); 1: B
-// (E, n, b_pitch), read k-major (dx = dy @ w^T); 2: A (E, k, a_pitch), read
-// MN-major (dw = x^T @ dy).  out: (E, m, out_pitch).  Of each row the first
-// k, m or n values are read or written; in_dtype (A and B) and out_dtype
+// expert_wgmma: out[e] = A[e] @ B[e], (m, k) x (k, n) -> (m, n): A (E, m,
+// a_pitch), B (E, k, b_pitch), out (E, m, out_pitch); of each row the first
+// k, n or n values are read or written.  in_dtype (A and B) and out_dtype
 // both 1 = bfloat16 or both 2 = float16; k > 0.
 extern "C" int repro_moe_gemm_wgmma(const void* a, const void* b, void* out, int e, int m,
                                     int k, int n, int a_pitch, int b_pitch, int out_pitch,
-                                    int in_dtype, int out_dtype, int layout, void* stream) {
-  const int a_row = layout == 2 ? m : k, b_row = layout == 1 ? k : n;
-  if (e < 0 || m < 0 || k <= 0 || n < 0 || layout < 0 || layout > 2 ||
-      !pitch_ok(a_pitch, a_row) || !pitch_ok(b_pitch, b_row) || !pitch_ok(out_pitch, n) ||
-      (in_dtype != 1 && in_dtype != 2) || out_dtype != in_dtype ||
+                                    int in_dtype, int out_dtype, void* stream) {
+  if (e < 0 || m < 0 || k <= 0 || n < 0 || !pitch_ok(a_pitch, k) || !pitch_ok(b_pitch, n) ||
+      !pitch_ok(out_pitch, n) || (in_dtype != 1 && in_dtype != 2) || out_dtype != in_dtype ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 || reinterpret_cast<uintptr_t>(b) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -774,12 +1225,58 @@ extern "C" int repro_moe_gemm_wgmma(const void* a, const void* b, void* out, int
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       in_dtype == 1
-          ? launch_wgmma_layout<__nv_bfloat16>(layout, a, b, out, e, m, k, n, a_pitch, b_pitch,
-                                               out_pitch, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
-          : launch_wgmma_layout<__half>(layout, a, b, out, e, m, k, n, a_pitch, b_pitch,
-                                        out_pitch, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
+          ? launch_wgmma<__nv_bfloat16>(a, b, out, e, m, k, n, a_pitch, b_pitch, out_pitch,
+                                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
+          : launch_wgmma<__half>(a, b, out, e, m, k, n, a_pitch, b_pitch, out_pitch,
+                                 CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
 }
 
+// The gradient checks shared by expert_wgmma_dx and _dw: a is w (E, d,
+// a_pitch) for dx and x (E, C, a_pitch) for dw, dy (E, C, dy_pitch), out dx
+// (E, C, out_pitch) or dw (E, d, out_pitch); dtype 1 = bfloat16 or 2 =
+// float16 for all three; the contraction (f for dx, C for dw) > 0.
+static bool grad_args_ok(const void* a, const void* dy, void* out, int e, int c, int d, int f,
+                         int a_row, int out_row, int a_pitch, int dy_pitch, int out_pitch,
+                         int dtype) {
+  return e >= 0 && c >= 0 && d >= 0 && f >= 0 && pitch_ok(a_pitch, a_row) &&
+         pitch_ok(dy_pitch, f) && pitch_ok(out_pitch, out_row) && (dtype == 1 || dtype == 2) &&
+         reinterpret_cast<uintptr_t>(a) % 16 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+// expert_wgmma_dx: dx[e] = dy[e] @ w[e]^T.  w (E, d, w_pitch), dy (E, C,
+// dy_pitch), dx (E, C, dx_pitch); f > 0.
+extern "C" int repro_moe_gemm_dx(const void* w, const void* dy, void* dx, int e, int c, int d,
+                                 int f, int w_pitch, int dy_pitch, int dx_pitch, int dtype,
+                                 void* stream) {
+  if (f <= 0 || !grad_args_ok(w, dy, dx, e, c, d, f, f, d, w_pitch, dy_pitch, dx_pitch, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e == 0 || c == 0 || d == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 1 ? launch_dx<__nv_bfloat16>(w, dy, dx, e, c, d, f, w_pitch, dy_pitch,
+                                                dx_pitch, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
+                 : launch_dx<__half>(w, dy, dx, e, c, d, f, w_pitch, dy_pitch, dx_pitch,
+                                         CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
+}
+
+// expert_wgmma_dw: dw[e] = x[e]^T @ dy[e].  x (E, C, x_pitch), dy (E, C,
+// dy_pitch), dw (E, d, dw_pitch); C > 0.
+extern "C" int repro_moe_gemm_dw(const void* x, const void* dy, void* dw, int e, int c, int d,
+                                 int f, int x_pitch, int dy_pitch, int dw_pitch, int dtype,
+                                 void* stream) {
+  if (c <= 0 || !grad_args_ok(x, dy, dw, e, c, d, f, d, f, x_pitch, dy_pitch, dw_pitch, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (e == 0 || d == 0 || f == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 1 ? launch_dw<__nv_bfloat16>(x, dy, dw, e, c, d, f, x_pitch, dy_pitch, dw_pitch,
+                                            CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st)
+                 : launch_dw<__half>(x, dy, dw, e, c, d, f, x_pitch, dy_pitch, dw_pitch,
+                                     CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st));
+}
 
 // split3_bf16.  src: rows x cols float32 values; dst: 3 x rows x pitch
 // bfloat16, the three pieces one after another, 16-byte aligned; pitch >=

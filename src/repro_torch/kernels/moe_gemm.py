@@ -37,15 +37,16 @@ from repro_torch.kernels.ref import (
 TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# (A, B, out, E, m, k, n, A pitch, B pitch, out pitch, in dtype code,
-#  out dtype code, layout, stream)
-_WGMMA = ("repro_moe_gemm_wgmma", [_PTR] * 3 + [_INT] * 10 + [_PTR])
-# the C entry point of each __global__ in csrc/moe_gemm.cu (expert_wgmma once
-# for each of its operand layouts), and its arguments
+# (a, dy, out, E, C, d, f, a pitch, dy pitch, out pitch, dtype code, stream):
+# a is w for dx, x for dw
+_GRAD = [_PTR] * 3 + [_INT] * 8 + [_PTR]
+# the C entry point of each __global__ in csrc/moe_gemm.cu, and its arguments
 _ENTRY = {
-    "expert_wgmma": _WGMMA,  # layout 0: x @ w
-    "expert_wgmma_dx": _WGMMA,  # layout 1: dy @ wᵀ, w read k-major
-    "expert_wgmma_dw": _WGMMA,  # layout 2: xᵀ @ dy, x read MN-major
+    # (A, B, out, E, m, k, n, A pitch, B pitch, out pitch, in dtype code,
+    #  out dtype code, stream): x @ w
+    "expert_wgmma": ("repro_moe_gemm_wgmma", [_PTR] * 3 + [_INT] * 9 + [_PTR]),
+    "expert_wgmma_dx": ("repro_moe_gemm_dx", _GRAD),  # dy @ wᵀ, as (w @ dyᵀ)ᵀ
+    "expert_wgmma_dw": ("repro_moe_gemm_dw", _GRAD),  # xᵀ @ dy
     # (x pieces, w pieces, out, E, C, d, f, x pitch, w pitch, out dtype code, stream)
     "expert_split": ("repro_moe_gemm_split", [_PTR] * 3 + [_INT] * 7 + [_PTR]),
     # (src, dst, rows, cols, pitch, stream)
@@ -55,7 +56,6 @@ _ENTRY = {
     # (src, dst, rows, src pitch, dst pitch, stream)
     "stage16": ("repro_stage16", [_PTR, _PTR, ctypes.c_longlong, _INT, _INT, _PTR]),
 }
-_LAYOUT = {"expert_wgmma": 0, "expert_wgmma_dx": 1, "expert_wgmma_dw": 2}
 
 
 @functools.cache
@@ -269,19 +269,30 @@ def moe_gemm(
         w = stage16(w, _pitch(f))
     # with f off 8 the output's rows are written at a pitch the map takes,
     # then copied out to their f columns
-    return _wgmma("expert_wgmma", x, w, C, d, f)
+    return _wgmma(x, w, C, d, f)
 
 
-def _wgmma(kernel: str, a: torch.Tensor, b: torch.Tensor, m: int, k: int, n: int) -> torch.Tensor:
-    """One ``expert_wgmma`` launch in ``kernel``'s operand layout on aligned,
-    pitched 16-bit operands; the (E, m, n) result, cropped from a pitched
-    buffer by ``stage16`` where n is off 8."""
-    out = torch.empty((a.shape[0], m, _pitch(n)), dtype=a.dtype, device=a.device)
-    code = DTYPE_CODE[a.dtype]
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], m, k, n)
-    _launch(kernel, a.device, *args, a.shape[-1], b.shape[-1], out.shape[-1], code, code,
-            _LAYOUT[kernel])
-    return out if n % 8 == 0 else stage16(out, n)
+def _wgmma(x: torch.Tensor, w: torch.Tensor, C: int, d: int, f: int) -> torch.Tensor:
+    """One ``expert_wgmma`` launch on aligned, pitched 16-bit operands; the
+    (E, C, f) result, cropped from a pitched buffer by ``stage16`` where f
+    is off 8."""
+    out = torch.empty((x.shape[0], C, _pitch(f)), dtype=x.dtype, device=x.device)
+    code = DTYPE_CODE[x.dtype]
+    _launch("expert_wgmma", x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], C,
+            d, f, x.shape[-1], w.shape[-1], out.shape[-1], code, code)
+    return out if f % 8 == 0 else stage16(out, f)
+
+
+def _grad(kernel: str, a: torch.Tensor, dy: torch.Tensor, C: int, d: int, f: int) -> torch.Tensor:
+    """One launch of ``expert_wgmma_dx`` (``a`` = w, (E, d, f)) or
+    ``expert_wgmma_dw`` (``a`` = x, (E, C, d)) on aligned, pitched 16-bit
+    operands and dy (E, C, f): dx (E, C, d) or dw (E, d, f), cropped from a
+    pitched buffer by ``stage16`` where its rows are off 8."""
+    rows, cols = (C, d) if kernel == "expert_wgmma_dx" else (d, f)
+    out = torch.empty((dy.shape[0], rows, _pitch(cols)), dtype=dy.dtype, device=dy.device)
+    _launch(kernel, dy.device, a.data_ptr(), dy.data_ptr(), out.data_ptr(), dy.shape[0], C, d, f,
+            a.shape[-1], dy.shape[-1], out.shape[-1], DTYPE_CODE[dy.dtype])
+    return out if cols % 8 == 0 else stage16(out, cols)
 
 
 def moe_gemm_backward(
@@ -296,8 +307,8 @@ def moe_gemm_backward(
     card a non-contiguous ``dy`` is first copied contiguous (counted in
     ``GroupedGemm.dy_copies``), then the launches
     ``grad_launch_plan(x, w, dy)`` names run: 16-bit x, w and dy of one
-    type take ``expert_wgmma`` in its two gradient layouts, reading w and x
-    as stored; anything else meets at fp32 and takes the split products,
+    type take ``expert_wgmma_dx`` and ``expert_wgmma_dw``, reading w, x and
+    dy as stored; anything else meets at fp32 and takes the split products,
     the operand read transposed split transposed by ``split3_bf16_t``.  A
     failed launch raises ``KernelError``."""
     E, C, d = x.shape
@@ -334,9 +345,7 @@ def moe_gemm_backward(
         w = stage16(w, _pitch(f))
     if _needs_stage(x):
         x = stage16(x, _pitch(d))
-    dx = _wgmma("expert_wgmma_dx", dy, w, C, f, d)  # m = C, k = f, n = d
-    dw = _wgmma("expert_wgmma_dw", x, dy, d, C, f)  # m = d, k = C, n = f
-    return dx, dw
+    return _grad("expert_wgmma_dx", w, dy, C, d, f), _grad("expert_wgmma_dw", x, dy, C, d, f)
 
 
 class GroupedGemm(torch.autograd.Function):
@@ -361,7 +370,6 @@ class GroupedGemm(torch.autograd.Function):
                 dw if ctx.needs_input_grad[1] else None, None, None, None)
 
 
-# launches since the last reset, per __global__ of csrc/moe_gemm.cu (and
-# per operand layout of expert_wgmma); one dict, whatever stands in for
-# moe_gemm in a caller's hooks
+# launches since the last reset, per __global__ of csrc/moe_gemm.cu; one
+# dict, whatever stands in for moe_gemm in a caller's hooks
 _LAUNCHES = moe_gemm.launches = {name: 0 for name in _ENTRY}

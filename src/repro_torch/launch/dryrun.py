@@ -38,6 +38,8 @@ The ``donate`` opt has no meaning here: the port's steps update in place.
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-moe-235b-a22b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out build/dryrun]
+  python -m repro_torch.launch.dryrun --arch internlm2-1.8b --shape train_4k --multi-pod \
+      --layers 2   # depth cut to 2 layers (the record's file name ends _L2)
 """
 from __future__ import annotations
 
@@ -290,13 +292,18 @@ def start_fake_group(world: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
 
 
-def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str | None, opts: tuple = ()) -> dict:
+def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str | None, opts: tuple = (),
+             n_layers: int | None = None) -> dict:
     """One cell on the production mesh over a fake group, on fake CPU
     tensors: DTensor moves data as over gloo, which has no all-to-all (a
-    shard moves between dims by an all-gather and a local chunk)."""
+    shard moves between dims by an all-gather and a local chunk); with
+    ``n_layers``, at that depth instead of the published one."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    cfg = cell_config(arch, opts)
+    base = get_config(arch)
+    if n_layers is not None:
+        base = dataclasses.replace(base, n_layers=n_layers)
+    cfg = cell_config(arch, opts, base)
     ok, why = shape_applicable(cfg, shape)
     mesh_name = "2x16x16" if multi_pod else "16x16"
     rec = {"arch": arch, "shape": shape, "mesh": mesh_name, "opts": list(opts),
@@ -309,7 +316,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str | None, opts: 
         start_fake_group(512 if multi_pod else 256)
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         with FakeTensorMode():
-            step, args = build_cell(arch, shape, mesh, opts=opts)
+            step, args = build_cell(arch, shape, mesh, cfg=base, opts=opts)
             t_build = time.time() - t0
             census = Census(mesh.size())
             t1 = time.time()
@@ -346,6 +353,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: str | None, opts: 
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         tag = ("+" + "+".join(opts)) if opts else ""
+        tag += f"_L{n_layers}" if n_layers is not None else ""
         fname = f"{arch}_{shape}_{mesh_name}{tag}.json".replace("/", "_")
         with open(os.path.join(out_dir, fname), "w") as f:
             json.dump(rec, f, indent=1)
@@ -361,6 +369,7 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--opt", default="", help="comma list of " + ",".join(OPTS))
+    ap.add_argument("--layers", type=int, default=None, help="cut every config to this depth")
     args = ap.parse_args(argv)
     opts = tuple(o for o in args.opt.split(",") if o)
 
@@ -371,7 +380,7 @@ def main(argv=None):
     for arch in archs:
         for shape in shapes:
             for mp in meshes:
-                rec = run_cell(arch, shape, mp, args.out, opts=opts)
+                rec = run_cell(arch, shape, mp, args.out, opts=opts, n_layers=args.layers)
                 n_fail += rec["status"] == "error"
     sys.exit(1 if n_fail else 0)
 

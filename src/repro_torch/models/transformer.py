@@ -351,13 +351,34 @@ def _ffn(lp, h, cfg: ModelConfig, ep_group=None):
     return out, aux
 
 
+def _reduced(x):
+    """The residual ``x + mix``, which the attention's out-projection leaves
+    partial over 'model', reduced to replicated over each mesh dim whose
+    size the local batch does not divide (the multi-pod mesh's 'model': 8
+    rows a (pod, data) shard, 16 ranks).  Left partial there, DTensor
+    reduce-scatters it over the sequence at the norm, and a (B S) flatten of
+    that split is a strided split (``_StridedShard``) that a weight-gradient
+    product cannot follow under fake tensors.  Where the batch divides,
+    DTensor's own reduction (a reduce-scatter over the batch) stands."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, held = x.device_mesh, lies(x)
+    rows = x.shape[0]
+    for i, p in enumerate(held):
+        if p == Shard(0):
+            rows //= mesh.size(i)
+    keep = tuple(Replicate() if p.is_partial() and rows % mesh.size(i) else p
+                 for i, p in enumerate(held))
+    return x if keep == held else x.redistribute(mesh, keep)
+
+
 def _residual(lp, x, h, mix, cfg: ModelConfig, ep_group=None):
     """The block's FFN and residuals around the mixer's output ``mix``."""
     if cfg.parallel_block:
         # command-r style: MLP on the same normalized input, single residual
         ff, aux = _ffn(lp, h, cfg, ep_group)
         return x + mix + ff, aux
-    x = x + mix
+    x = _reduced(x + mix)
     ff, aux = _ffn(lp, L.apply_norm(cfg.norm, x, lp["ln2"]), cfg, ep_group)
     return x + ff, aux
 

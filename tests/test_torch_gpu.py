@@ -319,13 +319,18 @@ def _moe_grad_counted(before: dict, x, w, dy) -> bool:
      (torch.float32, torch.float32), (torch.bfloat16, torch.float32)],
 )
 # C, d and f off 8 and off the tiles; the training path's C = 320 on a few
-# of Qwen3-MoE's experts at full width
+# of Qwen3-MoE's experts at full width; C at every edge of the gradient
+# kernels' tiles: 1 and 63 (dx's one m64n64 column tile), 160 (one n160),
+# 200 and 320 (two), 640 (two column tiles of dx, and dw's dy slots read as
+# a ring); d and f off 64, and an odd count of dw's 64-row tiles (d = 136)
 @pytest.mark.parametrize(
-    "shape", [(2, 16, 32, 24), (3, 200, 72, 136), (2, 130, 1001, 257), (4, 320, 4096, 1536)]
+    "shape", [(2, 16, 32, 24), (3, 200, 72, 136), (2, 130, 1001, 257), (4, 320, 4096, 1536),
+              (3, 1, 200, 136), (2, 63, 136, 200), (3, 160, 328, 200), (2, 640, 200, 328)]
 )
 def test_moe_gemm_backward_matches_plain_version(cuda, shape, x_dtype, w_dtype):
-    """dx = dy @ wᵀ (``expert_wgmma_dx``: w read k-major) and dw = xᵀ @ dy
-    (``expert_wgmma_dw``: x read MN-major) in 16-bit, the split products
+    """dx = dy @ wᵀ (``expert_wgmma_dx``: w and dy read k-major, dxᵀ
+    written transposed) and dw = xᵀ @ dy (``expert_wgmma_dw``: x and dy read
+    MN-major) in 16-bit, the split products
     after ``split3_bf16`` and ``split3_bf16_t`` in fp32 and mixed types,
     each against ``moe_gemm_grad_ref``; the counters move by exactly what
     ``grad_launch_plan(x, w, dy)`` lists."""
@@ -349,6 +354,35 @@ def test_moe_gemm_backward_matches_plain_version(cuda, shape, x_dtype, w_dtype):
     torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
     # dw sums C products: hold it at the scale of its sums
     tol = TOL[w_dtype] if w_dtype == x_dtype else TOL[torch.bfloat16]
+    scale = float(want_dw.float().abs().max())
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol, atol=tol * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("operand", ["x", "w", "dy"])
+def test_moe_gemm_backward_takes_a_misaligned_view(cuda, operand):
+    """One bf16 operand a view 2 bytes off 16-byte alignment, which
+    ``stage16`` copies to an aligned buffer before the gradient kernels (as
+    phase 8 serves the forward): dx and dw equal the plain version, and the
+    counters move by the one stage and two products the plan lists."""
+    E, C, d, f = 4, 320, 512, 384
+    rng = np.random.default_rng(7)
+    x, w = _moe_operands(rng, (E, C, d, f), torch.bfloat16, torch.bfloat16, cuda)
+    dy = torch.from_numpy(rng.standard_normal((E, C, f)).astype(np.float32)).to(cuda).bfloat16()
+    ops = {"x": x, "w": w, "dy": dy}
+    buf = torch.empty(ops[operand].numel() + 1, dtype=torch.bfloat16, device=cuda)
+    view = buf[1:].view(ops[operand].shape)
+    view.copy_(ops[operand])
+    assert view.data_ptr() % 16 == 2 and view.is_contiguous()
+    ops[operand] = view
+    x, w, dy = ops["x"], ops["w"], ops["dy"]
+    assert grad_launch_plan(x, w, dy) == {"stage16": 1, "expert_wgmma_dx": 1, "expert_wgmma_dw": 1}
+    before = dict(moe_gemm.launches)
+    dx, dw = moe_gemm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert _moe_grad_counted(before, x, w, dy)
+    want_dx, want_dw = moe_gemm_grad_ref(x, w, dy)
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol, atol=tol)
     scale = float(want_dw.float().abs().max())
     torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol, atol=tol * max(scale, 1.0))
 
