@@ -138,6 +138,19 @@ Phases, each printing its seconds:
      unsharded steps' bit for bit with K3 launched as often, every K3
      launch of one prefill and decode step against its plain version, and
      the sharded steps' times beside the unsharded ones.
+ 17. examples (``examples``): the six scripts of ``examples_torch/`` on
+     the card: (a) the quickstart on MCL-dip at scale 0.2 (all seven
+     models planned, ``auto`` executed), ``auto``'s and monoC's products
+     against scipy in float64, K1 on monoC; (b) the model sweep on AMG n=6
+     (measured words == predicted, no LRU miss after compile); (c) the AMG
+     study, its tables equal to a ``--device cpu`` run; (d) the MoE
+     placement's loss (3 K3 products a MoE layer, each against its plain
+     version; the CPU's loss within 1e-4); (e) decode (4 x 64 prompts, 32
+     tokens) on internlm2-1.8b at full depth and Qwen3-MoE-235B-A22B at 4
+     layers (3 K3 launches a layer a step); (f) ``train_100m.py``: 300
+     steps (loss finite, step 299 below ln 16,384 and 1 nat under step
+     0), then a run stopped after step 120 and resumed from its step-100
+     checkpoint, within 1e-5 of the uninterrupted run.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
 with the launches of the path it is read on: ``scalar_runs`` on the block-1
 path, ``warp_runs`` on the block-16 path, ``tile_runs`` and ``mma_runs``
@@ -158,12 +171,15 @@ launches in one training step, and ``split3_bf16_t`` and the backward's
 two ``expert_split`` products (dx, dw) with their launches in 14 (b),
 timed at (b)'s own operands, and ``expert_wgmma`` with its launches in
 phase 16 (b)'s sharded prefill and decode steps, timed at the prefill's
-up projection; bounds at the peak of each route's
+up projection, and phase 17's ``scalar_runs`` on MCL-dip monoC,
+``expert_split`` in (d) and ``expert_wgmma`` in (e)'s Qwen3-MoE decode,
+each with the launches of its path; bounds at the peak of each route's
 arithmetic, ``PEAK_FLOPS``; a time under its bound
 fails), the card line, and the result line; the phases' full records go to
 ``chip_smoke.json`` under ``OUT`` (phase 10 under ``serving``, 11 under
 ``summa_device``, 12 under ``lm_serve``, 13 under ``ranks``, 14 under
-``train``, 15 under ``ssm``, 16 under ``mesh``; the dry runs' records
+``train``, 15 under ``ssm``, 16 under ``mesh``, 17 under ``examples``,
+with ``train_100m.py``'s logs beside it; the dry runs' records
 and logs under ``dryrun/``).
 Any failure exits non-zero without the result line; there is no CPU
 fallback.
@@ -1771,8 +1787,9 @@ def k3_checked(records: list, keep: dict, label: str, moe_gemm):
 def k3_record_at(x, w, launches: int, err: float) -> dict:
     """K3's numbers at operands the LM path gave it: the kernel, its plain
     version and ``torch.bmm`` on the same tensors, by events; the bound is
-    each operand read once and the output written once, against bf16
-    operations at the tensor cores' peak."""
+    each operand read once and the output written once, against the
+    route's operations at the tensor cores' peak (bf16, or the split
+    products' for fp32)."""
     import torch
     from repro_torch.kernels.moe_gemm import moe_gemm, route
     from repro_torch.kernels.ref import moe_gemm_ref
@@ -1781,9 +1798,11 @@ def k3_record_at(x, w, launches: int, err: float) -> dict:
     f = w.shape[2]
     n_bytes = (x.numel() + w.numel() + E * C * f) * x.element_size()
     n_ops = 2.0 * E * C * d * f
-    bound_ms, bound_by = bound(n_bytes, n_ops, dtype_name(x.dtype))
+    kernel = route(x, w)
+    peak = "float32_split" if kernel == "expert_split" else dtype_name(x.dtype)
+    bound_ms, bound_by = bound(n_bytes, n_ops, peak)
     return {
-        "kernel": route(x, w), "shape": [list(x.shape), list(w.shape)], "launches": launches,
+        "kernel": kernel, "shape": [list(x.shape), list(w.shape)], "launches": launches,
         "max_abs_err": err,
         "ms": cuda_ms(lambda: moe_gemm(x, w, b_c=C, b_f=f, b_d=d), reps=20),
         "plain_ms": cuda_ms(lambda: moe_gemm_ref(x, w), reps=3, warmup=1),
@@ -4088,6 +4107,357 @@ def sharded_serving(device) -> dict:
     return rec
 
 
+EXAMPLES = ROOT / "examples_torch"  # phase 17: the reference's six examples, for the port
+MCL_SCALE = 0.2  # 17 (a): MCL-dip at the quickstart's own scale
+DECODE_BATCH, DECODE_PROMPT, DECODE_TOKENS = 4, 64, 32  # 17 (e): the example's defaults
+DECODE_ARCHS = ("internlm2-1.8b", LM_ARCH)  # 17 (e): full depth; Qwen3-MoE at LM_LAYERS
+TRAIN_100M_STEPS = 300  # 17 (f): the example's run
+TRAIN_100M_STOP = 120  # 17 (f): the stopped run's last step
+TRAIN_100M_WARMUP = 5  # 17 (f): steps left out of the median step time
+TRAIN_100M_RESUME_TOL = 1e-5  # 17 (f), absolute, on every loss from the resumed step on
+
+
+def example(name: str):
+    """``examples_torch/<name>.py`` as a fresh module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quietly(fn, *args, **kwargs):
+    """(``fn``'s result, what it printed)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kwargs)
+    return result, out.getvalue()
+
+
+class _Stop(Exception):
+    """Ends 17 (f)'s stopped run: not retryable, so ``run_loop`` re-raises
+    it and writes no checkpoint for the steps since its last one."""
+
+
+def examples_spgemm(device, rng) -> dict:
+    """Phase 17 (a)-(c): the SpGEMM examples on the card.
+
+    (a) ``quickstart.run`` on MCL-dip at scale 0.2 (networkx's
+        Barabási–Albert graph built without networkx), all seven models and
+        ``auto`` planned at p = 4 and ``auto`` executed on the card by the
+        example; then ``auto``'s and the monoC handle's products through
+        ``front_door_run`` against scipy in float64 (1e-4), K1 launched on
+        monoC, monoC's planned words equal to its predicted, and K1 timed
+        at the monoC call's own inputs;
+    (b) ``select_quickstart.run`` on 27-AP at n = 6: measured words equal
+        to predicted on every model, each executor's error, and the
+        compile-once demo's ten products against float64 with no LRU miss
+        after its compile;
+    (c) ``amg_partition_study.main`` at its defaults (n = 9, p = 8) with
+        ``--device cuda`` and with ``--device cpu``: the same tables."""
+    import torch
+    from repro_torch.core.matrices import amg_instances, mcl_instance
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+
+    rec = {}
+    t0 = time.perf_counter()
+    inst = mcl_instance("dip", MCL_SCALE)
+    res, out = quietly(example("quickstart").run, inst, p=P, device=device)
+    print(out, end="", flush=True)
+    handles = res["handles"]
+    rec["quickstart"] = {
+        "instance": inst.name, "scale": MCL_SCALE, "shape": list(inst.shape),
+        "nnz": [inst.a.nnz, inst.b.nnz, inst.c.nnz], "n_mult": inst.n_mult,
+        "plan_s": time.perf_counter() - t0, "auto_model": handles["auto"].model,
+        "example_max_abs_err": res["max_abs_err"], "stdout": out,
+        "table": {m: {k: h.cost_report()[k] for k in ("predicted_words", "planned_words",
+                                                        "predicted_max_part")}
+                  for m, h in handles.items()},
+    }
+    if not res["max_abs_err"] <= 1e-4 * max(1.0, float(np.abs(res["c"]).max())):
+        fail(f"examples (a): the example's product is off A @ B by {res['max_abs_err']}")
+    runs = {}
+    for model in ("auto", "monoC"):
+        exe, last, stats = front_door_run(inst, model, device, rng, handle=handles[model])
+        runs[model] = (exe, last, stats)
+        rec["quickstart"][model] = stats
+    stats = runs["monoC"][2]
+    k1_launches = stats["kernel_launches"].get("scalar_runs", 0)
+    if k1_launches < REPS:
+        fail(f"examples (a): K1 launched {stats['kernel_launches']} in {REPS} monoC calls")
+    if stats["planned_words"] != stats["predicted_words"]:
+        fail(f"examples (a): monoC plans {stats['planned_words']} words, predicted "
+             f"{stats['predicted_words']}")
+    exe, (a_last, b_last), _ = runs["monoC"]
+    library_ms = library_csr_ms(csr_on_card(inst.a, a_last, device),
+                                csr_on_card(inst.b, b_last, device))
+    rec["k1"] = kernel_record_at(exe, a_last, b_last, library_ms)
+    rec["k1"]["launches"] = k1_launches
+    del runs, exe
+    print("examples (a) quickstart", json.dumps({k: v for k, v in rec["quickstart"].items()
+                                                 if k not in ("stdout", "table")}), flush=True)
+    print("examples (a) K1 at MCL-dip monoC", json.dumps(rec["k1"]), flush=True)
+    phase("examples (a) quickstart", t0)
+
+    t0 = time.perf_counter()
+    ap6 = amg_instances(6)[0]
+    res, out = quietly(example("select_quickstart").run, ap6, p=P, device=device)
+    print(out, end="", flush=True)
+    for r in res["records"]:
+        if r["measured_words"] != r["predicted_words"] or not r["exec_max_err"] <= 1e-4:
+            fail(f"examples (b): {r['model']} measured {r['measured_words']} words, predicted "
+                 f"{r['predicted_words']}, executor err {r['exec_max_err']}")
+    demo = res["iterated"]
+    if demo["lru_misses"] != 0 or len(demo["products"]) != 10:
+        fail(f"examples (b): {demo['lru_misses']} LRU misses over {len(demo['products'])} calls")
+    demo_err = max(check_product(ap6, c, a, b, device, "examples (b) compile-once product")
+                   for a, b, c in demo["products"])
+    rec["select_quickstart"] = {
+        "instance": ap6.name, "stdout": out, "demo_max_abs_err": demo_err,
+        "records": [{k: v for k, v in r.items() if k != "name"} for r in res["records"]],
+        "demo": {k: demo[k] for k in ("compile_s", "call_us", "calls", "lru_misses")},
+    }
+    print("examples (b) select_quickstart", json.dumps(rec["select_quickstart"]["demo"]),
+          flush=True)
+    phase("examples (b) select_quickstart", t0)
+
+    t0 = time.perf_counter()
+    study = example("amg_partition_study")
+    card, card_out = quietly(study.main, ["--device", "cuda"])
+    host, host_out = quietly(study.main, ["--device", "cpu"])
+    print(card_out, end="", flush=True)
+    if card_out != host_out or card != host:
+        fail("examples (c): the study's tables differ between --device cuda and cpu")
+    rec["amg_partition_study"] = {"stdout": card_out,
+                                  "max_part_cost": {"/".join(k): v for k, v in card.items()}}
+    phase("examples (c) amg_partition_study", t0)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def k3_main_launches(launches: dict) -> int:
+    """The GEMM launches of K3 (``expert_wgmma`` or ``expert_split``), not
+    its copies: one a product."""
+    return launches.get("expert_wgmma", 0) + launches.get("expert_split", 0)
+
+
+def examples_lm(device) -> dict:
+    """Phase 17 (d)-(f): the LM examples on the card.
+
+    (d) ``moe_comm_planning.run`` (16-expert smoke Qwen3-MoE, fp32, the
+        planned placement installed): 3 K3 products a MoE layer in the
+        call, each held to its plain version; the loss finite and within
+        1e-4 of the same example on the CPU with the same weights;
+    (e) ``transformer_decode.generate`` (4 x 64 prompts, 32 tokens, greedy)
+        on internlm2-1.8b at its published width and depth and on
+        Qwen3-MoE-235B-A22B at its published width, ``LM_LAYERS`` layers
+        (K3 3 times a MoE layer a call, 1 prefill and 31 decode steps, each
+        launch of a 3-token run held to its plain version): the second
+        call's prefill ms and decode tokens/s, the tokens equal across the
+        two calls;
+    (f) ``train_100m.main`` (the ~100M internlm2-family decoder, fp32,
+        4 x 256 tokens a step, AdamW, a checkpoint every 50 steps) for 300
+        steps in a fresh directory: loss finite and gradient norm > 0 at
+        every logged step, step 299's loss below ln 16,384 and at least 1
+        nat below step 0's; then in a second directory a run stopped
+        before step 121 (last checkpoint: step 100), and ``main`` again on
+        that directory, which must resume there, its losses within 1e-5 of
+        the uninterrupted run's.  Step ms (median after ``TRAIN_100M_WARMUP``
+        steps), tokens/s, peak memory, the loss at every 50th step."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+    import repro_torch.kernels.moe_gemm as k3_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.models import init_params
+
+    rec = {}
+    real = k3_mod.moe_gemm
+    t0 = time.perf_counter()
+    planning = example("moe_comm_planning")
+    cfg = planning.smoke_moe_config()
+    params = init_params(cfg, 0, device=device)
+    reset_launches()
+    res, out = quietly(planning.run, cfg, params)
+    launches = {k: v for k, v in moe_gemm.launches.items() if v}
+    n_moe = cfg.n_layers
+    if k3_main_launches(launches) != 3 * n_moe:
+        fail(f"examples (d): K3 launches {launches} in the call, not 3 a MoE layer ({n_moe})")
+    cpu_res, _ = quietly(planning.run, cfg, _tree_to(params, torch.device("cpu")))
+    if not (math.isfinite(res["loss"]) and abs(res["loss"] - cpu_res["loss"]) <= 1e-4):
+        fail(f"examples (d): loss {res['loss']} on the card, {cpu_res['loss']} on the CPU")
+    checks, keep = [], {}
+    try:
+        k3_mod.moe_gemm = k3_checked(checks, keep, "moe planning", real)
+        quietly(planning.run, cfg, params)
+    finally:
+        k3_mod.moe_gemm = real
+    err = max(c["max_abs_err"] for c in checks)
+    rec["moe_comm_planning"] = {
+        "stdout": out, "loss": res["loss"], "cpu_loss": cpu_res["loss"], "k3_launches": launches,
+        "placement": res["plan"].placement.tolist(), "k3_checks": checks}
+    rec["k3_moe"] = k3_record_at(*keep["moe planning"], k3_main_launches(launches), err)
+    print(out, end="", flush=True)
+    print("examples (d) moe_comm_planning", json.dumps(rec["k3_moe"]), flush=True)
+    del params
+    phase("examples (d) moe_comm_planning", t0)
+
+    decode = example("transformer_decode")
+    rec["decode"] = {}
+    for arch in DECODE_ARCHS:
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = get_config(arch)
+        cfg = base if arch != LM_ARCH else dataclasses.replace(base, n_layers=LM_LAYERS)
+        params, _ = decode.load(cfg, 0, device)
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT)).astype(np.int32)
+        first = decode.generate(cfg, params, prompts, DECODE_TOKENS)  # warm-up
+        reset_launches()
+        run = decode.generate(cfg, params, prompts, DECODE_TOKENS)
+        launches = {k: v for k, v in moe_gemm.launches.items() if v}
+        toks, logits = run["tokens"], run["prefill_logits"]
+        same = bool(torch.equal(toks, first["tokens"]))
+        if (tuple(toks.shape) != (DECODE_BATCH, DECODE_TOKENS) or not same
+                or not bool(logits.isfinite().all()) or int(toks.min()) < 0
+                or int(toks.max()) >= cfg.vocab):
+            fail(f"examples (e) {arch}: tokens {tuple(toks.shape)} (equal across calls: "
+                 f"{same}), logits finite {bool(logits.isfinite().all())}")
+        steps = DECODE_TOKENS - 1
+        r = {"n_layers": cfg.n_layers, "n_layers_published": base.n_layers, "dtype": cfg.dtype,
+             "batch": DECODE_BATCH, "prompt": DECODE_PROMPT, "tokens": DECODE_TOKENS,
+             "prefill_ms": run["prefill_s"] * 1e3,
+             "decode_ms_per_step": run["decode_s"] * 1e3 / steps,
+             "decode_tokens_per_s": DECODE_BATCH * steps / run["decode_s"],
+             "first_sequence": toks[0, :16].tolist(), "k3_launches": launches,
+             "param_bytes": _tree_bytes(params)}
+        if arch == LM_ARCH:
+            if launches != {"expert_wgmma": 3 * LM_LAYERS * DECODE_TOKENS}:
+                fail(f"examples (e) {arch}: K3 launches {launches} in one call, not "
+                     f"3 a layer a step ({3 * LM_LAYERS * DECODE_TOKENS})")
+            checks, keep = [], {}
+            try:
+                k3_mod.moe_gemm = k3_checked(checks, keep, "decode example", real)
+                decode.generate(cfg, params, prompts, 3)
+            finally:
+                k3_mod.moe_gemm = real
+            if len(checks) != 9 * LM_LAYERS:
+                fail(f"examples (e): {len(checks)} K3 calls in a 3-token run")
+            err = max(c["max_abs_err"] for c in checks)
+            r["k3_checks"] = checks
+            rec["k3_decode"] = k3_record_at(*keep["decode example"], launches["expert_wgmma"], err)
+            del keep  # its w views hold the whole expert stacks
+        elif launches:
+            fail(f"examples (e) {arch}: a dense model launched K3 {launches}")
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        rec["decode"][arch] = r
+        del params, first, run
+        print(f"examples (e) decode {arch}", json.dumps(
+            {k: v for k, v in r.items() if k != "k3_checks"}), flush=True)
+        phase(f"examples (e) transformer_decode {arch}", t0)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    train = example("train_100m")
+    OUT.mkdir(exist_ok=True)
+    logs = {tag: OUT / f"train_100m{tag}.jsonl" for tag in ("", "_resumed")}
+    for log in logs.values():
+        log.unlink(missing_ok=True)
+    uniform = math.log(train.model_100m().vocab)
+    with tempfile.TemporaryDirectory(prefix="train_100m_") as tmp:
+        argv = lambda tag: ["--steps", str(TRAIN_100M_STEPS), "--ckpt-dir",
+                            f"{tmp}/ckpt{tag}", "--log", str(logs[tag]), "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        whole, out = quietly(train.main, argv(""))
+        peak = torch.cuda.max_memory_allocated()
+        phase("examples (f) train_100m, 300 steps", t0)
+
+        def stop(step):
+            if step == TRAIN_100M_STOP + 1:
+                raise _Stop(f"stopped before step {step}")
+
+        try:
+            quietly(train.train, train.model_100m(), train.parse_args(argv("_resumed")),
+                    device, failure_injector=stop)
+            fail("examples (f): the stopped run did not stop")
+        except _Stop:
+            pass
+        from repro_torch.checkpoint import latest_step
+
+        stopped_at = latest_step(f"{tmp}/ckpt_resumed")
+        resumed, resumed_out = quietly(train.main, argv("_resumed"))
+    losses = whole["losses"]
+    if sorted(losses) != list(range(TRAIN_100M_STEPS)) or whole["stats"].restarts:
+        fail(f"examples (f): the run ran steps {sorted(losses)[:3]}.. with "
+             f"{whole['stats'].restarts} restarts")
+    for r in whole["records"]:
+        if not (math.isfinite(r["loss"]) and r["grad_norm"] > 0):
+            fail(f"examples (f): logged step {r}")
+    last, first_loss = losses[TRAIN_100M_STEPS - 1], losses[0]
+    if not (last < uniform and last <= first_loss - 1.0):
+        fail(f"examples (f): step {TRAIN_100M_STEPS - 1} loss {last}, step 0 loss {first_loss}, "
+             f"uniform {uniform}")
+    start = TRAIN_100M_STOP // train.CKPT_EVERY * train.CKPT_EVERY
+    if stopped_at != start or sorted(resumed["losses"]) != list(range(start, TRAIN_100M_STEPS)):
+        fail(f"examples (f): stopped with checkpoint {stopped_at}, resumed at "
+             f"{min(resumed['losses'], default=None)}, not {start}")
+    resume_err = max(abs(resumed["losses"][i] - losses[i])
+                     for i in range(start, TRAIN_100M_STEPS))
+    if not resume_err <= TRAIN_100M_RESUME_TOL:
+        fail(f"examples (f): the resumed run's losses are off the uninterrupted run's by "
+             f"{resume_err}")
+    times = whole["stats"].step_times[TRAIN_100M_WARMUP:]
+    step_ms = statistics.median(times) * 1e3
+    cfg, defaults = train.model_100m(), train.parse_args([])
+    tokens = defaults.global_batch * defaults.seq_len
+    # where a step's device time goes, on the trained state (updated in place)
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.step import make_train_step
+
+    step = make_train_step(cfg, lr=defaults.lr)
+    data = SyntheticTokens(cfg.vocab, defaults.seq_len, defaults.global_batch, seed=0)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in data.batch(0).items()}
+    profile = profile_fn(lambda: step(whole["params"], whole["opt"], batch), step_ms, calls=2,
+                         label="train_100m step")
+    rec["train_100m"] = {
+        "config": dataclasses.asdict(cfg), "param_count": sum(
+            p.numel() for p in tree_leaves(whole["params"])),
+        "steps": TRAIN_100M_STEPS, "tokens_per_step": tokens, "step_ms_median": step_ms,
+        "step_ms_p90": float(np.percentile(times, 90)) * 1e3,
+        "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak, "profile": profile,
+        "uniform_nll": uniform,
+        "loss_every_50": {i: losses[i] for i in range(0, TRAIN_100M_STEPS, 50)},
+        "loss_last": last, "records": whole["records"], "stdout_tail": out[-2000:],
+        "resume": {"stopped_after": TRAIN_100M_STOP, "checkpoint": stopped_at,
+                   "steps_run": resumed["stats"].steps_run, "max_abs_loss_diff": resume_err,
+                   "tol": TRAIN_100M_RESUME_TOL, "stdout_tail": resumed_out[-1000:]},
+    }
+    print("examples (f) train_100m", json.dumps(
+        {k: v for k, v in rec["train_100m"].items()
+         if k not in ("records", "stdout_tail", "config")}), flush=True)
+    phase("examples (f) train_100m", t0)
+    return rec
+
+
+def examples(device, rng) -> dict:
+    """Phase 17: the six examples of ``examples_torch/`` on the card
+    (``examples_spgemm``, ``examples_lm``)."""
+    t0 = time.perf_counter()
+    rec = {**examples_spgemm(device, rng), **examples_lm(device)}
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found: run from the root of a repository checkout")
@@ -4224,13 +4594,18 @@ def main() -> None:
     mesh_rec["serve"] = sharded_serving(device)
     phase("mesh and dry run", t0)
 
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ex = examples(device, rng)
+    phase("examples", t0)
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
         "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
         "serving": served, "summa_device": summa_device, "lm_serve": lm, "ranks": ranks,
-        "train": train, "ssm": ssm_rec, "mesh": mesh_rec,
+        "train": train, "ssm": ssm_rec, "mesh": mesh_rec, "examples": ex,
     }, indent=1, default=str))
     # one entry per __global__, each read on the path that launches it
     k1, k2, k3 = ("src/repro/kernels/bsr_spgemm.py:63", "src/repro/kernels/bsr_spmm.py:69",
@@ -4271,6 +4646,9 @@ def main() -> None:
         ("moe_gemm/expert_split@train_fp32_dw", "moe_gemm.cu", k3,
          train["k3"]["expert_split_dw"]),
         ("moe_gemm/expert_wgmma@mesh", "moe_gemm.cu", k3, mesh_rec["serve"]["k3"]),
+        ("bsr_spgemm/scalar_runs@mcl", "bsr_spgemm.cu", k1, ex["k1"]),
+        ("moe_gemm/expert_split@examples_moe", "moe_gemm.cu", k3, ex["k3_moe"]),
+        ("moe_gemm/expert_wgmma@examples_decode", "moe_gemm.cu", k3, ex["k3_decode"]),
     ]
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [

@@ -180,11 +180,31 @@ def lp_instance(name: str, scale: float = 1.0, seed: int = 0) -> SpGEMMInstance:
 # MCL (Sec. 6.3)
 # ---------------------------------------------------------------------------
 def scale_free_graph(n: int, m: int, seed: int = 0) -> SparseStructure:
-    """Barabási–Albert adjacency + identity (self loops), symmetric."""
-    import networkx as nx
+    """Barabási–Albert adjacency + identity (self loops), symmetric.
 
-    g = nx.barabasi_albert_graph(n, m, seed=seed)
-    adj = nx.to_scipy_sparse_array(g, format="csr", dtype=np.int8)
+    Reproduces networkx's ``barabasi_albert_graph(n, m, seed=seed)`` edge
+    for edge without networkx: a star on nodes 0..m, then each new node
+    draws m distinct targets with ``random.Random(seed).choice`` over the
+    degree-repeated node list.  The targets go into a ``set``, and the list
+    grows by that set's iteration order, as networkx's does; a list, or any
+    other order, gives another graph after the first few nodes.
+    """
+    import random
+
+    if not 1 <= m < n:
+        raise ValueError(f"Barabási–Albert needs 1 <= m < n, got m = {m}, n = {n}")
+    rng = random.Random(seed)
+    src, dst = [0] * m, list(range(1, m + 1))  # the star
+    repeated = [0] * m + list(range(1, m + 1))  # each node once per degree
+    for source in range(m + 1, n):
+        targets = set()
+        while len(targets) < m:
+            targets.add(rng.choice(repeated))
+        src.extend([source] * m)
+        dst.extend(targets)
+        repeated.extend(targets)
+        repeated.extend([source] * m)
+    adj = sp.coo_matrix((np.ones(len(src), np.int8), (src, dst)), shape=(n, n)).tocsr()
     adj = adj + adj.T + sp.identity(n, dtype=np.int8, format="csr")
     return SparseStructure.wrap(sp.csr_matrix(adj))
 

@@ -4,7 +4,10 @@ rest of the planning, the LM stack's prefill and decode, the modules of
 ranks in their own processes, and training (optimizers, the train step,
 step checkpoints, the elastic loop and the launcher), and the sharding
 rules, the mesh and the multi-pod dry run (one smoke cell on a fake
-group) — loads neither jax nor any module of the JAX package ``repro``."""
+group) — loads neither jax nor any module of the JAX package ``repro``;
+neither does importing the examples (``examples_torch/``); and no import in
+the port, the examples or ``chip_smoke.py`` names a package the machine
+with the card lacks."""
 import os
 import subprocess
 import sys
@@ -137,3 +140,92 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
     bad = sorted(n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro"))
     assert not bad, bad
     assert any(n.startswith("repro_torch") for n in names)
+
+
+def test_chip_smoke_binds_each_module_name_once():
+    """Every phase of ``chip_smoke.py`` reads its constants from module
+    globals: a name bound twice at module level would give an earlier
+    phase a later phase's value."""
+    import ast
+    import collections
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    bound = collections.Counter()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            bound[node.name] += 1
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                bound.update(n.id for n in ast.walk(target) if isinstance(n, ast.Name))
+    assert len(bound) > 100
+    assert sorted(name for name, n in bound.items() if n > 1) == []
+
+
+_EXAMPLES_CODE = """
+import glob, importlib.util, os, sys
+for path in sorted(glob.glob(os.path.join(sys.argv[1], "examples_torch", "*.py"))):
+    name = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    print("IMPORTED", name)
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_examples_import_neither_jax_nor_repro():
+    """Importing every ``examples_torch/*.py`` loads neither jax nor any
+    module of the JAX package."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src")
+    out = subprocess.run(
+        [sys.executable, "-c", _EXAMPLES_CODE, ROOT], capture_output=True, text=True, env=env,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.count("IMPORTED") == 6, out.stdout
+
+
+# what the machine with the card has beside the standard library
+ALLOWED_IMPORTS = {"torch", "numpy", "scipy", "einops", "triton", "repro_torch"}
+
+
+def _foreign_imports(path: str) -> list[str]:
+    """``file:line module`` for each absolute import in ``path`` of a top
+    package outside the standard library and ``ALLOWED_IMPORTS``."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top not in sys.stdlib_module_names and top not in ALLOWED_IMPORTS:
+                found.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {name}")
+    return found
+
+
+def test_port_imports_only_what_the_card_machine_has():
+    """Every import in ``src/repro_torch/``, ``examples_torch/`` and
+    ``chip_smoke.py``, at any depth (inside functions too), names the
+    standard library, torch, numpy, scipy, einops, triton or
+    ``repro_torch``: nothing the machine with the card lacks (networkx
+    among them)."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "src", "repro_torch", "**", "*.py"),
+                             recursive=True))
+    paths += sorted(glob.glob(os.path.join(ROOT, "examples_torch", "*.py")))
+    paths.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(paths) > 60
+    bad = [hit for path in paths for hit in _foreign_imports(path)]
+    assert not bad, bad
