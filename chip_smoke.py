@@ -23,7 +23,12 @@ Phases, each printing its seconds:
      (64, 64, 64), (128, 128, 128)}, fp32 and bf16, against its plain
      version; then ``repro_torch.kernels.ops.spgemm`` on the block-16
      operand retiled 32 x 32 (``tile_runs``) and 64 x 64 (``mma_runs``),
-     squared, against a float64 dense product;
+     squared, against a float64 dense product; then ``scalar_runs`` alone
+     at the paper's sizes (``k1_paper_sizes``): MCL-facebook at scale 1
+     squared and 27-AP at n = 63, one launch over each whole product's
+     pair list, fp32 and bf16, against the plain version and beside CSR @
+     CSR (every ``scalar_runs`` check also fills C with NaN, launches
+     again, and wants every slot no run covers zero and the same bits);
   7. K2 (``ops.spmm``): the AMG n=42 27-point operator tiled 8 x 8 by
      scipy, times a seeded (74,088, 256) dense block, in fp32
      (``warp_rows``) and bf16 (``mma_rows``, tensor cores), tiled 12 x 12
@@ -147,8 +152,8 @@ Phases, each printing its seconds:
      placement's loss (3 K3 products a MoE layer, each against its plain
      version; the CPU's loss within 1e-4); (e) decode (4 x 64 prompts, 32
      tokens) on internlm2-1.8b at full depth and Qwen3-MoE-235B-A22B at 4
-     layers (3 K3 launches a layer a step); (f) ``train_100m.py``: 300
-     steps (loss finite, step 299 below ln 16,384 and 1 nat under step
+     layers (3 K3 launches a layer a step); (f) ``train_100m.py``: 200
+     steps (loss finite, step 199 below ln 16,384 and 1 nat under step
      0), then a run stopped after step 120 and resumed from its step-100
      checkpoint, within 1e-5 of the uninterrupted run.
 Then one JSON line of per-kernel numbers (one entry per __global__, each
@@ -171,7 +176,8 @@ launches in one training step, and ``split3_bf16_t`` and the backward's
 two ``expert_split`` products (dx, dw) with their launches in 14 (b),
 timed at (b)'s own operands, and ``expert_wgmma`` with its launches in
 phase 16 (b)'s sharded prefill and decode steps, timed at the prefill's
-up projection, and phase 17's ``scalar_runs`` on MCL-dip monoC,
+up projection, and phase 17's ``scalar_runs`` on MCL-dip monoC, phase
+6's ``scalar_runs`` alone at MCL-facebook and 27-AP n = 63,
 ``expert_split`` in (d) and ``expert_wgmma`` in (e)'s Qwen3-MoE decode,
 each with the launches of its path; bounds at the peak of each route's
 arithmetic, ``PEAK_FLOPS``; a time under its bound
@@ -214,6 +220,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 P = 4
 AMG_N = 42
 WARMUP, REPS = 1, 10
+# phase 9's 1D models on LP-pds100 and 27-AP are timed SLOW_REPS times, not
+# REPS: their dense local products take 0.5-0.85 s a call
+ONE_D_MODELS, SLOW_REPS = ("rowwise", "columnwise", "outer"), 3
 
 
 def fail(msg: str) -> None:
@@ -395,13 +404,32 @@ def rule_rejects(want, tol: float, what: str, scale: float = 1.0, shift=None) ->
             fail(f"{what}: the rule accepts {name}")
 
 
+def scalar_writes_every_slot(args, got) -> None:
+    """``scalar_runs`` into C filled with NaN first: every C slot written,
+    zero where no run lands, and the bits of ``got`` (an earlier launch on
+    the same inputs)."""
+    import torch
+    from repro_torch.kernels.bsr_spgemm import launch
+
+    a, b, pa, pb, pc, rs, rc, n_c = args
+    out = torch.full_like(got, float("nan"))
+    launch(a, b, pa, pb, rs, rc, out)
+    torch.cuda.synchronize()
+    uncovered = torch.ones(n_c, dtype=torch.bool, device=out.device)
+    uncovered[rc.long()] = False
+    if out[uncovered].any():  # NaN is not zero
+        fail("scalar_runs left a C slot no run covers unwritten or not zero")
+    if not torch.equal(out, got):
+        fail("two scalar_runs launches on the same inputs differ")
+
+
 def check_kernel(args, tol: float, garbage_slot: bool = True):
     """K1 against the plain version on the same inputs; returns
     (max_abs_err, the kernel's ms by graph replay, the wrapper's call ms by
     events, plain ms).  With ``garbage_slot`` the last C slot is a padding run's and
     must stay zero."""
     import torch
-    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, launch
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, launch, route
     from repro_torch.kernels.ref import bsr_spgemm_ref
 
     a, b, pa, pb, pc, rs, rc, n_c = args
@@ -411,6 +439,8 @@ def check_kernel(args, tol: float, garbage_slot: bool = True):
     err = max_err_within(got, want, tol, "K1 disagrees with its plain version")
     if garbage_slot and got[-1].any():
         fail("the garbage C slot is not zero")
+    if route(a.shape[1], a.shape[2], b.shape[2]) == "scalar_runs":
+        scalar_writes_every_slot(args, got)
     out = torch.zeros_like(got)
     ms = graph_ms(lambda: launch(a, b, pa, pb, rs, rc, out))
     call_ms = cuda_ms(lambda: bsr_spgemm_local(*args))
@@ -453,13 +483,12 @@ def check_product(inst, c, a_np, b_np, device, what: str) -> float:
     return float(err.max().item())
 
 
-def front_door_run(inst, model, device, rng, handle=None):
+def front_door_run(inst, model, device, rng, handle=None, reps=REPS):
     """Plan (unless ``handle`` is given), compile and run one model through
-    the front door: 1 warm-up call, then ``REPS`` timed calls, each ending
-    in a synchronize; the collective's items per call must equal the
-    plan's (``moved_items``); the last call is checked against scipy in
-    float64.  Returns (compiled handle, the last call's device values,
-    record)."""
+    the front door: 1 warm-up call, then ``reps`` timed calls, each ending
+    in a synchronize; the collective's items per call must equal the plan's
+    (``moved_items``); the last call is checked against scipy in float64.
+    Returns (compiled handle, the last call's device values, record)."""
     import torch
     import repro_torch
     from repro_torch.distributed.plan_ir import moved_items
@@ -480,7 +509,7 @@ def front_door_run(inst, model, device, rng, handle=None):
     values = [
         (rng.standard_normal(a_s.nnz).astype(np.float32),
          rng.standard_normal(b_s.nnz).astype(np.float32))
-        for _ in range(WARMUP + REPS)
+        for _ in range(WARMUP + reps)
     ]
     dev_values = [(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device))
                   for a, b in values]
@@ -499,10 +528,10 @@ def front_door_run(inst, model, device, rng, handle=None):
         times.append((time.perf_counter() - t0) * 1e3)
     what = f"{inst.name} {handle.model}"
     items = moved_items(handle.execution_plan)
-    if comm.items_moved != REPS * items:
-        fail(f"{what}: the collective moved {comm.items_moved} items in {REPS} calls, "
-             f"not {REPS} x {items}")
-    err = check_product(inst, c, *values[-1], device, what)
+    if comm.items_moved != reps * items:
+        fail(f"{what}: the collective moved {comm.items_moved} items in {reps} calls, "
+             f"not {reps} x {items}")
+    err = check_product(inst, c, *values[WARMUP + reps - 1], device, what)
     stats = {
         "instance": inst.name,
         "model": handle.model,
@@ -518,7 +547,7 @@ def front_door_run(inst, model, device, rng, handle=None):
         "planned_words": report["planned_words"],
         "planned_items": report.get("planned_items"),
         "padded_words": report["padded_words"],
-        "items_moved_per_call": comm.items_moved // REPS,
+        "items_moved_per_call": comm.items_moved // reps,
         "max_abs_err": err,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
     }
@@ -549,10 +578,11 @@ def kernel_record_at(exe, a, b, library_ms):
     return kernel_record(exe.runtime.step.kernel_inputs(a_own, b_own), library_ms)
 
 
-def kernel_record(args, library_ms):
-    """K1's numbers on one launch's arguments (``kernel_record_at``)."""
+def kernel_record(args, library_ms, garbage_slot: bool = True):
+    """K1's numbers on one launch's arguments (``kernel_record_at``);
+    ``garbage_slot`` as ``check_kernel`` takes it."""
     a_tab, b_tab, pa, pb, pc, rs, rc, n_c = args
-    err, ms, call_ms, plain_ms = check_kernel(args, TOL[dtype_name(a_tab.dtype)])
+    err, ms, call_ms, plain_ms = check_kernel(args, TOL[dtype_name(a_tab.dtype)], garbage_slot)
     bound_ms, bound_by, n_bytes, ops, peak = kernel_bound(a_tab, b_tab, pa, pb, rs, rc)
     return {
         "kernel": "scalar_runs",
@@ -570,6 +600,75 @@ def kernel_record(args, library_ms):
         "runs": rc.numel(),
         "block": a_tab.shape[-1],
     }
+
+
+# K1 alone at the paper's sizes (no partition: one launch over the whole
+# product's pair list): the MCL square with the longest hub runs, and the
+# AMG Galerkin product at n = 63, whose 297 MB the kernel must move
+K1_PAPER = (("mcl_facebook", "MCL-facebook, scale 1, squared"), ("amg63", "27-AP, n = 63"))
+
+
+def k1_paper_instance(key: str):
+    from repro_torch.core.matrices import amg_instances, mcl_instance
+
+    return mcl_instance("facebook", 1.0) if key == "mcl_facebook" else amg_instances(63)[0]
+
+
+def k1_paper_inputs(inst, device, rng):
+    """``bsr_spgemm_local``'s arguments for ``inst`` at 1 x 1 x 1 (pair
+    lists by ``build_pair_lists`` and ``pair_runs``, fp32 N(0, 1) values
+    from ``rng``), the values in CSR order, and the runs' lengths."""
+    import torch
+    from repro_torch.kernels.bsr_spgemm import build_pair_lists, pair_runs
+
+    (ar, ac), (br, bc) = inst.a.coo(), inst.b.coo()
+    pa, pb, pc, crows, _ = build_pair_lists(ar, ac, br, bc)
+    run_start, run_c = pair_runs(pc)
+    a_vals = torch.from_numpy(rng.standard_normal(len(ar)).astype(np.float32)).to(device)
+    b_vals = torch.from_numpy(rng.standard_normal(len(br)).astype(np.float32)).to(device)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.int32), device=device)  # noqa: E731
+    args = (a_vals.view(-1, 1, 1), b_vals.view(-1, 1, 1), t(pa), t(pb), t(pc), t(run_start),
+            t(run_c), len(crows))
+    return args, (a_vals, b_vals), np.diff(run_start)
+
+
+def k1_paper_sizes(device, rng) -> dict:
+    """K1 ``scalar_runs`` alone at ``K1_PAPER``'s two products: one
+    launch through ``bsr_spgemm_local`` with the counts set to 0 just
+    before, then ``kernel_record``'s numbers (graph-replay and call ms,
+    the plain version within 1e-4, ``kernel_bound``, CSR @ CSR; with
+    ``check_kernel``'s NaN-filled launch: every C slot written, the same
+    bits twice), the bf16 result within 2e-2 of its plain version, and the
+    pairs, runs and their mean and largest length."""
+    import torch
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local
+    from repro_torch.kernels.ref import bsr_spgemm_ref
+
+    records = {}
+    for key, label in K1_PAPER:
+        t0 = time.perf_counter()
+        inst = k1_paper_instance(key)
+        args, (a_vals, b_vals), lengths = k1_paper_inputs(inst, device, rng)
+        host_s = time.perf_counter() - t0
+        reset_launches()
+        bsr_spgemm_local(*args)
+        torch.cuda.synchronize()
+        launches = bsr_spgemm_local.launches["scalar_runs"]
+        library_ms = library_csr_ms(csr_on_card(inst.a, a_vals, device),
+                                    csr_on_card(inst.b, b_vals, device))
+        rec = kernel_record(args, library_ms, garbage_slot=False)  # no padding run
+        a16, b16 = args[0].bfloat16(), args[1].bfloat16()
+        got16 = bsr_spgemm_local(a16, b16, *args[2:])
+        rec["bf16_max_abs_err"] = max_err_within(
+            got16, bsr_spgemm_ref(a16, b16, *args[2:5], args[7]), TOL["bfloat16"],
+            f"K1 {label} in bf16")
+        rec.update(instance=label, launches=launches, mean_run=float(lengths.mean()),
+                   max_run=int(lengths.max()), host_s=host_s)
+        records[key] = rec
+        print(f"K1 at {label}", json.dumps(rec), flush=True)
+        del args, got16, a16, b16
+        torch.cuda.empty_cache()
+    return records
 
 
 def profile_call(exe, a, b, call_ms: float, calls: int = 3, label: str = "27-AP") -> dict:
@@ -1230,7 +1329,10 @@ def every_model(ap, ptap, ptap_stats, device, rng):
 
     def run(inst, model, handle=None):
         t0 = time.perf_counter()
-        exe, last, rec = front_door_run(inst, model, device, rng, handle)
+        # LP-pds100 and 27-AP (and auto where it picks a 1D model)
+        slow = inst is not ptap and (model if handle is None else handle.model) in ONE_D_MODELS
+        exe, last, rec = front_door_run(inst, model, device, rng, handle,
+                                        reps=SLOW_REPS if slow else REPS)
         rec["seconds"] = round(time.perf_counter() - t0, 3)
         key = "auto" if handle is not None else model
         records.setdefault(inst.name, {})[key] = rec
@@ -1271,7 +1373,7 @@ def every_model(ap, ptap, ptap_stats, device, rng):
     phase("every model (b) LP-pds100", t0)
 
     t0 = time.perf_counter()
-    for model in ("rowwise", "columnwise", "outer"):
+    for model in ONE_D_MODELS:
         exe, (a, b), rec = run(ap, model)
         if model in ("rowwise", "outer"):
             rec["profile"] = profile_call(exe, a, b, rec["call_ms_median"], calls=2,
@@ -2092,6 +2194,9 @@ def lm_serving(device):
 
 RANKS = 4  # phase 13: one rank a process, every process on the one card
 RANK_REPS = 3
+# 13 (a)'s products timed once: the 1D models' dense local products on
+# LP-pds100 take 0.8-1.6 s a call over the group
+RANK_SLOW_PRODUCTS = ("LP-pds100/rowwise", "LP-pds100/columnwise", "LP-pds100/outer")
 EP_LAYERS, EP_BATCH, EP_PROMPT = 2, 2, 1024  # phase 13 (c): 2 of the published 94 layers
 EP_DECODE_STEPS = 16  # phase 13 (f), after (c)'s prefill
 GRAD_ELEMS = 64 * 2**20  # phase 13 (b)
@@ -2198,7 +2303,8 @@ def _rank_products(group, device, products) -> dict:
     """Phase 13 (a) on one rank: every product compiled over the group, one
     warm-up call, the main run (one call each, the launch counts reset just
     before and read just after), ``RANK_REPS`` timed calls of the counted
-    phases (pack and step, a barrier before each), and K1 at this rank's
+    phases (pack and step, a barrier before each; one for
+    ``RANK_SLOW_PRODUCTS``), and K1 at this rank's
     monoC 27-PTAP inputs against its plain version and against CSR @ CSR
     of the A and B nonzeros in its tables (``rank_csr_operands``)."""
     import torch
@@ -2225,7 +2331,7 @@ def _rank_products(group, device, products) -> dict:
     k1_launches = dict(bsr_spgemm_local.launches)
     for key, handle, exe, a, b in exes:
         times = []
-        for _ in range(RANK_REPS):
+        for _ in range(1 if key in RANK_SLOW_PRODUCTS else RANK_REPS):
             dist.barrier(group)
             t0 = time.perf_counter()
             exe.runtime(*exe.pack(a, b))
@@ -3557,7 +3663,7 @@ def training(device):
 SSM_ARCHS = ("falcon-mamba-7b", "hymba-1.5b")  # phase 15, at published widths and depth
 SSM_SERVE = {"falcon-mamba-7b": (8, 1024), "hymba-1.5b": (2, 4096)}  # (batch, prompt)
 SSM_DECODE_STEPS = 16
-SSM_TRAIN = {"falcon-mamba-7b": ("adafactor", 6), "hymba-1.5b": ("adamw", 4)}  # optimizer, steps
+SSM_TRAIN = {"falcon-mamba-7b": ("adafactor", 4), "hymba-1.5b": ("adamw", 3)}  # optimizer, steps
 # falcon-mamba's depth cut from 64 to 16 (widths whole): at 64 layers the
 # phase took 250 s (a step 5.2 s; its profile 44 s), past its ~150 s
 SSM_TRAIN_LAYERS = {"falcon-mamba-7b": 16, "hymba-1.5b": 32}
@@ -4111,7 +4217,7 @@ EXAMPLES = ROOT / "examples_torch"  # phase 17: the reference's six examples, fo
 MCL_SCALE = 0.2  # 17 (a): MCL-dip at the quickstart's own scale
 DECODE_BATCH, DECODE_PROMPT, DECODE_TOKENS = 4, 64, 32  # 17 (e): the example's defaults
 DECODE_ARCHS = ("internlm2-1.8b", LM_ARCH)  # 17 (e): full depth; Qwen3-MoE at LM_LAYERS
-TRAIN_100M_STEPS = 300  # 17 (f): the example's run
+TRAIN_100M_STEPS = 200  # 17 (f): the example's run (its script's default is 300)
 TRAIN_100M_STOP = 120  # 17 (f): the stopped run's last step
 TRAIN_100M_WARMUP = 5  # 17 (f): steps left out of the median step time
 TRAIN_100M_RESUME_TOL = 1e-5  # 17 (f), absolute, on every loss from the resumed step on
@@ -4261,9 +4367,9 @@ def examples_lm(device) -> dict:
         call's prefill ms and decode tokens/s, the tokens equal across the
         two calls;
     (f) ``train_100m.main`` (the ~100M internlm2-family decoder, fp32,
-        4 x 256 tokens a step, AdamW, a checkpoint every 50 steps) for 300
+        4 x 256 tokens a step, AdamW, a checkpoint every 50 steps) for 200
         steps in a fresh directory: loss finite and gradient norm > 0 at
-        every logged step, step 299's loss below ln 16,384 and at least 1
+        every logged step, step 199's loss below ln 16,384 and at least 1
         nat below step 0's; then in a second directory a run stopped
         before step 121 (last checkpoint: step 100), and ``main`` again on
         that directory, which must resume there, its losses within 1e-5 of
@@ -4379,7 +4485,7 @@ def examples_lm(device) -> dict:
         torch.cuda.reset_peak_memory_stats()
         whole, out = quietly(train.main, argv(""))
         peak = torch.cuda.max_memory_allocated()
-        phase("examples (f) train_100m, 300 steps", t0)
+        phase(f"examples (f) train_100m, {TRAIN_100M_STEPS} steps", t0)
 
         def stop(step):
             if step == TRAIN_100M_STOP + 1:
@@ -4537,6 +4643,10 @@ def main() -> None:
     phase("K1 every block shape", t0)
 
     t0 = time.perf_counter()
+    k1_paper = k1_paper_sizes(device, rng)
+    phase("K1 at the paper's sizes", t0)
+
+    t0 = time.perf_counter()
     spmm = spmm_amg(ap.a, device, rng)
     phase("K2 AMG SpMM", t0)
 
@@ -4603,7 +4713,8 @@ def main() -> None:
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "card": card_line, "ap": ap_stats, "ptap": ptap_stats, "k1_ap": scalar,
         "block16": block16_stats, "k1_block16": blocked, "k1_shapes": shape_checks,
-        "k1_retiled": retiled, "k2_amg": spmm, "k3_qwen3_moe": moe, "every_model": models,
+        "k1_retiled": retiled, "k1_paper": k1_paper, "k2_amg": spmm, "k3_qwen3_moe": moe,
+        "every_model": models,
         "serving": served, "summa_device": summa_device, "lm_serve": lm, "ranks": ranks,
         "train": train, "ssm": ssm_rec, "mesh": mesh_rec, "examples": ex,
     }, indent=1, default=str))
@@ -4647,6 +4758,8 @@ def main() -> None:
          train["k3"]["expert_split_dw"]),
         ("moe_gemm/expert_wgmma@mesh", "moe_gemm.cu", k3, mesh_rec["serve"]["k3"]),
         ("bsr_spgemm/scalar_runs@mcl", "bsr_spgemm.cu", k1, ex["k1"]),
+        ("bsr_spgemm/scalar_runs@mcl_facebook", "bsr_spgemm.cu", k1, k1_paper["mcl_facebook"]),
+        ("bsr_spgemm/scalar_runs@amg63", "bsr_spgemm.cu", k1, k1_paper["amg63"]),
         ("moe_gemm/expert_split@examples_moe", "moe_gemm.cu", k3, ex["k3_moe"]),
         ("moe_gemm/expert_wgmma@examples_decode", "moe_gemm.cu", k3, ex["k3_decode"]),
     ]

@@ -159,7 +159,7 @@ def bsr_spgemm(
 
 # the __global__s of csrc/bsr_spgemm.cu, numbered as its C entry point
 # repro_bsr_spgemm(kernel, a, b, pair_a, pair_b, run_start, run_c, out, n_runs,
-# bm, bk, bn, dtype code, stream) takes them
+# n_pairs, n_c, bm, bk, bn, dtype code, stream) takes them
 KERNELS = ("scalar_runs", "warp_runs", "tile_runs", "mma_runs")
 
 
@@ -167,7 +167,7 @@ KERNELS = ("scalar_runs", "warp_runs", "tile_runs", "mma_runs")
 def _kernel():
     """The kernels' C entry point, built and bound on first use."""
     fn = load("bsr_spgemm").repro_bsr_spgemm
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -176,7 +176,12 @@ def route(bm: int, bk: int, bn: int) -> str:
     """The kernel ``bsr_spgemm_local`` launches for (bm, bk) A blocks and
     (bk, bn) B blocks on the card, decided before the launch.
 
-    ``"scalar_runs"`` at 1 x 1 x 1; ``"warp_runs"`` (each warp walks a few
+    ``"scalar_runs"`` at 1 x 1 x 1 (each warp takes a fixed span of pairs
+    and owns the runs that start there; a lane adds a group of 4 pairs of
+    a run, counted from its start, the groups of a piece of 128 pairs are
+    summed by shuffles within the warp and a run's pieces are added in
+    order; every C slot is written);
+    ``"warp_runs"`` (each warp walks a few
     runs' pairs as one stream, the next pair's blocks in flight) where bm,
     bn and bk are at most 16; ``"mma_runs"`` (wgmma tiles, fp32 as three bf16 pieces)
     where bm or bn is over 32; ``"tile_runs"`` for the rest (a side of 17 to
@@ -194,9 +199,10 @@ def route(bm: int, bk: int, bn: int) -> str:
 
 def launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out) -> str:
     """Launch the kernel ``route`` names for these blocks on CUDA tensors
-    checked as ``bsr_spgemm_local`` checks them, summing into the zeroed
-    ``out``; raise ``KernelError`` if it is refused, else return the kernel's name.  Counts
-    nothing: ``bsr_spgemm_local`` counts its launches."""
+    checked as ``bsr_spgemm_local`` checks them, summing into ``out``
+    (zeroed by the caller, except on ``scalar_runs``, which writes every C
+    slot); raise ``KernelError`` if it is refused, else return the kernel's
+    name.  Counts nothing: ``bsr_spgemm_local`` counts its launches."""
     bm, bk, bn = _block_shapes(a_blocks, b_blocks)
     kernel = route(bm, bk, bn)
     device = a_blocks.device
@@ -211,6 +217,8 @@ def launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out) -> str:
             run_c.data_ptr(),
             out.data_ptr(),
             run_c.numel(),
+            pair_a.numel(),
+            out.shape[0],
             bm,
             bk,
             bn,
@@ -255,7 +263,8 @@ def bsr_spgemm_local(
     the kernel ``route(bm, bk, bn)`` names (adding one to
     ``bsr_spgemm_local.launches[kernel]``) or raises ``KernelError``.  The result is in
     ``promote_types(a, b)``, accumulated in fp32; C blocks no pair touches
-    are zero.
+    are zero (``scalar_runs`` writes them, so C is allocated without a fill
+    there).
     """
     tensors = {
         "a_blocks": a_blocks,
@@ -283,10 +292,12 @@ def bsr_spgemm_local(
     # the kernel reads one element type: mixed inputs meet at the result type
     a_blocks = a_blocks.to(out_dtype)
     b_blocks = b_blocks.to(out_dtype)
-    out = torch.zeros((n_c_blocks, bm, bn), dtype=out_dtype, device=device)
     n_runs = run_c.numel()
     if run_start.numel() != n_runs + 1:
         raise KernelError("run_start must hold n_runs + 1 offsets")
+    fills = n_runs == 0 or route(bm, bk, bn) != "scalar_runs"
+    out = (torch.zeros if fills else torch.empty)(
+        (n_c_blocks, bm, bn), dtype=out_dtype, device=device)
     if n_runs == 0:
         return out
     kernel = launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out)

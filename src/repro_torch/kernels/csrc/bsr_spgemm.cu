@@ -12,16 +12,51 @@
 // (repro_torch.kernels.bsr_spgemm.pair_runs), and every C tile of a run
 // belongs to one warp or one program: no atomics, no cross-block reduction,
 // and the same sum order on every call.  C blocks that no run touches keep
-// the zeros the wrapper allocates.
+// the zeros the wrapper allocates (scalar_runs writes them itself).
 //
 // What bounds it: memory traffic and latency at small blocks, arithmetic at
 // large ones.  Four kernels, one per regime, picked by the wrapper before
 // launch (repro_torch.kernels.bsr_spgemm.route):
-//   - scalar_runs, (1, 1, 1): a scalar segment sum, one thread per run, many
-//     runs per block; a run's indices are contiguous, so a thread streams
-//     through them from L1 after the first miss.  Runs are short (about ten
-//     pairs for an AMG Galerkin product), so a warp per run would idle most
-//     lanes.
+//   - scalar_runs, (1, 1, 1): bound by bytes (each pair reads its two
+//     indices, 8 bytes, from device memory and two values, mostly from L2;
+//     27-AP at n = 63: 28.9 M pairs in 2.9 M runs, ~300 MB), and by the
+//     runs' uneven lengths: the MCL squares of the paper's Sec. 6.3 hold
+//     hub runs of 200 to 500 pairs among runs of one or two.  So the work
+//     is split by pairs, not by runs: each warp takes a fixed span of
+//     pairs (one span for each warp the card holds at once) and owns the
+//     runs that start in it, reading on past its end to finish its last.
+//     The sum order is a run's own, whatever its place in the pair list,
+//     so a run sums to the same bits in a batched launch (m copies of the
+//     lists), in one rank's launch and in the one-process launch of all
+//     ranks: a run is cut into groups of kGroup = 4 pairs from its start,
+//     a lane adds a group's products in order, the groups of a piece (32
+//     groups, 128 pairs, from the run's start) are summed within the warp
+//     by shuffles (lane j adds lane j + 1, 2, 4, 8, 16 of its piece where
+//     that lies in the piece; the sum ends on the piece's first lane), and
+//     a run's pieces are added in order.  The warp walks its runs in
+//     windows of 32 groups: a window starts on a piece's first pair, takes
+//     that piece and then the whole runs after it whose groups fit in the
+//     lanes left (one coalesced load of the next 32 run ends, a scan of
+//     their group counts and a mask of where each run's lanes start,
+//     __reduce_or_sync), so a run of one pair takes a lane and a hub run a
+//     window a piece, carrying its sum so far in a register.  The next
+//     window's run ends and C slots are in flight while this one is summed.
+//     No atomics and nothing shared between warps.  Every C slot is written
+//     (the zeros before each run by its owner, long gaps by the whole warp,
+//     the slots after the last run by its owner), so the wrapper allocates
+//     C without a fill.  Runs are non-empty and their C slots ascending, as
+//     pair_runs makes them.  It replaces the first design, one thread a
+//     run, whose warps waited on their longest run and whose lanes read
+//     their indices 1 to 49 pairs apart.  Against it (PERF.md, by
+//     tools/time_k1_scalar.py, one card and call): faster where runs are
+//     long or launches small (27-AP n = 42 monoC, rank 0 of 27-PTAP,
+//     MCL-dip 0.2), level at 27-AP n = 63, slower where runs average one
+//     or two pairs over millions of runs (MCL-facebook at scale 1, the
+//     batched LP lists): there a window holds 32 runs and little else, and
+//     its scan, masks and shuffles cost more than one thread's short loop
+//     did.  Tried and slower: a pair a lane (every pair through the shuffles), 8 pairs
+//     a group, the next window's indices copied ahead by cp.async, and 32
+//     registers a thread.
 //   - warp_runs, bm, bn <= 16 and bk <= 16: bound by bytes (at b = 16 the
 //     block16-4096 product moves 48 MB and does 0.36 GFLOP, 5 us on the CUDA
 //     cores), and by latency: its 44,048 pairs fall into 32,207 runs, 1.4
@@ -92,6 +127,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
@@ -99,28 +136,170 @@
 
 namespace {
 
-constexpr int kScalarThreads = 256;
 constexpr int kMaxTiles = 65535;  // gridDim.y
 // the kernels, as the wrapper numbers them (repro_torch.kernels.bsr_spgemm.KERNELS)
 enum Kernel { kScalar = 0, kWarp = 1, kTile = 2, kMma = 3 };
 constexpr unsigned kAll = 0xffffffffu;
 
-// (1, 1, 1): thread r sums run r.
-template <typename T>
-__global__ void scalar_runs(const T* __restrict__ a, const T* __restrict__ b,
-                            const int* __restrict__ pair_a,
-                            const int* __restrict__ pair_b,
-                            const int* __restrict__ run_start,
-                            const int* __restrict__ run_c, T* __restrict__ out,
-                            int n_runs) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_runs) return;
-  const int end = run_start[r + 1];
-  float acc = 0.f;
-  for (int i = run_start[r]; i < end; ++i) {
-    acc = fmaf(to_f32(a[pair_a[i]]), to_f32(b[pair_b[i]]), acc);
+// ---------------------------------------------------------------- scalar_runs
+
+constexpr int kScalarWarps = 4;        // warps a program
+constexpr int kGroup = 4;              // pairs a lane adds in order, counted from its run's start
+constexpr int kPiece = 32 * kGroup;    // pairs of a run summed as one piece: a group a lane
+constexpr int kMinSpan = 64;           // fewest pairs a warp's span holds
+constexpr int kShortGap = 64;          // C slots a lane zeroes alone before its run
+
+// The first run whose start is >= q (run_start[n_runs] = n_pairs >= q), by
+// a 32-way search of the warp: a few dependent loads for millions of runs.
+__device__ __forceinline__ int first_run_at(const int* __restrict__ run_start, int n_runs, int q,
+                                            int lane) {
+  int lo = 0, hi = n_runs;  // the run is in [lo, hi]
+  while (hi - lo > 32) {
+    const int k = lo + static_cast<int>(static_cast<int64_t>(lane + 1) * (hi - lo) / 33);
+    const int below = __popc(__ballot_sync(kAll, run_start[k] < q));
+    const int k_lo = __shfl_sync(kAll, k, max(below - 1, 0));
+    const int k_hi = __shfl_sync(kAll, k, min(below, 31));
+    lo = below > 0 ? k_lo + 1 : lo;
+    hi = below < 32 ? k_hi : hi;
   }
-  out[run_c[r]] = from_f32<T>(acc);
+  const int k = lo + lane;
+  return lo + __popc(__ballot_sync(kAll, k < hi && run_start[k] < q));
+}
+
+// Zeros into out[z0, z1) of every lane, written by the whole warp.
+template <typename T>
+__device__ __forceinline__ void zero_slots(T* __restrict__ out, int z0, int z1, int lane) {
+  for (unsigned m = __ballot_sync(kAll, z1 > z0); m; m &= m - 1) {
+    const int src = __ffs(m) - 1;
+    const int lo = __shfl_sync(kAll, z0, src), hi = __shfl_sync(kAll, z1, src);
+    for (int z = lo + lane; z < hi; z += 32) out[z] = from_f32<T>(0.f);
+  }
+}
+
+// The end and C slot of run r0 + lane (INT_MAX and -1 past the last run).
+__device__ __forceinline__ void load_runs(const int* __restrict__ run_start,
+                                          const int* __restrict__ run_c, int r0, int n_runs,
+                                          int lane, int& e, int& c) {
+  const int r = r0 + lane;
+  e = r < n_runs ? __ldg(run_start + r + 1) : INT_MAX;
+  c = r < n_runs ? __ldg(run_c + r) : -1;
+}
+
+// (1, 1, 1).  Warp w owns the runs that start in its span [w span, (w + 1)
+// span) and walks them in windows of 32 groups, a group a lane: a window
+// starts at p0, the first pair of a piece of run r0 (start0: r0's first
+// pair; carry: r0's pieces before p0, summed in order), takes that piece
+// and then the whole runs after it whose groups fit in the lanes left.
+// Lane k first holds the end and C slot of run r0 + k.
+template <typename T>
+__global__ void __launch_bounds__(kScalarWarps * 32)
+    scalar_runs(const T* __restrict__ a, const T* __restrict__ b,
+                const int* __restrict__ pair_a, const int* __restrict__ pair_b,
+                const int* __restrict__ run_start, const int* __restrict__ run_c,
+                T* __restrict__ out, int n_runs, int n_pairs, int n_c, int span) {
+  const int lane = threadIdx.x % 32;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kScalarWarps + threadIdx.x / 32;
+  if (w * span >= n_pairs) return;
+  const int s0 = static_cast<int>(w * span);
+  const int s1 = static_cast<int>(w * span + span < n_pairs ? w * span + span : n_pairs);
+  int r0 = first_run_at(run_start, n_runs, s0, lane);
+  if (r0 >= n_runs) return;
+  int p0 = __ldg(run_start + r0);
+  if (p0 >= s1) return;  // no run starts in the span
+  const unsigned upto_lane = (2u << lane) - 1u;  // lanes 0..lane (all at 31)
+  int start0 = p0;
+  int prev_c = r0 > 0 ? __ldg(run_c + r0 - 1) : -1;  // the C slot of the run before r0
+  float carry = 0.f;
+  int e, c;
+  load_runs(run_start, run_c, r0, n_runs, lane, e, c);
+  for (;;) {
+    // run r0 + k here: pairs [s, e) of it, its groups in this window (one
+    // piece at most), for the runs this warp owns: r0 .. r0 + k_stop
+    const unsigned stops = __ballot_sync(kAll, !(r0 + lane + 1 < n_runs && e < s1));
+    const int k_stop = stops ? __ffs(stops) - 1 : 32;
+    const int e_up = __shfl_up_sync(kAll, e, 1);
+    const int s = lane ? e_up : p0;
+    const bool owned = lane <= k_stop;
+    const int groups = owned ? (min(e - s, kPiece) + kGroup - 1) / kGroup : 0;
+    int upto = groups;  // the groups of runs r0 .. r0 + k
+#pragma unroll
+    for (int off = 1; off < 32; off *= 2) {
+      const int t = __shfl_up_sync(kAll, upto, off);
+      if (lane >= off) upto += t;
+    }
+    // the window takes r0's piece and the runs after it whose groups fit
+    // (a run longer than a piece never fits after another)
+    const int last = __popc(__ballot_sync(kAll, owned && upto <= 32)) - 1;
+    const int used = __shfl_sync(kAll, upto, last);
+    const int e_last = __shfl_sync(kAll, e, last), s_last = __shfl_sync(kAll, s, last);
+    const bool last_ends = e_last - s_last <= kPiece;  // else last == 0: r0 runs on
+    const bool done = last == k_stop && last_ends;
+    const int p1 = last_ends ? e_last : p0 + kPiece;
+    const int r1 = last_ends ? r0 + last + 1 : r0;
+    // the next window's runs, in flight while this one is summed
+    int e1 = 0, c1 = 0;
+    if (!done) load_runs(run_start, run_c, r1, n_runs, lane, e1, c1);
+    // this lane's group: run r0 + m's group gi, pairs [q, q_end)
+    const unsigned firsts = __reduce_or_sync(kAll, lane < last ? 1u << upto : 0u) | 1u;
+    const unsigned mine = firsts & upto_lane;
+    const int m = __popc(mine) - 1;
+    const int gi = lane - (31 - __clz(mine));
+    const int sm = __shfl_sync(kAll, s, m), em = __shfl_sync(kAll, e, m);
+    const int len = __shfl_sync(kAll, groups, m);  // the piece's groups
+    const bool in = lane < used;
+    const int q = sm + kGroup * gi, q_end = min(em, q + kGroup);
+    float v = 0.f;
+    if (in) {
+      int ia[kGroup], ib[kGroup];
+#pragma unroll
+      for (int i = 0; i < kGroup; ++i) {
+        ia[i] = q + i < q_end ? __ldcs(pair_a + q + i) : 0;
+        ib[i] = q + i < q_end ? __ldcs(pair_b + q + i) : 0;
+      }
+      v = __fmul_rn(to_f32(a[ia[0]]), to_f32(b[ib[0]]));
+#pragma unroll
+      for (int i = 1; i < kGroup; ++i) {
+        if (q + i < q_end) v = __fadd_rn(v, __fmul_rn(to_f32(a[ia[i]]), to_f32(b[ib[i]])));
+      }
+    }
+    // the piece's sum, within the warp: lane gi adds lane gi + off of its piece
+    const int longest = __reduce_max_sync(kAll, in ? len : 0);
+    for (int off = 1; off < longest; off *= 2) {
+      const float t = __shfl_down_sync(kAll, v, off);
+      if (gi + off < len) v = __fadd_rn(v, t);
+    }
+    // a piece's first lane adds it to its run's sum and writes a run that ends
+    const bool head = in && gi == 0;
+    const bool opens = head && (m > 0 || p0 == start0);  // the run's first piece
+    const float sum = head && !opens ? __fadd_rn(carry, v) : v;
+    const int slot = __shfl_sync(kAll, c, m);
+    const int c_before = __shfl_sync(kAll, c, max(m - 1, 0));
+    const int before = m > 0 ? c_before : prev_c;
+    if (head && em - sm <= kPiece) out[slot] = from_f32<T>(sum);
+    // the zeros of the C slots between the run before and this one
+    const bool long_gap = opens && slot - before > kShortGap;
+    if (opens && !long_gap) {
+      for (int z = before + 1; z < slot; ++z) out[z] = from_f32<T>(0.f);
+    }
+    if (__any_sync(kAll, long_gap)) {
+      zero_slots(out, long_gap ? before + 1 : 0, long_gap ? slot : 0, lane);
+    }
+    const int c_last = __shfl_sync(kAll, c, last);
+    if (done) {
+      // the last run of all: the slots after it are its owner's
+      if (r0 + last == n_runs - 1) zero_slots(out, lane ? 0 : c_last + 1, lane ? 0 : n_c, lane);
+      return;
+    }
+    const float sum0 = __shfl_sync(kAll, sum, 0);
+    if (last_ends) {  // the next window starts run r1
+      start0 = p1;
+      prev_c = c_last;
+      carry = 0.f;
+    } else {  // r0 runs on: its sum so far
+      carry = sum0;
+    }
+    p0 = p1, r0 = r1, e = e1, c = c1;
+  }
 }
 
 // ------------------------------------------------------------------ warp_runs
@@ -840,17 +1019,9 @@ struct Args {
   const int* rs;
   const int* rc;
   void* out;
-  int n_runs, bm, bk, bn;
+  int n_runs, n_pairs, n_c, bm, bk, bn;
   cudaStream_t stream;
 };
-
-template <typename T>
-void launch_scalar(const Args& g) {
-  const int grid = (g.n_runs + kScalarThreads - 1) / kScalarThreads;
-  scalar_runs<T><<<grid, kScalarThreads, 0, g.stream>>>(
-      static_cast<const T*>(g.a), static_cast<const T*>(g.b), g.pa, g.pb, g.rs, g.rc,
-      static_cast<T*>(g.out), g.n_runs);
-}
 
 template <typename T, int SIDE, bool VEC>
 void launch_warp_side(const Args& g) {
@@ -861,6 +1032,31 @@ void launch_warp_side(const Args& g) {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// A span for each warp the card holds at once (one wave, every warp the
+// same number of pairs), at least kMinSpan pairs.
+template <typename T>
+void launch_scalar(const Args& g) {
+  static int resident[64];  // warps a device holds at once, by device (0: not asked yet)
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return;  // the error stays for the caller
+  int warps = dev < 64 ? resident[dev] : 0;
+  if (!warps) {
+    int sms = 0, blocks = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, scalar_runs<T>,
+                                                      kScalarWarps * 32, 0) != cudaSuccess) {
+      return;
+    }
+    warps = std::max(1, sms * blocks * kScalarWarps);
+    if (dev < 64) resident[dev] = warps;
+  }
+  const int span = std::max(kMinSpan, (g.n_pairs + warps - 1) / warps);
+  const int spans = (g.n_pairs + span - 1) / span;
+  scalar_runs<T><<<(spans + kScalarWarps - 1) / kScalarWarps, kScalarWarps * 32, 0, g.stream>>>(
+      static_cast<const T*>(g.a), static_cast<const T*>(g.b), g.pa, g.pb, g.rs, g.rc,
+      static_cast<T*>(g.out), g.n_runs, g.n_pairs, g.n_c, span);
+}
 
 template <typename T>
 void launch_warp(const Args& g) {
@@ -956,24 +1152,31 @@ int run(int kernel, const Args& g) {
 // Launches `kernel` on the shapes the wrapper's route gives it (0
 // scalar_runs: (1, 1, 1); 1 warp_runs: bm, bn, bk <= 16; 2 tile_runs: bm,
 // bn <= 32 and some side over 16; 3 mma_runs: bm or bn over 32).  a: A blocks
-// (n, bm, bk); b: B blocks (n, bk, bn); pair_a, pair_b: int32 per pair;
-// run_start: int32, n_runs + 1 offsets into the pairs; run_c: int32 C slot
-// per run; out: C blocks (n_c, bm, bn), zeroed by the caller; dtype (a, b
-// and out): 0 = float32, 1 = bfloat16, 2 = float16.  Returns
-// cudaErrorInvalidValue for a shape the kernel does not take, else
+// (n, bm, bk); b: B blocks (n, bk, bn); pair_a, pair_b: int32 per pair,
+// n_pairs of them; run_start: int32, n_runs + 1 offsets into the pairs
+// (repro_torch.kernels.bsr_spgemm.pair_runs: from 0 to n_pairs, each run
+// non-empty); run_c: int32 C slot per run, ascending; out: C blocks (n_c,
+// bm, bn), zeroed by the caller except for scalar_runs, which writes every
+// slot; dtype (a, b and out): 0 = float32, 1 = bfloat16, 2 = float16.
+// Returns cudaErrorInvalidValue for a shape the kernel does not take, else
 // cudaGetLastError() after the launch (0 on success); the wrapper raises on
 // anything else.
 extern "C" int repro_bsr_spgemm(int kernel, const void* a, const void* b, const void* pair_a,
                                 const void* pair_b, const void* run_start, const void* run_c,
-                                void* out, int n_runs, int bm, int bk, int bn, int dtype,
-                                void* stream) {
-  if (n_runs < 0 || bm < 1 || bk < 1 || bn < 1 || dtype < 0 || dtype > 2) {
+                                void* out, int n_runs, int n_pairs, int n_c, int bm, int bk,
+                                int bn, int dtype, void* stream) {
+  if (n_runs < 0 || n_pairs < n_runs || n_c < 0 || bm < 1 || bk < 1 || bn < 1 || dtype < 0 ||
+      dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int tile;  // the side of the square C tiles of one program (or warp)
   switch (kernel) {
     case kScalar:
       if (bm != 1 || bk != 1 || bn != 1) return static_cast<int>(cudaErrorInvalidValue);
+      if (n_runs == 0) {  // no run: every C slot is zero
+        return static_cast<int>(cudaMemsetAsync(out, 0, static_cast<size_t>(n_c) * (dtype ? 2 : 4),
+                                                static_cast<cudaStream_t>(stream)));
+      }
       tile = 1;
       break;
     case kWarp:
@@ -999,7 +1202,7 @@ extern "C" int repro_bsr_spgemm(int kernel, const void* a, const void* b, const 
   if (n_runs == 0) return static_cast<int>(cudaGetLastError());
   const Args g{a, b, static_cast<const int*>(pair_a), static_cast<const int*>(pair_b),
                static_cast<const int*>(run_start), static_cast<const int*>(run_c), out, n_runs,
-               bm, bk, bn, static_cast<cudaStream_t>(stream)};
+               n_pairs, n_c, bm, bk, bn, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
     case 0:
       return run<float>(kernel, g);

@@ -27,6 +27,7 @@ from repro_torch.kernels.bsr_spgemm import (
     bsr_spgemm,
     bsr_spgemm_local,
     build_pair_lists,
+    pair_runs,
     route as k1_route,
 )
 from repro_torch.kernels.bsr_spmm import bsr_spmm, bsr_spmm_local, route as k2_route
@@ -537,13 +538,14 @@ def test_expert_split_takes_a_misaligned_fp32_view(cuda):
 @pytest.mark.parametrize(
     "bm, bk, bn",
     [(16, 16, 16), (8, 16, 8), (8, 8, 8), (64, 64, 64), (128, 64, 96), (64, 42, 70),
-     (32, 32, 32), (24, 20, 28), (8, 64, 8)],
+     (32, 32, 32), (24, 20, 28), (8, 64, 8), (1, 1, 1)],
 )
 def test_k1_routes_at_run_lengths(cuda, bm, bk, bn, dtype, run_len):
-    """Small blocks (warp_runs), sides of 17 to 32 and bk over 16
-    (tile_runs) and large blocks (mma_runs) over runs of 1, 2 and 24 pairs
-    on N(0, 1) data with full fp32 mantissas: 3 x 2 C blocks, each summing
-    run_len pairs, then a garbage run into a last slot."""
+    """Scalars (scalar_runs), small blocks (warp_runs), sides of 17 to 32
+    and bk over 16 (tile_runs) and large blocks (mma_runs) over runs of 1,
+    2 and 24 pairs on N(0, 1) data with full fp32 mantissas: 3 x 2 C
+    blocks, each summing run_len pairs, then a garbage run into a last
+    slot.  Longer runs at 1 x 1 x 1: ``test_scalar_runs_at_run_lengths``."""
     rng = np.random.default_rng(bm + bk + bn + run_len)
     na, nb = 3 * run_len, run_len * 2
     a32 = _full_mantissa(rng, (na + 1, bm, bk), 1.0, cuda)
@@ -557,7 +559,8 @@ def test_k1_routes_at_run_lengths(cuda, bm, bk, bn, dtype, run_len):
     pa, pb, pc = np.r_[pa, [na] * 5], np.r_[pb, [nb] * 5], np.r_[pc, [6] * 5]
     a_blocks, b_blocks = a32.to(dtype), b32.to(dtype)
     kernel = k1_route(bm, bk, bn)
-    assert kernel == ("warp_runs" if max(bm, bk, bn) <= 16 else
+    assert kernel == ("scalar_runs" if bm == bk == bn == 1 else
+                      "warp_runs" if max(bm, bk, bn) <= 16 else
                       "mma_runs" if max(bm, bn) > 32 else "tile_runs")
     before = dict(bsr_spgemm_local.launches)
     got = bsr_spgemm(a_blocks, b_blocks, pa, pb, pc, 7)
@@ -572,6 +575,125 @@ def test_k1_routes_at_run_lengths(cuda, bm, bk, bn, dtype, run_len):
     if dtype == torch.float32:  # and against float64, on full mantissas
         want64 = bsr_spgemm_ref(a32.double(), b32.double(), *idx, 7)
         torch.testing.assert_close(got.double(), want64, rtol=1e-4, atol=1e-4)
+
+
+# C slots of _scalar_case's runs: 0, 3, 7, 8 and 11 no run covers; 12 is the garbage run's
+SCALAR_SLOTS = np.array([1, 2, 4, 5, 6, 9, 10])
+
+
+def _scalar_case(rng, run_len, device, slots=SCALAR_SLOTS, n_c=13):
+    """1 x 1 x 1 tables of 4,096 full-mantissa N(0, 1) values (the last
+    0.0) and pair lists: a run of ``run_len`` random pairs into each of
+    ``slots``, then a garbage run of 5 pairs reading the zeros into slot
+    n_c - 1.  The lists as int32 tensors on ``device``."""
+    a = _full_mantissa(rng, (4096, 1, 1), 1.0, device)
+    b = _full_mantissa(rng, (4096, 1, 1), 1.0, device)
+    a[-1], b[-1] = 0.0, 0.0
+    n = run_len * len(slots)
+    pa = np.r_[rng.integers(0, 4095, n), [4095] * 5]
+    pb = np.r_[rng.integers(0, 4095, n), [4095] * 5]
+    pc = np.r_[np.repeat(slots, run_len), [n_c - 1] * 5]
+    return a, b, (pa, pb, pc), n_c
+
+
+def _scalar_held(a, b, pairs, n_c, dtype, device):
+    """K1 at 1 x 1 x 1 through ``bsr_spgemm``: one scalar_runs launch,
+    within TOL of its plain version (and fp32 within 1e-4 of float64),
+    zero in every C slot no run covers, the same bits from a second call
+    and from a launch into C filled with NaN first.  Returns C."""
+    from repro_torch.kernels.bsr_spgemm import launch
+
+    a_t, b_t = a.to(dtype), b.to(dtype)
+    before = dict(bsr_spgemm_local.launches)
+    got = bsr_spgemm(a_t, b_t, *pairs, n_c)
+    torch.cuda.synchronize()
+    assert _counted(bsr_spgemm_local.launches, before, "scalar_runs")
+    assert got.dtype == dtype and got.shape == (n_c, 1, 1)
+    idx = [torch.as_tensor(x, device=device, dtype=torch.int32) for x in pairs]
+    want = bsr_spgemm_ref(a_t, b_t, *idx, n_c)
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == torch.float32:
+        want64 = bsr_spgemm_ref(a.double(), b.double(), *idx, n_c)
+        torch.testing.assert_close(got.double(), want64, rtol=1e-4, atol=1e-4)
+    covered = torch.zeros(n_c, dtype=torch.bool, device=device)
+    covered[idx[2].long()] = True
+    assert not got[~covered].any()
+    assert torch.equal(bsr_spgemm(a_t, b_t, *pairs, n_c), got)
+    run_start, run_c = (torch.as_tensor(x, device=device) for x in pair_runs(pairs[2]))
+    out = torch.full_like(got, float("nan"))
+    assert launch(a_t, b_t, *idx[:2], run_start, run_c, out) == "scalar_runs"
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    return got
+
+
+@pytest.mark.parametrize("run_len", [1, 31, 33, 485, 5000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_scalar_runs_at_run_lengths(cuda, dtype, run_len):
+    """scalar_runs over runs shorter and longer than a warp's 32 lanes, a
+    hub of MCL-facebook's size (485) and runs of 5,000 pairs that reach
+    across many warps' spans, with C slots no run covers and a garbage
+    run: ``_scalar_held``'s checks."""
+    a, b, pairs, n_c = _scalar_case(np.random.default_rng(run_len), run_len, cuda)
+    _scalar_held(a, b, pairs, n_c, dtype, cuda)
+
+
+def test_scalar_runs_with_one_run_holding_every_pair(cuda):
+    """300,000 pairs in one run, across every warp's span (the first warp
+    owns it), into slot 1 of 3."""
+    a, b, pairs, n_c = _scalar_case(np.random.default_rng(3), 300_000, cuda,
+                                    slots=np.array([1]), n_c=3)
+    pairs = tuple(x[:-5] for x in pairs)  # no garbage run: slot 2 is uncovered
+    got = _scalar_held(a, b, pairs, n_c, torch.float32, cuda)
+    assert got[0] == 0 and got[2] == 0
+
+
+def test_scalar_runs_with_no_run_is_zero_and_launches_nothing(cuda):
+    a = torch.ones((4, 1, 1), device=cuda)
+    before = dict(bsr_spgemm_local.launches)
+    got = bsr_spgemm(a, a, [], [], [], 5)
+    torch.cuda.synchronize()
+    assert bsr_spgemm_local.launches == before
+    assert got.shape == (5, 1, 1) and not got.any()
+
+
+def test_scalar_runs_sums_a_run_the_same_wherever_it_sits(cuda):
+    """The pair lists of 485-pair runs twice in one launch, the second copy
+    offset by its tables and C slots (as a batched monoC launch lays out its
+    sets): each copy's C is the single launch's bit for bit."""
+    rng = np.random.default_rng(12)
+    a, b, (pa, pb, pc), n_c = _scalar_case(rng, 485, cuda)
+    one = bsr_spgemm(a, b, pa, pb, pc, n_c)
+    a2, b2 = torch.cat([a, a.flip(0)]), torch.cat([b, b.flip(0)])
+    two = bsr_spgemm(a2, b2, np.r_[pa, 4095 - pa + 4096], np.r_[pb, 4095 - pb + 4096],
+                     np.r_[pc, pc + n_c], 2 * n_c)
+    torch.cuda.synchronize()
+    assert torch.equal(two[:n_c], one)
+    assert torch.equal(two[n_c:], one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["garbage", "hub", "mcl_facebook", "one_pair_runs",
+                                  "span_edges", "uncovered"])
+def test_scalar_runs_is_the_model_bit_for_bit(cuda, case, dtype):
+    """``bsr_spgemm`` at 1 x 1 x 1 on the card: one ``scalar_runs`` launch
+    whose C is ``k1_scalar_model.runs_own_order`` of the values it reads,
+    bit for bit (rounded once to the result's type), zero in every slot no
+    run covers; on the model's cases (a 1,000-pair hub, runs ending on and
+    beside span and window edges, one-pair runs, long gaps of uncovered
+    slots, a garbage run) and MCL-facebook at scale 0.05 squared."""
+    from k1_scalar_model import CASES, mcl_facebook, runs_own_order
+
+    a, b, pa, pb, pc, n_c = (mcl_facebook if case == "mcl_facebook" else CASES[case])()
+    ta, tb = (torch.from_numpy(v).to(dtype) for v in (a, b))
+    run_start, run_c = pair_runs(pc)
+    want32 = runs_own_order(ta.float().numpy()[pa], tb.float().numpy()[pb], run_start, run_c,
+                            n_c)
+    before = dict(bsr_spgemm_local.launches)
+    got = bsr_spgemm(ta.view(-1, 1, 1).to(cuda), tb.view(-1, 1, 1).to(cuda), pa, pb, pc, n_c)
+    torch.cuda.synchronize()
+    assert _counted(bsr_spgemm_local.launches, before, "scalar_runs")
+    assert torch.equal(got.cpu().ravel(), torch.from_numpy(want32).to(dtype))
 
 
 def test_expert_wgmma_is_deterministic(cuda):
