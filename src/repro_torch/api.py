@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.comm import (
     CommCosts,
     evaluate,
@@ -148,11 +149,12 @@ class CompiledSpGEMM:
         """The local half of a call (``runtime.CompiledSpGEMM.prepare``):
         the values packed into the executor's tables, and the batch's size
         (None unbatched).  ``run`` finishes it."""
-        a, b = self.pack(a_values, b_values)
-        m = None
-        if self.batch_capacity is not None:
-            m = torch.atleast_2d(torch.as_tensor(a_values)).shape[0]
-        return self.runtime.prepare(a, b), m
+        with tracing.span("api.prepare"):
+            a, b = self.pack(a_values, b_values)
+            m = None
+            if self.batch_capacity is not None:
+                m = torch.atleast_2d(torch.as_tensor(a_values)).shape[0]
+            return self.runtime.prepare(a, b), m
 
     def run(self, prepared: tuple) -> torch.Tensor:
         """The collective half of a call: the step and the unpacking, the
@@ -385,32 +387,37 @@ def _plan_one(
     if spec.build is None:
         # partition-free baseline (summa2d): no hypergraph to build or
         # partition — lower the instance straight to its execution plan
+        with tracing.span("plan.lower", always=True):
+            plan_obj = spec.lower(inst, None, p)
         return PlannedSpGEMM(
             instance=inst,
             model=model,
             hypergraph=None,
             partition=None,
-            execution_plan=spec.lower(inst, None, p),
+            execution_plan=plan_obj,
             eps=eps,
             seed=seed,
         )
-    hg = spec.build(inst, include_nz=include_nz)
-    res = _partition(
-        hg,
-        p,
-        eps=eps,
-        seed=seed,
-        engine=engine,
-        warm_start=warm_start,
-        warm_drift_limit=warm_drift_limit,
-        coarsen=coarsen,
-        device=device,
-    )
+    with tracing.span("plan.build", always=True):
+        hg = spec.build(inst, include_nz=include_nz)
+    with tracing.span("plan.partition", always=True):
+        res = _partition(
+            hg,
+            p,
+            eps=eps,
+            seed=seed,
+            engine=engine,
+            warm_start=warm_start,
+            warm_drift_limit=warm_drift_limit,
+            coarsen=coarsen,
+            device=device,
+        )
     # a V^nz partition lowers only where the model's lowerer accepts one
     # (fine); elsewhere the handle stays analysis-only
     plan_obj = None
     if not include_nz or spec.lower_include_nz:
-        plan_obj = spec.lower(inst, res.parts, p)
+        with tracing.span("plan.lower", always=True):
+            plan_obj = spec.lower(inst, res.parts, p)
     return PlannedSpGEMM(
         instance=inst,
         model=model,

@@ -45,6 +45,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch._device import resolve_device
 from repro_torch.distributed.registry import get_spec
 from repro_torch.sparse.structure import SparseStructure, structure_fingerprint
@@ -209,14 +210,16 @@ class CompiledSpGEMM:
         """The local half of a call: the ``"execute"`` patch point, then the
         value stacks packed into this process's rank-major tables."""
         faults.fire("execute")
-        a = self._coerce(a_values, self._a_shape, "A")
-        b = self._coerce(b_values, self._b_shape, "B")
+        with tracing.span("runtime.copy_in"):
+            a = self._coerce(a_values, self._a_shape, "A")
+            b = self._coerce(b_values, self._b_shape, "B")
         return self.pack(a, b)
 
     def run(self, tables: tuple) -> torch.Tensor:
         """The step on ``prepare``'s tables (every collective of the call):
         rank-major C shards."""
-        return self.step(*tables)
+        with tracing.span("runtime.run"):
+            return self.step(*tables)
 
     def __call__(self, a_values, b_values) -> torch.Tensor:
         """Value-only update: returns rank-major C shards (with a leading
@@ -237,7 +240,8 @@ class CompiledSpGEMM:
         gathers every rank's shards first."""
         if self._unpack is None:
             raise ValueError(f"unpacking a {self.model} result needs c_structure")
-        return self._unpack(self.comm.gather_ranks(c_local))
+        with tracing.span("runtime.unpack"):
+            return self._unpack(self.comm.gather_ranks(c_local))
 
 
 # -- bounded LRU cache -------------------------------------------------------
@@ -285,10 +289,11 @@ def compile_spgemm(
             exe.set_c_structure(c_structure)
         return exe
     _STATS["misses"] += 1
-    exe = CompiledSpGEMM(
-        plan, a_structure, b_structure, device=device, dtype=dtype,
-        block=block, c_structure=c_structure, batch=batch, group=group,
-    )
+    with tracing.span("runtime.build", always=True):
+        exe = CompiledSpGEMM(
+            plan, a_structure, b_structure, device=device, dtype=dtype,
+            block=block, c_structure=c_structure, batch=batch, group=group,
+        )
     _CACHE[key] = exe
     while len(_CACHE) > CACHE_SIZE:
         _CACHE.popitem(last=False)

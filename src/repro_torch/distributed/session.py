@@ -67,6 +67,7 @@ from collections import Counter, OrderedDict
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.distributed.runtime import resolve_device, torch_dtype
 from repro_torch.kernels import KernelError
 from repro_torch.resilience import FaultPolicy, PeerFailure, retry_call
@@ -231,9 +232,10 @@ class SpGEMMSession:
         group the retried half is ``exe.prepare`` (packing and the patch
         point) alone, agreed by every rank before any runs the exchanges;
         a failure past that point is raised."""
-        if self.group is None:
-            return self._retry(lambda: exe(a_vals, b_vals), "execute")
-        return exe.run(self._retry(lambda: exe.prepare(a_vals, b_vals), "execute"))
+        with tracing.span("session.call"):
+            if self.group is None:
+                return self._retry(lambda: exe(a_vals, b_vals), "execute")
+            return exe.run(self._retry(lambda: exe.prepare(a_vals, b_vals), "execute"))
 
     __call__ = multiply
 

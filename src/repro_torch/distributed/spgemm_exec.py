@@ -48,6 +48,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed.comm import GroupComm, Loopback, make_comm
 from repro_torch.distributed.plan_ir import FinePlan, MonoCPlan, OuterPlan, RowwisePlan
 from repro_torch.kernels.bsr_spgemm import bsr_spgemm_local, pair_runs
@@ -121,13 +122,14 @@ def _expand(comm: Loopback | GroupComm, own: torch.Tensor, route, lead: tuple) -
     (sets,)), flattened set- then rank-major to
     ``(sets * held * table_slots, ...)``: one all_to_all of the owned items
     each rank ships — THE cut-net traffic of this operand."""
-    flat_idx, n_items, T = route
-    h, p, item = own.shape[len(lead)], comm.p, own.shape[len(lead) + 2:]
-    buf = _take0(own.reshape(-1, *item), flat_idx).reshape(*lead, h, p, T, *item)
-    recv = comm.all_to_all(buf, n_items)
-    zero = own.new_zeros((*lead, h, 1, *item))
-    tables = torch.cat([own, recv.reshape(*lead, h, p * T, *item), zero], len(lead) + 1)
-    return tables.reshape(-1, *item)
+    with tracing.span("exec.expand"):
+        flat_idx, n_items, T = route
+        h, p, item = own.shape[len(lead)], comm.p, own.shape[len(lead) + 2:]
+        buf = _take0(own.reshape(-1, *item), flat_idx).reshape(*lead, h, p, T, *item)
+        recv = comm.all_to_all(buf, n_items)
+        zero = own.new_zeros((*lead, h, 1, *item))
+        tables = torch.cat([own, recv.reshape(*lead, h, p * T, *item), zero], len(lead) + 1)
+        return tables.reshape(-1, *item)
 
 
 def _flat(x: np.ndarray, device) -> torch.Tensor:

@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels._build import DTYPE_CODE, KernelError, as_index, check_inputs, load
 from repro_torch.kernels.ref import bsr_spgemm_ref
 
@@ -266,43 +267,44 @@ def bsr_spgemm_local(
     are zero (``scalar_runs`` writes them, so C is allocated without a fill
     there).
     """
-    tensors = {
-        "a_blocks": a_blocks,
-        "b_blocks": b_blocks,
-        "pair_a": pair_a,
-        "pair_b": pair_b,
-        "pair_c": pair_c,
-        "run_start": run_start,
-        "run_c": run_c,
-    }
-    device = a_blocks.device
-    for name, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, a_blocks on {device}")
-    bm, bk, bn = _block_shapes(a_blocks, b_blocks)
-    if device.type == "cpu":
-        return bsr_spgemm_ref(a_blocks, b_blocks, pair_a, pair_b, pair_c, n_c_blocks)
-    if device.type != "cuda":
-        raise ValueError(f"no BSR SpGEMM kernel for device type {device.type!r}")
-    check_inputs(
-        [("a_blocks", a_blocks), ("b_blocks", b_blocks)],
-        [(k, tensors[k]) for k in ("pair_a", "pair_b", "run_start", "run_c")],
-    )
-    out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
-    # the kernel reads one element type: mixed inputs meet at the result type
-    a_blocks = a_blocks.to(out_dtype)
-    b_blocks = b_blocks.to(out_dtype)
-    n_runs = run_c.numel()
-    if run_start.numel() != n_runs + 1:
-        raise KernelError("run_start must hold n_runs + 1 offsets")
-    fills = n_runs == 0 or route(bm, bk, bn) != "scalar_runs"
-    out = (torch.zeros if fills else torch.empty)(
-        (n_c_blocks, bm, bn), dtype=out_dtype, device=device)
-    if n_runs == 0:
+    with tracing.span("k1.launch"):
+        tensors = {
+            "a_blocks": a_blocks,
+            "b_blocks": b_blocks,
+            "pair_a": pair_a,
+            "pair_b": pair_b,
+            "pair_c": pair_c,
+            "run_start": run_start,
+            "run_c": run_c,
+        }
+        device = a_blocks.device
+        for name, t in tensors.items():
+            if t.device != device:
+                raise ValueError(f"{name} is on {t.device}, a_blocks on {device}")
+        bm, bk, bn = _block_shapes(a_blocks, b_blocks)
+        if device.type == "cpu":
+            return bsr_spgemm_ref(a_blocks, b_blocks, pair_a, pair_b, pair_c, n_c_blocks)
+        if device.type != "cuda":
+            raise ValueError(f"no BSR SpGEMM kernel for device type {device.type!r}")
+        check_inputs(
+            [("a_blocks", a_blocks), ("b_blocks", b_blocks)],
+            [(k, tensors[k]) for k in ("pair_a", "pair_b", "run_start", "run_c")],
+        )
+        out_dtype = torch.promote_types(a_blocks.dtype, b_blocks.dtype)
+        # the kernel reads one element type: mixed inputs meet at the result type
+        a_blocks = a_blocks.to(out_dtype)
+        b_blocks = b_blocks.to(out_dtype)
+        n_runs = run_c.numel()
+        if run_start.numel() != n_runs + 1:
+            raise KernelError("run_start must hold n_runs + 1 offsets")
+        fills = n_runs == 0 or route(bm, bk, bn) != "scalar_runs"
+        out = (torch.zeros if fills else torch.empty)(
+            (n_c_blocks, bm, bn), dtype=out_dtype, device=device)
+        if n_runs == 0:
+            return out
+        kernel = launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out)
+        bsr_spgemm_local.launches[kernel] += 1
         return out
-    kernel = launch(a_blocks, b_blocks, pair_a, pair_b, run_start, run_c, out)
-    bsr_spgemm_local.launches[kernel] += 1
-    return out
 
 
 # launches since the last reset, per __global__ of csrc/bsr_spgemm.cu

@@ -54,6 +54,7 @@ import numpy as np
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.resilience import FaultPolicy, retry_call
 from repro_torch.sparse.structure import structure_and_values, structure_fingerprint
 
@@ -103,6 +104,7 @@ class Request:
     t_submit: float
     result: torch.Tensor | None = None  # on the server's device
     error: BaseException | None = None
+    t_start: float | None = None  # left the queue for a window
     t_done: float | None = None
 
     @property
@@ -221,27 +223,30 @@ class SpGEMMServer:
         """Drain one batching window; returns the number of requests served
         (completed or failed).  Requests leave the queue in FIFO order, but
         same-structure requests inside the window ride one dispatch."""
-        window: list[Request] = []
-        while self._queue and len(window) < self.config.batch_window:
-            _, req = self._queue.popitem(last=False)
-            window.append(req)
-        if not window:
-            return 0
-        groups: OrderedDict[str, list[Request]] = OrderedDict()
-        for req in window:
-            key = f"{structure_fingerprint(req.a_s)}/{structure_fingerprint(req.b_s)}"
-            groups.setdefault(key, []).append(req)
-        if self.session.group is not None:
-            self._leader_only("step")
-            self._broadcast([
-                (key, self._ship(key, reqs[0]), [(r.a_vals, r.b_vals) for r in reqs],
-                 self.config.max_batch)
-                for key, reqs in groups.items()
-            ])
-        served = 0
-        for reqs in groups.values():
-            served += self._serve_group(reqs, self.config.max_batch)
-        return served
+        with tracing.span("serve.step"):
+            window: list[Request] = []
+            while self._queue and len(window) < self.config.batch_window:
+                _, req = self._queue.popitem(last=False)
+                req.t_start = time.perf_counter()
+                tracing.interval("serve.queue", req.t_submit, req.t_start, (req.rid,))
+                window.append(req)
+            if not window:
+                return 0
+            groups: OrderedDict[str, list[Request]] = OrderedDict()
+            for req in window:
+                key = f"{structure_fingerprint(req.a_s)}/{structure_fingerprint(req.b_s)}"
+                groups.setdefault(key, []).append(req)
+            if self.session.group is not None:
+                self._leader_only("step")
+                self._broadcast([
+                    (key, self._ship(key, reqs[0]), [(r.a_vals, r.b_vals) for r in reqs],
+                     self.config.max_batch)
+                    for key, reqs in groups.items()
+                ])
+            served = 0
+            for reqs in groups.values():
+                served += self._serve_group(reqs, self.config.max_batch)
+            return served
 
     def drain(self, max_steps: int | None = None) -> int:
         """Run ``step()`` until the queue empties; returns requests served."""
@@ -321,7 +326,9 @@ class SpGEMMServer:
             return self._fail(reqs, exc)
         served = 0
         for i in range(0, len(reqs), max_batch):
-            served += self._dispatch(entry, reqs[i : i + max_batch])
+            chunk = reqs[i : i + max_batch]
+            with tracing.span("serve.dispatch", (r.rid for r in chunk)):
+                served += self._dispatch(entry, chunk)
         return served
 
     def _compile_batched(self, entry, m: int):
@@ -352,9 +359,10 @@ class SpGEMMServer:
                 a = np.stack([r.a_vals for r in chunk])
                 b = np.stack([r.b_vals for r in chunk])
             c = self.session.call(exe, a, b)
-            if device.type == "cuda":
-                # done means on the card: the launches return before it is
-                torch.cuda.synchronize(device)
+            with tracing.span("serve.sync"):
+                if device.type == "cuda":
+                    # done means on the card: the launches return before it is
+                    torch.cuda.synchronize(device)
         except Exception as exc:
             return self._fail(chunk, exc)
         now = time.perf_counter()
